@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels (sources in ``csrc/``) and their plain PyTorch
+versions (``ref``)."""

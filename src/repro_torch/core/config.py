@@ -1,9 +1,9 @@
 """Per-model cache configuration (paper §3.3, Table 1).
 
-Twin of ``repro/core/config.py`` (its ``CacheConfig`` part; the registry
-and the paper's production cells join with the multi-model slice). The
-lookup backend is ``"torch"`` (plain PyTorch ops, the port's oracle, any
-device) or ``"cuda"`` (the hand-written kernels, CUDA tensors only).
+Twin of ``repro/core/config.py``: ``CacheConfig``, the registry and the
+paper's production cells that the multi-model tier serves. The lookup
+backend is ``"torch"`` (plain PyTorch ops, the port's oracle, any device)
+or ``"cuda"`` (the hand-written kernels, CUDA tensors only).
 
 ERCache lets every ranking model (or model *type*) opt in with its own TTL.
 Production values from the paper's evaluation:
@@ -14,7 +14,7 @@ Production values from the paper's evaluation:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, List, Optional
 
 MINUTE_MS = 60_000
 HOUR_MS = 3_600_000
@@ -139,3 +139,77 @@ class CacheConfig:
         if self.failover_ttl_relax is None:
             return NO_TTL_MS
         return self.failover_ttl_relax
+
+
+@dataclasses.dataclass(frozen=True)
+class StageConfig:
+    """A (model, ranking-stage) pair (paper Fig. 5: retrieval / first /
+    second stages)."""
+
+    stage: str                          # "retrieval" | "first" | "second"
+    cache: CacheConfig
+
+
+class CacheConfigRegistry:
+    """enable/lookup by model_id with model_type fallback (paper Table 1:
+    caching can be enabled per model id OR per model type)."""
+
+    def __init__(self) -> None:
+        self._by_id: Dict[int, CacheConfig] = {}
+        self._by_type: Dict[str, CacheConfig] = {}
+
+    def register(self, cfg: CacheConfig) -> None:
+        self._by_id[cfg.model_id] = cfg
+
+    def register_type(self, cfg: CacheConfig) -> None:
+        self._by_type[cfg.model_type] = cfg
+
+    def get(self, model_id: int, model_type: Optional[str] = None
+            ) -> Optional[CacheConfig]:
+        cfg = self._by_id.get(model_id)
+        if cfg is None and model_type is not None:
+            cfg = self._by_type.get(model_type)
+        if cfg is not None and not cfg.enable_flag:
+            return None
+        return cfg
+
+
+def paper_production_configs() -> Dict[str, StageConfig]:
+    """The (task x stage) cells of Tables 2-3, with the paper's TTLs. The
+    second-stage models (tightest freshness budgets, Table 4) run
+    LRU-timestamp eviction; the others the TTL-priority default."""
+    rows = [
+        # (name, model_id, type, stage, direct ttl min, failover ttl h, evict)
+        ("cvr_retrieval", 10, "cvr", "retrieval", 5, 1, "ttl"),
+        ("ctr_retrieval", 11, "ctr", "retrieval", 5, 1, "ttl"),
+        ("cvr_first_a", 12, "cvr", "first", 5, 1, "ttl"),
+        ("cvr_first_b", 13, "cvr", "first", 5, 1, "ttl"),
+        ("ctr_first_a", 14, "ctr", "first", 5, 1, "ttl"),
+        ("ctr_first_b", 15, "ctr", "first", 5, 1, "ttl"),
+        ("ctr_second", 16, "ctr", "second", 5, 2, "lru"),
+        ("cvr_second", 17, "cvr", "second", 1, 2, "lru"),
+    ]
+    return {
+        name: StageConfig(stage=stage, cache=CacheConfig(
+            model_id=mid, model_type=mtype,
+            cache_ttl_ms=ttl_min * MINUTE_MS,
+            failover_ttl_ms=fo_h * HOUR_MS, eviction=evict))
+        for name, mid, mtype, stage, ttl_min, fo_h, evict in rows}
+
+
+def multi_model_tier_configs(value_dim: int = 64, n_buckets: int = 1 << 12,
+                             ways: int = 8,
+                             failover_n_buckets: Optional[int] = None
+                             ) -> List[CacheConfig]:
+    """The paper registry sized for one multi-model serving tier: every
+    Table 2-3 cell, ordered by model_id, sharing value_dim and ways but
+    keeping its own TTLs and eviction policy. Retrieval-stage models get a
+    double-capacity DIRECT cache; the failover tier stays at
+    ``failover_n_buckets`` (default: the base ``n_buckets``)."""
+    fo_nb = n_buckets if failover_n_buckets is None else failover_n_buckets
+    cfgs = [dataclasses.replace(
+        cell.cache, value_dim=value_dim, ways=ways,
+        n_buckets=n_buckets * 2 if cell.stage == "retrieval" else n_buckets,
+        failover_n_buckets=fo_nb)
+        for cell in paper_production_configs().values()]
+    return sorted(cfgs, key=lambda c: c.model_id)

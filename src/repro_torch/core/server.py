@@ -1,7 +1,8 @@
-"""CachedEmbeddingServer: the paper's Fig. 3 serve sequence on PyTorch.
+"""CachedEmbeddingServer and MultiModelServer: the paper's Fig. 3 serve
+sequence on PyTorch.
 
-Twin of the single-model part of ``repro/core/server.py``. Per serve
-batch:
+Twin of ``repro/core/server.py`` (its single-model server and its
+multi-model tier). Per serve batch:
 
   1. **Direct + failover cache check**: ONE probe launch for both tables
      (``cache.lookup_dual``, the ``cache_probe_dual`` kernel on the cuda
@@ -24,13 +25,19 @@ the rings in place too, so the state passed in and the one returned share
 their tensors: callers follow the move pattern ``state = res.state``.
 ``serve_many``'s ``lax.scan`` becomes a Python loop over a stream staged
 on the device; its counters accumulate on the device and the caller
-fetches them once per call (:func:`fetch_counters`). The chaos hooks,
-the multi-model tier and the sharded tier join with their slices.
+fetches them once per call (:func:`fetch_counters`).
+
+:class:`MultiModelServer` fronts the whole model registry with one
+stacked tier: a mixed-model batch is ONE ``cache_probe_dual_multi``
+launch, each query at its own model's TTLs, and the flush applies each
+model's TTL and eviction policy through one shared insert plan. Per-model
+(M,) counters ride beside the global ones. The reference's ``chaos=`` and
+``mesh=`` arguments join with the chaos and sharding slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -95,61 +102,98 @@ _ACC_I32 = ("requests", "direct_hits", "tower_inferences", "tower_failures",
             "overflow", "admitted", "deferred", "failover_hits",
             "failover_serves", "fallbacks", "served_age_count")
 _ACC_F32 = ("failover_stale_sum_ms", "served_age_sum_ms")
+_ACC_PM_I32 = ("per_model_requests", "per_model_direct_hits",
+               "per_model_failover_hits", "per_model_fallbacks",
+               "per_model_admitted", "per_model_deferred",
+               "per_model_failover_serves")
+_ACC_PM_F32 = ("per_model_failover_stale_sum_ms",)
 
 
-def _zero_acc(device) -> dict:
+def _zero_acc(device, n_models: Optional[int] = None) -> dict:
     """Zeroed device counters; ``steps`` counts serve steps (one grouped
-    async write each, the combined_writes analogue)."""
+    async write each, the combined_writes analogue). ``n_models`` adds
+    the multi-model tier's (M,) per-model counters."""
     acc = {k: torch.zeros((), dtype=torch.int32, device=device)
            for k in _ACC_I32 + ("steps",)}
     acc.update({k: torch.zeros((), dtype=torch.float32, device=device)
                 for k in _ACC_F32})
+    if n_models is not None:
+        acc.update({k: torch.zeros((n_models,), dtype=torch.int32,
+                                   device=device) for k in _ACC_PM_I32})
+        acc.update({k: torch.zeros((n_models,), dtype=torch.float32,
+                                   device=device) for k in _ACC_PM_F32})
     return acc
 
 
 def _acc_add(acc: dict, stats: dict) -> dict:
-    """One step's counter contribution: device adds, no host sync."""
-    out = {k: acc[k] + stats[k] for k in acc if k != "steps"}
+    """One step's counter contribution: device adds, no host sync. Keys
+    the step's stats do not carry pass through untouched."""
+    out = {k: (acc[k] + stats[k] if k in stats else acc[k])
+           for k in acc if k != "steps"}
     out["steps"] = acc["steps"] + 1
     return out
 
 
 def fetch_counters(acc: dict) -> dict:
     """The accumulator as host numbers with ONE device-to-host transfer
-    (float64 holds every int32 and float32 value exactly)."""
+    (float64 holds every int32 and float32 value exactly). 0-d counters
+    come back as ints/floats, the per-model (M,) ones as lists."""
     keys = list(acc)
-    flat = torch.stack([acc[k].to(torch.float64) for k in keys]).cpu()
-    return {k: (float(v) if acc[k].is_floating_point() else int(v))
-            for k, v in zip(keys, flat.tolist())}
+    flat = torch.cat([acc[k].reshape(-1).to(torch.float64)
+                      for k in keys]).cpu().tolist()
+    out, pos = {}, 0
+    for k in keys:
+        cast = float if acc[k].is_floating_point() else int
+        n = acc[k].numel()
+        vals = [cast(v) for v in flat[pos:pos + n]]
+        out[k] = vals[0] if acc[k].dim() == 0 else vals
+        pos += n
+    return out
 
 
-def _serve_many_loop(step_fn, flush_fn, state, keys: Key64, features,
-                     now_ms, failure_mask, *, flush_every: int,
-                     collect: bool):
-    """Run ``step_fn`` over the staged (S, B) stream, accumulating the
+def _serve_many_loop(step_fn, flush_fn, state, n_steps: int, acc: dict, *,
+                     flush_every: int, collect: bool):
+    """Run ``step_fn(state, i)`` over the S staged steps, accumulating the
     counters on the device and flushing every ``flush_every`` steps
-    (0 = only at the end); a tail flush always runs."""
-    S = now_ms.shape[0]
-    acc = _zero_acc(now_ms.device)
+    (0 = only at the end) with ``flush_fn(state, i)``; a tail flush
+    always runs."""
     outs = []
-    for i in range(S):
-        res = step_fn(state, Key64(keys.hi[i], keys.lo[i]),
-                      {k: v[i] for k, v in features.items()}, now_ms[i],
-                      failure_mask[i])
+    for i in range(n_steps):
+        res = step_fn(state, i)
         acc = _acc_add(acc, res.stats)
         state = res.state
         if flush_every >= 1 and (i + 1) % flush_every == 0:
-            state = flush_fn(state, now_ms[i])
+            state = flush_fn(state, i)
         if collect:
             outs.append((res.embeddings, res.source, res.age_ms))
-    state = flush_fn(state, now_ms[-1])
+    state = flush_fn(state, n_steps - 1)
     ys = (tuple(torch.stack(x) for x in zip(*outs)) if collect else None)
     return state, acc, ys
+
+
+def _one_hot(slots: torch.Tensor, n_models: int) -> torch.Tensor:
+    """(B, M) bool: row b is True at column slots[b]."""
+    return slots[:, None] == torch.arange(n_models, device=slots.device)
+
+
+def _per_model_count(one_hot: torch.Tensor, flag: torch.Tensor
+                     ) -> torch.Tensor:
+    """(M,) int32 count of the ``flag`` rows of each model."""
+    return (one_hot & flag[:, None]).sum(dim=0, dtype=torch.int32)
+
+
+def _per_model_miss_rank(slots, miss, n_models: int) -> torch.Tensor:
+    """(B,) batch-order rank of each miss among ITS model's misses (the
+    per-model admission cutoff index; the insert plan's segmented rank).
+    Garbage where ``miss`` is False; callers gate on it."""
+    return cache_lib._bucket_rank(slots, miss, n_models)
 
 
 def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
                 params, features, keys: Key64, now_ms, failure_mask,
                 direct, fo, writebuf: WriteBuffer,
+                model_slots: Optional[torch.Tensor] = None,
+                n_models: Optional[int] = None,
                 admit: Optional[torch.Tensor] = None,
                 fo_strict_hit: Optional[torch.Tensor] = None,
                 infer: Optional[torch.Tensor] = None,
@@ -157,7 +201,9 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
     """Steps (2)-(4): miss-budget compaction + tower, failover assistance /
     model fallback, provenance + counters, write-ring append.
 
-    ``admit`` marks the misses admitted to inference (None: every miss);
+    ``model_slots``/``n_models`` (multi-model tier) tag the buffered
+    records and add per-model (M,) stat breakdowns. ``admit`` marks the
+    misses admitted to inference (None: every miss);
     ``fo_strict_hit`` the strict-TTL subset of the (relaxed) failover
     probe; ``infer`` the rows that RUN the tower (coalescing
     representatives; None: ``admit``) and ``src_row`` the row whose tower
@@ -219,7 +265,9 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
 
     # (4) async cache update: computed rows into the write ring
     sel_keys = Key64(hi=keys.hi[sel], lo=keys.lo[sel])
-    new_wb = wb_lib.append(writebuf, sel_keys, towered, now_ms, mask=sel_ok)
+    new_wb = wb_lib.append(
+        writebuf, sel_keys, towered, now_ms, mask=sel_ok,
+        model_ids=None if model_slots is None else model_slots[sel])
 
     def count(flag):
         return flag.sum(dtype=torch.int32)
@@ -248,6 +296,28 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
         "served_age_count": age_served,
         "computed_serves": count(computed),
     }
+    if model_slots is not None:
+        # Per-model sums as one-hot reductions, not scatter-adds: CUDA
+        # scatter-adds of floats use atomics in a run-dependent order, and
+        # hour-scale staleness sums pass 2**24, where float32 rounding
+        # depends on that order.
+        oh = _one_hot(model_slots, n_models)
+        pm = lambda flag: _per_model_count(oh, flag)
+        pm_fo = pm(use_fo)
+        pm_stale_sum = (oh * torch.where(use_fo, fo.age_ms, 0).to(
+            torch.float32)[:, None]).sum(dim=0)
+        stats.update({
+            "per_model_requests": pm(torch.ones_like(miss)),
+            "per_model_direct_hits": pm(direct.hit),
+            "per_model_failover_hits": pm(use_fo & fo_strict_hit),
+            "per_model_fallbacks": pm(fallback),
+            "per_model_admitted": pm(admit),
+            "per_model_deferred": pm(miss) - pm(admit),
+            "per_model_failover_serves": pm_fo,
+            "per_model_failover_stale_ms":
+                pm_stale_sum / pm_fo.clamp(min=1).float(),
+            "per_model_failover_stale_sum_ms": pm_stale_sum,
+        })
     return emb, source, age, new_wb, stats
 
 
@@ -364,11 +434,13 @@ class CachedEmbeddingServer:
             failure_mask = torch.zeros(keys.hi.shape, dtype=torch.bool,
                                        device=dev)
 
-        def step(st, k, f, now, fail):
-            return self.serve_step(params, st, k, f, now, fail)
+        def step(st, i):
+            return self.serve_step(params, st, Key64(keys.hi[i], keys.lo[i]),
+                                   {k: v[i] for k, v in features.items()},
+                                   now_ms[i], failure_mask[i])
 
-        return _serve_many_loop(step, self.flush, state, keys, features,
-                                now_ms, failure_mask,
+        return _serve_many_loop(step, lambda st, i: self.flush(st, now_ms[i]),
+                                state, now_ms.shape[0], _zero_acc(dev),
                                 flush_every=int(flush_every),
                                 collect=collect)
 
@@ -388,6 +460,233 @@ class CachedEmbeddingServer:
                               now_ms, self.cfg.cache_ttl_ms,
                               self.cfg.failover_ttl_ms, evict_lru=lru,
                               touchbuf=tb)
+        return state
+
+
+# ========================================================== multi-model tier
+class MultiServerState(NamedTuple):
+    direct: cache_lib.MultiCacheState     # stacked per-model direct tables
+    failover: cache_lib.MultiCacheState   # stacked per-model failover tables
+    writebuf: WriteBuffer                 # shared ring, records model-tagged
+    touchbuf: TouchBuffer                 # shared ring of POOLED hit coords
+    budget: rl_lib.InferBudget            # (M,) per-model inference tokens
+
+
+def init_multi_server_state(cfgs: Sequence[CacheConfig], dtype=torch.float32,
+                            writebuf_capacity: int = 4096,
+                            touchbuf_capacity: Optional[int] = None,
+                            device="cuda") -> MultiServerState:
+    """Allocate the stacked tier of an ordered model registry on
+    ``device``. Every model keeps its own direct/failover capacity (bucket
+    masks); value_dim must agree across the tier, and heterogeneous
+    ``ways`` are normalized up to the tier maximum."""
+    dims = {c.value_dim for c in cfgs}
+    if len(dims) != 1:
+        raise ValueError(f"tier needs one value_dim, got {sorted(dims)}")
+    dim = dims.pop()
+    if touchbuf_capacity is None:
+        touchbuf_capacity = writebuf_capacity
+    return MultiServerState(
+        direct=cache_lib.init_multi_cache(
+            [c.n_buckets for c in cfgs], max(c.ways for c in cfgs), dim,
+            dtype, device),
+        failover=cache_lib.init_multi_cache(
+            [c.resolved_failover_n_buckets() for c in cfgs],
+            max(c.resolved_failover_ways() for c in cfgs), dim, dtype,
+            device),
+        writebuf=wb_lib.init_writebuf(writebuf_capacity, dim, dtype, device),
+        touchbuf=wb_lib.init_touchbuf(touchbuf_capacity, device),
+        budget=rl_lib.init_infer_budget(cfgs, device))
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiModelServer:
+    """One serving tier fronting the WHOLE model registry (paper §3.3,
+    Table 1): a serve batch is a mixed stream of (model slot, user key)
+    pairs, the direct+failover probe of every model is ONE launch
+    (``lookup_dual_multi``), and the flush applies per-model TTL and
+    eviction policy through one shared insert plan.
+
+    ``tower_fn(params, features) -> (rows, D)`` stands in for the
+    per-model user towers (one shared tower, as in the reference). The
+    policy tables are built once, here, on ``device``.
+    """
+
+    cfgs: Tuple[CacheConfig, ...]
+    tower_fn: Callable
+    miss_budget: int
+    fallback_value: float = 0.0
+    # "torch" | "cuda"; None resolves from the configs, which must agree
+    backend: Optional[str] = None
+    device: Any = "cuda"
+
+    def __post_init__(self) -> None:
+        if self.backend is None:
+            backends = {c.backend for c in self.cfgs}
+            if len(backends) != 1:
+                raise ValueError(
+                    f"configs disagree on backend {sorted(backends)}; pass "
+                    "MultiModelServer(backend=...) explicitly")
+            object.__setattr__(self, "backend", backends.pop())
+        off = [c.model_id for c in self.cfgs if c.failover_write == "off"]
+        if off:
+            raise ValueError(
+                f"models {off} set failover_write='off': the stacked tier's "
+                "shared flush (flush_dual_multi) always writes both slabs, "
+                "so a per-model cold failover would be silently "
+                "overwritten. Serve those models on a single-model server.")
+        put = lambda k, v: object.__setattr__(self, k, v)
+        policy = cache_lib.policy_from_configs(self.cfgs, self.device)
+        put("_policy", policy)
+        put("_any_touch", any(c.resolved_touch() for c in self.cfgs))
+        put("_any_coalesce", any(c.coalesce_misses for c in self.cfgs))
+        any_budget = any(c.infer_budget_per_step is not None
+                         for c in self.cfgs)
+        put("_any_admission", any_budget)
+        put("_budget_bursts", rl_lib.bursts_of(policy.infer_budget,
+                                               policy.budget_limited))
+        # With admission on any model the failover is probed at the
+        # per-model RELAXED TTLs (strict for budget-less models); _replace
+        # keeps the bucket-mask aliasing the insert plan tests.
+        put("_probe_policy", policy._replace(
+            failover_ttl_ms=policy.failover_relax_ttl_ms) if any_budget
+            else policy)
+
+    @property
+    def policy(self) -> cache_lib.ModelPolicy:
+        return self._policy
+
+    @property
+    def n_models(self) -> int:
+        return len(self.cfgs)
+
+    # ----------------------------------------------------------------- serve
+    def serve_step(self, params, state: MultiServerState, slots,
+                   keys: Key64, features, now_ms,
+                   failure_mask: Optional[torch.Tensor] = None
+                   ) -> ServeResult:
+        """Serve a MIXED-model batch: ``slots`` (B,) int32 in [0, M)
+        assigns each request its model. Steps mirror
+        :meth:`CachedEmbeddingServer.serve_step`; step (1) covers every
+        model in ONE probe launch and the stats gain per-model (M,)
+        breakdowns. Never writes the tables; appends to the rings IN
+        PLACE."""
+        B = keys.hi.shape[0]
+        dev = keys.hi.device
+        M = self.n_models
+        pol = self.policy
+        now = torch.as_tensor(now_ms, dtype=torch.int32, device=dev)
+        slots = torch.as_tensor(slots, dtype=torch.int32, device=dev)
+        s = slots.long()
+        if failure_mask is None:
+            failure_mask = torch.zeros(B, dtype=torch.bool, device=dev)
+
+        # (1) direct + failover probe of ALL models: ONE launch
+        direct, fo = cache_lib.lookup_dual_multi(
+            state.direct, state.failover, self._probe_policy, slots, keys,
+            now, backend=self.backend)
+
+        # (1b) POOLED hit coordinates for the deferred last-access bump,
+        # gated by each query's model's touch policy
+        new_tb = state.touchbuf
+        if self._any_touch:
+            new_tb = wb_lib.touch_append(new_tb, direct, fo, now,
+                                         mask=pol.touch[s])
+
+        # (1c) in-batch coalescing of the models that opt in, salted by
+        # slot (the same user queried for two models is two inferences);
+        # misses of other models each stand alone
+        miss = ~direct.hit
+        infer = src_row = None
+        if self._any_coalesce:
+            co = pol.coalesce[s]
+            rep, src_co = cache_lib.dedupe_first_groups(keys, miss & co,
+                                                        salt=slots)
+            alone = miss & ~co
+            unit = rep | alone
+            src_row = torch.where(
+                alone, torch.arange(B, dtype=torch.int32, device=dev),
+                src_co)
+        else:
+            unit = miss
+
+        # (1d) admission: one vectorized grant for every model; each
+        # model's units are admitted in batch order up to its grant, the
+        # total then clipped to the miss-budget window in batch order, and
+        # each model charged only for the inferences that run
+        admit = fo_strict = None
+        new_budget = state.budget
+        if self._any_admission:
+            fo_strict = fo.hit & (fo.age_ms <= pol.failover_ttl_ms[s])
+            oh = _one_hot(slots, M)
+            demand = _per_model_count(oh, unit)
+            refilled = rl_lib.refill(state.budget, pol.infer_budget,
+                                     self._budget_bursts)
+            grant = rl_lib.grant_from(refilled, pol.budget_limited, demand)
+            rank = _per_model_miss_rank(slots, unit, M)
+            admit0 = unit & (rank < grant[s])
+            a_i = admit0.to(torch.int32)
+            global_rank = torch.cumsum(a_i, 0) - a_i          # exclusive
+            infer = admit0 & (global_rank < self.miss_budget)
+            new_budget = rl_lib.spend(refilled, pol.budget_limited,
+                                      _per_model_count(oh, infer))
+            if self._any_coalesce:
+                admit = miss & infer[src_row.clamp(min=0).long()]
+            else:
+                admit = infer
+        elif self._any_coalesce:
+            infer = unit         # window clipping happens in the tail
+
+        # (2)-(4): shared serve tail, model-tagged ring records
+        emb, source, age, new_wb, stats = _serve_tail(
+            self.tower_fn, self.miss_budget, self.fallback_value, params,
+            features, keys, now, failure_mask, direct, fo, state.writebuf,
+            model_slots=slots, n_models=M, admit=admit,
+            fo_strict_hit=fo_strict, infer=infer, src_row=src_row)
+        return ServeResult(
+            embeddings=emb, source=source, age_ms=age,
+            state=MultiServerState(direct=state.direct,
+                                   failover=state.failover,
+                                   writebuf=new_wb, touchbuf=new_tb,
+                                   budget=new_budget),
+            stats=stats)
+
+    # ------------------------------------------------------------ serve_many
+    def serve_many(self, params, state: MultiServerState, slots,
+                   keys: Key64, features, now_ms,
+                   failure_mask: Optional[torch.Tensor] = None, *,
+                   flush_every: int = 1, collect: bool = True):
+        """S mixed-model serve steps over a stream staged on the device:
+        the contract of :meth:`CachedEmbeddingServer.serve_many` with an
+        extra (S, B) ``slots`` stream; the counters include the per-model
+        (M,) breakdowns."""
+        dev = keys.hi.device
+        now_ms = torch.as_tensor(now_ms, dtype=torch.int32, device=dev)
+        slots = torch.as_tensor(slots, dtype=torch.int32, device=dev)
+        if failure_mask is None:
+            failure_mask = torch.zeros(keys.hi.shape, dtype=torch.bool,
+                                       device=dev)
+
+        def step(st, i):
+            return self.serve_step(params, st, slots[i],
+                                   Key64(keys.hi[i], keys.lo[i]),
+                                   {k: v[i] for k, v in features.items()},
+                                   now_ms[i], failure_mask[i])
+
+        return _serve_many_loop(step, lambda st, i: self.flush(st, now_ms[i]),
+                                state, now_ms.shape[0],
+                                _zero_acc(dev, self.n_models),
+                                flush_every=int(flush_every),
+                                collect=collect)
+
+    # ----------------------------------------------------------------- flush
+    def flush(self, state: MultiServerState, now_ms) -> MultiServerState:
+        """Apply the mixed-model write ring to both stacked tiers, IN
+        PLACE, with ONE shared insert plan, each record under its model's
+        TTL and eviction policy, after the touch ring's recency bumps."""
+        wb_lib.flush_dual_multi(
+            state.writebuf, state.direct, state.failover, self.policy,
+            now_ms, touchbuf=state.touchbuf if self._any_touch else None)
         return state
 
 

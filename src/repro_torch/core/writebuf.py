@@ -1,7 +1,7 @@
 """Asynchronous write + touch rings (paper §3.5), as PyTorch tensors.
 
-Twin of ``repro/core/writebuf.py`` (its single-model part; the
-model-tagged multi-model flush joins with its slice). The serve step
+Twin of ``repro/core/writebuf.py``, with the model-tagged records and the
+multi-model flush. The serve step
 appends (key, value, ts) records of computed embeddings to a fixed-size
 ring (an O(B) scatter, no cache-table traffic) and the hit coordinates of
 its probes to a touch ring; ``flush`` later scatter-maxes the touches into
@@ -65,9 +65,12 @@ def _ring_slots(count: torch.Tensor, mask: torch.Tensor, capacity: int):
 
 
 def append(buf: WriteBuffer, keys: Key64, values: torch.Tensor, ts_ms,
-           mask: torch.Tensor) -> WriteBuffer:
-    """Append the masked records at the ring head, IN PLACE. O(B). Records
-    carry model slot 0 (the single-model server)."""
+           mask: torch.Tensor,
+           model_ids: Optional[torch.Tensor] = None) -> WriteBuffer:
+    """Append the masked records at the ring head, IN PLACE. O(B).
+    ``model_ids`` (B,) tags each record with its model slot (the
+    multi-model flush gathers each record's policy from it); None tags
+    slot 0 (the single-model server)."""
     B = values.shape[0]
     ts_vec = torch.as_tensor(ts_ms, dtype=torch.int32,
                              device=values.device).expand(B)
@@ -76,7 +79,8 @@ def append(buf: WriteBuffer, keys: Key64, values: torch.Tensor, ts_ms,
     buf.key_lo[slot] = keys.lo[src]
     buf.ts_ms[slot] = ts_vec[src]
     buf.values[slot] = values[src].to(buf.values.dtype)
-    buf.model_id[slot] = 0
+    buf.model_id[slot] = 0 if model_ids is None else model_ids[src].to(
+        torch.int32)
     buf.count.add_(n_live)
     return buf
 
@@ -211,5 +215,26 @@ def flush_dual(buf: WriteBuffer, direct: cache_lib.CacheState,
     cache_lib.insert_dual(direct, failover, keys, values, now_ms,
                           direct_ttl_ms, failover_ttl_ms, write_mask=live,
                           ts_ms=ts, evict_lru=evict_lru)
+    buf.count.zero_()
+    return direct, failover, buf, touchbuf
+
+
+def flush_dual_multi(buf: WriteBuffer, direct: cache_lib.MultiCacheState,
+                     failover: cache_lib.MultiCacheState,
+                     policy: cache_lib.ModelPolicy, now_ms,
+                     touchbuf: Optional[TouchBuffer] = None
+                     ) -> Tuple[cache_lib.MultiCacheState,
+                                cache_lib.MultiCacheState, WriteBuffer,
+                                Optional[TouchBuffer]]:
+    """Flush a mixed-model ring into BOTH stacked tiers, IN PLACE, with ONE
+    shared insert plan (``cache.insert_dual_multi``): each record under
+    its model's TTLs and eviction policy, the dedupe salted by model slot.
+    The touch ring holds POOLED (M*Nb) coordinates, so its bumps land on
+    the flat views of the stacked recency planes first."""
+    if touchbuf is not None:
+        _apply_touches_dual(touchbuf, direct.flat(), failover.flat())
+    keys, values, ts, live, slots = _ring_order(buf)
+    cache_lib.insert_dual_multi(direct, failover, policy, slots, keys,
+                                values, now_ms, write_mask=live, ts_ms=ts)
     buf.count.zero_()
     return direct, failover, buf, touchbuf

@@ -1,13 +1,17 @@
 """Fused ERCache bucket probes: the cache read as hand-written CUDA kernels.
 
 Twin of ``repro/kernels/cache_probe.py``. One source,
-``csrc/cache_probe.cu``, with a one-table and a two-table entry:
+``csrc/cache_probe.cu``, with three entries:
 
 * :func:`cache_probe_tiled` (alias :func:`cache_probe`) probes one table;
 * :func:`cache_probe_dual` probes the direct AND failover tables for the
-  same queries in ONE launch; ``serve_step`` issues exactly one per step.
+  same queries in ONE launch; the single-model ``serve_step`` makes
+  exactly one per step;
+* :func:`cache_probe_dual_multi` is the dual probe of a stacked
+  multi-model tier, each query at its own model's TTLs; the multi-model
+  ``serve_step`` makes exactly one per step.
 
-Both follow ``ref.cache_probe_ref`` bit for bit. On a CPU tensor a wrapper
+All follow ``ref.cache_probe_ref`` bit for bit. On a CPU tensor a wrapper
 runs that plain version; on a CUDA tensor it launches the kernel (and
 counts the launch in :data:`LAUNCHES`) or raises. The Pallas tile padding
 of the reference is a TPU artefact and has no counterpart here: the kernel
@@ -22,9 +26,9 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# One increment per kernel launch, nowhere else. The multi-model and
-# per-query probes of the reference join with their own kernels.
-LAUNCHES = {"tiled": 0, "dual": 0}
+# One increment per kernel launch, nowhere else. The per-query probe of the
+# reference joins with its own kernel.
+LAUNCHES = {"tiled": 0, "dual": 0, "dual_multi": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +38,9 @@ _ARGTYPES = {
     "ercache_probe_dual": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
                            _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P],
+    "ercache_probe_dual_multi": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                                 _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -64,9 +71,10 @@ def _check_table(key_hi, key_lo, write_ts, values, device) -> None:
                              f"queries' device {device}")
 
 
-def _check_queries(q_hi, q_lo, buckets, device):
+def _check_queries(q_hi, q_lo, buckets, device, **more):
     B = q_hi.shape[0]
-    for name, t in (("q_hi", q_hi), ("q_lo", q_lo), ("buckets", buckets)):
+    for name, t in (("q_hi", q_hi), ("q_lo", q_lo), ("buckets", buckets),
+                    *more.items()):
         if (t.dtype != torch.int32 or tuple(t.shape) != (B,)
                 or t.device != device or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous ({B},) int32 "
@@ -170,4 +178,58 @@ def cache_probe_dual(d_key_hi, d_key_lo, d_write_ts, d_values,
               torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, "ercache_probe_strerror", code, "cache_probe_dual")
     LAUNCHES["dual"] += 1
+    return out_d, out_f
+
+
+def cache_probe_dual_multi(d_key_hi, d_key_lo, d_write_ts, d_values,
+                           f_key_hi, f_key_lo, f_write_ts, f_values,
+                           q_hi, q_lo, slots, buckets_d, buckets_f,
+                           policy, now_ms):
+    """Probe the pooled direct and failover tiers of a multi-model stack
+    for a MIXED-model batch in ONE launch.
+
+    ``d_*``/``f_*`` are the pooled (M*Nb, W[, D]) views of the stacked
+    tables, ``slots`` (B,) int32 assigns each query its model,
+    ``buckets_*`` already carry the slot offset
+    (``core.cache.pooled_buckets``), ``policy`` is the (M, 2) int32
+    [direct_ttl, failover_ttl] table and ``now_ms`` the clock. The policy
+    and the clock stay on the device (no host sync). Precondition, not
+    checked (checking would sync): every slot lies in [0, M). Returns
+    ((hit_d, value_d, age_d, way_d), (hit_f, value_f, age_f, way_f)),
+    equal to ``ref.cache_probe_dual_multi_ref``."""
+    if not q_hi.is_cuda:
+        return ref.cache_probe_dual_multi_ref(
+            d_key_hi, d_key_lo, d_write_ts, d_values, f_key_hi, f_key_lo,
+            f_write_ts, f_values, q_hi, q_lo, slots, buckets_d, buckets_f,
+            policy, now_ms)
+    dev = q_hi.device
+    _check_queries(q_hi, q_lo, buckets_d, dev, slots=slots,
+                   buckets_f=buckets_f)
+    _check_table(d_key_hi, d_key_lo, d_write_ts, d_values, dev)
+    _check_table(f_key_hi, f_key_lo, f_write_ts, f_values, dev)
+    if (d_values.shape[-1] != f_values.shape[-1]
+            or d_values.dtype != f_values.dtype):
+        raise ValueError("direct and failover values must share dim and "
+                         "dtype")
+    if (policy.dtype != torch.int32 or policy.dim() != 2
+            or policy.shape[1] != 2 or policy.device != dev
+            or not policy.is_contiguous()):
+        raise ValueError(f"policy must be a contiguous (M, 2) int32 tensor "
+                         f"on {dev}")
+    B = q_hi.shape[0]
+    out_d, out_f = _outputs(B, d_values), _outputs(B, f_values)
+    if B == 0:
+        return out_d, out_f
+    now = _now_tensor(now_ms, dev)
+    lib, fn = _entry("ercache_probe_dual_multi")
+    code = fn(*_ptrs(d_key_hi, d_key_lo, d_write_ts, d_values),
+              d_key_hi.shape[1],
+              *_ptrs(f_key_hi, f_key_lo, f_write_ts, f_values),
+              f_key_hi.shape[1],
+              *_ptrs(q_hi, q_lo, slots, buckets_d, buckets_f, policy, now),
+              B, d_values.shape[-1], d_values.element_size(),
+              *_ptrs(*out_d), *_ptrs(*out_f),
+              torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, "ercache_probe_strerror", code, "cache_probe_dual_multi")
+    LAUNCHES["dual_multi"] += 1
     return out_d, out_f

@@ -5,7 +5,7 @@ Twin of ``repro/kernels/ops.py``. Each wrapper runs its plain version
 kernel library at first use (``build``). Every wrapper counts its launches
 in its module's ``LAUNCHES``; :func:`launch_counts` gathers them so a run
 can show that its path went through the kernels. The flash / decode
-attention kernels and the multi-model probe join with their slices.
+attention kernels and the per-query probe join with their slices.
 """
 from __future__ import annotations
 
@@ -15,12 +15,14 @@ from repro_torch.kernels import cache_probe as _probe
 from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import ref
 from repro_torch.kernels.cache_probe import (cache_probe, cache_probe_dual,
+                                             cache_probe_dual_multi,
                                              cache_probe_tiled)
 from repro_torch.kernels.embedding_bag import embedding_bag
 
 # kernel name -> (counter dict, key)
 _COUNTERS = {
     "cache_probe_dual": (_probe.LAUNCHES, "dual"),
+    "cache_probe_dual_multi": (_probe.LAUNCHES, "dual_multi"),
     "cache_probe_tiled": (_probe.LAUNCHES, "tiled"),
     "embedding_bag": (_bag.LAUNCHES, "embedding_bag"),
 }
@@ -37,4 +39,4 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["cache_probe", "cache_probe_tiled", "cache_probe_dual",
-           "embedding_bag", "launch_counts", "reset_launch_counts", "ref"]
+           "cache_probe_dual_multi", "embedding_bag", "launch_counts", "reset_launch_counts", "ref"]

@@ -25,7 +25,8 @@ def cache_probe_ref(key_hi, key_lo, write_ts, values, q_hi, q_lo, buckets,
 
     key_hi/key_lo/write_ts: (Nb, W) int32; values: (Nb, W, D);
     q_hi/q_lo/buckets: (B,) int32; ``now_ms`` an int or a 0-d int32
-    tensor, ``ttl_ms`` an int. Returns (hit (B,) bool, value (B, D),
+    tensor, ``ttl_ms`` an int or a per-query (B,) int32 tensor (the
+    multi-model tier's TTLs). Returns (hit (B,) bool, value (B, D),
     age (B,) int32 -1 on a miss, way (B,) int32 the FIRST valid way, -1 on
     a miss).
     """
@@ -35,6 +36,8 @@ def cache_probe_ref(key_hi, key_lo, write_ts, values, q_hi, q_lo, buckets,
     now = torch.as_tensor(now_ms, device=ts.device).long()
     # TS_EMPTY lanes wrap here but never match a real key (`match` masks).
     age_all = wrap_i32(now - ts.long())
+    if isinstance(ttl_ms, torch.Tensor) and ttl_ms.dim() == 1:
+        ttl_ms = ttl_ms[:, None]
     valid = match & (age_all <= ttl_ms)
     hit = valid.any(dim=-1)
     way = valid.to(torch.int32).argmax(dim=-1)              # first max
@@ -44,6 +47,22 @@ def cache_probe_ref(key_hi, key_lo, write_ts, values, q_hi, q_lo, buckets,
                                   device=values.device))
     age = torch.where(hit, age_all[rows, way], -1).to(torch.int32)
     return hit, out, age, torch.where(hit, way, -1).to(torch.int32)
+
+
+def cache_probe_dual_multi_ref(d_key_hi, d_key_lo, d_write_ts, d_values,
+                               f_key_hi, f_key_lo, f_write_ts, f_values,
+                               q_hi, q_lo, slots, buckets_d, buckets_f,
+                               policy, now_ms):
+    """The dual probe of a stacked multi-model tier: the tables are the
+    pooled (M*Nb, W) views, ``buckets_*`` carry the slot offset, and query
+    q is validated at row ``slots[q]`` of the (M, 2) int32 ``policy``
+    table (column 0 the direct TTL, column 1 the failover TTL). Returns
+    two :func:`cache_probe_ref` quads."""
+    s = slots.long()
+    return (cache_probe_ref(d_key_hi, d_key_lo, d_write_ts, d_values, q_hi,
+                            q_lo, buckets_d, now_ms, policy[s, 0]),
+            cache_probe_ref(f_key_hi, f_key_lo, f_write_ts, f_values, q_hi,
+                            q_lo, buckets_f, now_ms, policy[s, 1]))
 
 
 def embedding_bag_ref(table, ids, mode: str = "sum"):

@@ -188,3 +188,140 @@ def test_serve_many_cuda_backend_matches_torch_backend(cuda, coalesce,
     for tier in ("direct", "failover"):
         for a, b in zip(getattr(st_c, tier), getattr(st_t, tier)):
             assert torch.equal(a, b)
+
+
+def _multi_tier(rng, cuda, fo_ways=8, n=3000):
+    """4 registry models (ids 11, 13, 15, 17: two capacities, 5- and
+    1-minute TTLs, TTL and LRU eviction) as a stacked pair populated
+    through the insert plan (fresh and direct-expired keys at now =
+    6 min), with their policy and the stored ids."""
+    from repro_torch.core.config import multi_model_tier_configs
+    from repro_torch.core.hashing import Key64
+
+    cfgs = multi_model_tier_configs(value_dim=50, n_buckets=64)[1::2]
+    policy = C.policy_from_configs(cfgs, device=cuda)
+    direct = C.init_multi_cache([c.n_buckets for c in cfgs], 8, 50,
+                                device=cuda)
+    failover = C.init_multi_cache([c.resolved_failover_n_buckets()
+                                   for c in cfgs], fo_ways, 50, device=cuda)
+    ids = rng.integers(0, 10 ** 6, n)
+    C.insert_dual_multi(direct, failover, policy,
+                        torch.as_tensor(rng.integers(0, 4, n), device=cuda),
+                        Key64.from_int(ids, device=cuda),
+                        torch.randn(n, 50, device=cuda), 4 * MIN,
+                        ts_ms=torch.as_tensor(rng.integers(
+                            0, 4 * MIN, n).astype(np.int32), device=cuda))
+    return cfgs, policy, direct, failover, ids
+
+
+@pytest.mark.parametrize("batch,fo_ways", [(512, 8), (37, 8), (1, 8),
+                                           (300, 4)])
+def test_probe_dual_multi_matches_plain(cuda, batch, fo_ways):
+    """The multi-model kernel against its plain version, bit for bit, with
+    the strict policy table and with a relaxed NO_TTL_MS failover
+    column; one launch each."""
+    from repro_torch.core.hashing import Key64
+
+    rng = np.random.default_rng(batch)
+    _, policy, direct, failover, ids = _multi_tier(rng, cuda, fo_ways)
+    q = np.where(rng.uniform(size=batch) < 0.7, rng.choice(ids, batch),
+                 rng.integers(10 ** 6, 2 * 10 ** 6, batch))
+    k = Key64.from_int(q, device=cuda)
+    slots = torch.as_tensor(rng.integers(0, 4, batch).astype(np.int32),
+                            device=cuda)
+    b_d, b_f = C._pooled_bucket_pair(direct, failover, policy, slots, k)
+    fd, ff = direct.flat(), failover.flat()
+    now = torch.tensor(6 * MIN, dtype=torch.int32, device=cuda)
+    relaxed = policy.table().clone()
+    relaxed[:, 1] = NO_TTL_MS
+    for table in (policy.table(), relaxed):
+        n0 = pk.LAUNCHES["dual_multi"]
+        got = pk.cache_probe_dual_multi(*fd[:4], *ff[:4], k.hi, k.lo, slots,
+                                        b_d, b_f, table, now)
+        torch.cuda.synchronize()
+        assert pk.LAUNCHES["dual_multi"] == n0 + 1
+        want = ref.cache_probe_dual_multi_ref(*fd[:4], *ff[:4], k.hi, k.lo,
+                                              slots, b_d, b_f, table, now)
+        for g, w in zip(got, want):
+            assert_same(g, w)
+
+
+def test_lookup_dual_multi_is_one_launch(cuda):
+    from repro_torch.core.hashing import Key64
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(3)
+    _, policy, direct, failover, ids = _multi_tier(rng, cuda)
+    k = Key64.from_int(rng.choice(ids, 64), device=cuda)
+    slots = torch.arange(64, dtype=torch.int32, device=cuda) % 4
+    ops.reset_launch_counts()
+    got = C.lookup_dual_multi(direct, failover, policy, slots, k, 6 * MIN)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"cache_probe_dual": 0,
+                                   "cache_probe_dual_multi": 1,
+                                   "cache_probe_tiled": 0,
+                                   "embedding_bag": 0}
+    want = C.lookup_dual_multi(direct, failover, policy, slots, k, 6 * MIN,
+                               backend="torch")
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
+
+
+def test_multi_serve_many_cuda_backend_matches_torch_backend(cuda):
+    """The multi-model serve loop on the card (coalescing and admission on
+    some models): the cuda backend and the torch backend give
+    bit-identical outputs, counters (per-model vectors included) and
+    stacked planes; ONE dual-multi launch per step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import server as S
+    from repro_torch.core.config import multi_model_tier_configs
+    from repro_torch.core.hashing import Key64
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_t = get_config("sasrec", smoke=True)
+    rng = np.random.default_rng(9)
+    ids = rng.choice(np.arange(80) * 104729, size=(10, 48))
+    slots = rng.integers(0, 8, (10, 48)).astype(np.int32)
+    seq = rng.integers(0, cfg_t.vocab, (10, 48, cfg_t.seq_len))
+    nows = np.arange(10, dtype=np.int32) * 40_000
+    fails = rng.uniform(size=(10, 48)) < 0.1
+    out = {}
+    for backend in ("cuda", "torch"):
+        cfgs = [dataclasses.replace(
+            c, backend=backend, coalesce_misses=m % 2 == 0,
+            infer_budget_per_step=2.5 if m < 3 else None)
+            for m, c in enumerate(multi_model_tier_configs(
+                value_dim=cfg_t.embed_dim, n_buckets=32))]
+        model = R.init_params(torch.Generator(device=cuda).manual_seed(0),
+                              cfg_t, cuda)
+        srv = S.MultiModelServer(
+            cfgs=tuple(cfgs), miss_budget=24, device=cuda,
+            tower_fn=lambda p, f, b=backend: R.tower_step(p, f, cfg_t,
+                                                          impl=b))
+        state = S.init_multi_server_state(cfgs, writebuf_capacity=96,
+                                          device=cuda)
+        ops.reset_launch_counts()
+        state, acc, ys = srv.serve_many(
+            model, state, torch.as_tensor(slots, device=cuda),
+            Key64.from_int(ids, device=cuda),
+            {"seq": torch.as_tensor(seq, dtype=torch.int32, device=cuda)},
+            torch.as_tensor(nows, device=cuda),
+            torch.as_tensor(fails, device=cuda), flush_every=2)
+        out[backend] = (state, S.fetch_counters(acc), ys,
+                        ops.launch_counts())
+    (st_c, acc_c, ys_c, n_c), (st_t, acc_t, ys_t, n_t) = out["cuda"], \
+        out["torch"]
+    assert n_c["cache_probe_dual_multi"] == 10 and n_c["embedding_bag"] > 0
+    assert n_c["cache_probe_dual"] == 0 and sum(n_t.values()) == 0
+    assert acc_c == acc_t
+    assert sum(acc_c["per_model_requests"]) == acc_c["requests"]
+    for a, b in zip(ys_c, ys_t):
+        assert torch.equal(a, b)
+    for tier in ("direct", "failover"):
+        for a, b in zip(getattr(st_c, tier), getattr(st_t, tier)):
+            assert torch.equal(a, b)

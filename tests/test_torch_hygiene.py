@@ -16,7 +16,8 @@ from repro.ft import failure as j_failure  # noqa: E402
 from repro_torch.core import cache as TC  # noqa: E402
 from repro_torch.core import metrics as t_metrics  # noqa: E402
 from repro_torch.core import server as TS  # noqa: E402
-from repro_torch.core.config import CacheConfig  # noqa: E402
+from repro_torch.core.config import (CacheConfig,  # noqa: E402
+                                     multi_model_tier_configs)
 from repro_torch.core.hashing import Key64  # noqa: E402
 from repro_torch.data import access_patterns as t_ap  # noqa: E402
 from repro_torch.ft import failure as t_failure  # noqa: E402
@@ -120,10 +121,15 @@ def _skip_with_card():
 
 @pytest.mark.parametrize("entry", ["init_cache", "init_server_state",
                                    "init_params", "build_tower",
-                                   "run_serving", "key64"])
+                                   "run_serving", "key64",
+                                   "init_multi_cache",
+                                   "init_multi_server_state",
+                                   "multi_model_server",
+                                   "run_serving_multi"])
 def test_default_device_entry_points_raise_without_card(entry):
     _skip_with_card()
     cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=16)
+    tier = multi_model_tier_configs(value_dim=8, n_buckets=16)
     calls = {
         "init_cache": lambda: TC.init_cache(16, 4, 8),
         "init_server_state": lambda: TS.init_server_state(cfg),
@@ -132,6 +138,12 @@ def test_default_device_entry_points_raise_without_card(entry):
         "build_tower": lambda: t_launch.build_tower("sasrec"),
         "run_serving": lambda: t_launch.run_serving(minutes=1, users=10),
         "key64": lambda: Key64.from_int(np.arange(4)),
+        "init_multi_cache": lambda: TC.init_multi_cache([16, 32], 4, 8),
+        "init_multi_server_state": lambda: TS.init_multi_server_state(tier),
+        "multi_model_server": lambda: TS.MultiModelServer(
+            cfgs=tuple(tier), tower_fn=lambda p, f: f["x"], miss_budget=4),
+        "run_serving_multi": lambda: t_launch.run_serving_multi(
+            minutes=1, users=10),
     }
     with pytest.raises((RuntimeError, AssertionError)):
         calls[entry]()
@@ -159,6 +171,20 @@ def test_cuda_backend_with_cpu_tensors_raises(rng):
         TR.embedding_bag(torch.zeros(10, 4), torch.zeros(3, 1,
                                                          dtype=torch.int32),
                          impl="cuda")
+    # the multi-model tier: probe and serve step
+    tier = tuple(multi_model_tier_configs(value_dim=8, n_buckets=16))
+    policy = TC.policy_from_configs(tier, device="cpu")
+    mstate = TS.init_multi_server_state(tier, device="cpu")
+    slots = torch.arange(5, dtype=torch.int32) % 8
+    with pytest.raises(ValueError):
+        TC.lookup_dual_multi(mstate.direct, mstate.failover, policy, slots,
+                             keys, 0, backend="cuda")
+    msrv = TS.MultiModelServer(cfgs=tier, tower_fn=lambda p, f: f["x"],
+                               miss_budget=4, device="cpu")
+    assert msrv.backend == "cuda"             # the configs' default
+    with pytest.raises(ValueError):
+        msrv.serve_step(None, mstate, slots, keys, {"x": torch.zeros(5, 8)},
+                        0)
     assert tpk.LAUNCHES == n0
 
 

@@ -32,11 +32,31 @@ Phases, each fatal on failure:
    counter (per-model vectors included) and all planes of both stacked
    tiers, and a profile of one more warm chunk.
 5. **multi entry point**: ``launch.serve.run_serving_multi``.
+6. **LM serve**: TinyLlama-1.1B at its published widths
+   (``get_config("tinyllama-1.1b")``, 22 layers, d_model 2048, 32/4 heads,
+   bf16, random weights from seed 0) with ``attn_impl="flash_kernel"`` as
+   the user tower behind ``CachedEmbeddingServer``, in the deployment of
+   ``examples/serve_lm_tower.py`` (B=64, miss budget 48, 2**12 x 8 tiers,
+   2% failures) at a 2048-token history: 3 cold and 3 warm steps of the
+   example's loop (``serve_lm_tower.serve_steps``). Asserts 22
+   ``flash_attention`` launches and one dual-probe launch per step and a
+   warm hit rate above 0, replays the stream with ``backend="torch"``
+   (sources, ages, counters and the key, write_ts and last_access planes
+   bit-identical; values and embeddings within a stated tolerance) and
+   profiles one more warm step.
+7. **LM entry point**: ``repro_torch.examples.serve_lm_tower.run`` at full
+   width.
+
+Phase 1 also holds ``flash_attention`` against its plain version at the
+LM path's shapes (q (48, 2048, 32, 64), k/v (48, 2048, 4, 64), bf16,
+causal) and edge shapes, and times it beside
+``F.scaled_dot_product_attention``.
 
 Each kernel's ``launches`` in the ``kernels`` line counts the run of its
 own path: the single-model serve (phase 2) for the dual and one-table
 probes and the bag, the multi-model serve (phase 4) for the multi-model
-probe; the counts are reset just before each path and read just after.
+probe, the LM serve (phase 6, its cuda run) for ``flash_attention``; the
+counts are reset just before each path and read just after.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and ends
 with ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -53,6 +73,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 MIN = 60_000
 BATCH = 512                        # RECSYS_SHAPES["serve_p99"]
 N_BUCKETS, WAYS = 1 << 20, 8
@@ -460,6 +481,101 @@ def phase_kernels(torch, results):
                  if r["library_ms"] is not None else "") + ")")
     del direct, failover, table, small_d, small_f
     kernels_dual_multi(torch, results)
+    kernels_flash(torch, results)
+
+
+LM_B, LM_S, LM_HQ, LM_HKV, LM_HD = 48, 2048, 32, 4, 64   # miss budget 48
+
+
+def sdpa(torch, q, k, v, causal):
+    """One PyTorch call computing the same attention (the library
+    yardstick; the port never calls it): (B, S, H, hd) views as
+    (B, H, S, hd), GQA by ``enable_gqa`` where this PyTorch has it."""
+    F = torch.nn.functional
+    n_rep = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=n_rep > 1)
+    except TypeError:
+        from repro_torch.models.layers import repeat_kv
+
+        return F.scaled_dot_product_attention(
+            qt, repeat_kv(k, n_rep).transpose(1, 2),
+            repeat_kv(v, n_rep).transpose(1, 2), is_causal=causal)
+
+
+def kernels_flash(torch, results):
+    """flash_attention against its plain version at the LM path's shapes
+    and at edge shapes, and its time on the card beside the plain version
+    and SDPA."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+    def inputs(b, sq, sk, hq, hkv, hd, dtype):
+        mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+        return mk(b, sq, hq, hd), mk(b, sk, hkv, hd), mk(b, sk, hkv, hd)
+
+    err = 0.0
+    edges = [  # (B, Sq, Sk, Hq, Hkv, hd, causal, q_offset, dtype)
+        (LM_B, LM_S, LM_S, LM_HQ, LM_HKV, LM_HD, True, 0, torch.bfloat16),
+        (2, 256, 256, 8, 2, 64, True, 0, torch.float32),
+        (2, 256, 256, 8, 2, 64, False, 0, torch.float32),
+        (2, 128, 384, 8, 1, 64, True, 256, torch.float32),
+        (2, 128, 384, 8, 8, 64, True, 256, torch.bfloat16),
+        (2, 512, 512, 32, 4, 128, True, 0, torch.bfloat16),
+        (2, 256, 256, 4, 1, 128, False, 0, torch.float32),
+        (3, 128, 128, 4, 4, 64, True, 0, torch.float32),
+        (2, 100, 100, 4, 2, 16, True, 0, torch.float32),
+        (1, 1152, 1152, 8, 2, 8, True, 0, torch.float32),
+        (1, 1152, 1152, 4, 2, 16, True, 0, torch.bfloat16),
+    ]
+    for b, sq, sk, hq, hkv, hd, causal, off, dtype in edges:
+        q, k, v = inputs(b, sq, sk, hq, hkv, hd, dtype)
+        n0 = fa.LAUNCHES["flash_attention"]
+        got = fa.flash_attention(q, k, v, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        if fa.LAUNCHES["flash_attention"] != n0 + 1:
+            raise AssertionError("flash_attention did not count one launch")
+        want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+        e = float((got.float() - want.float()).abs().max())
+        shape = (f"B={b} Sq={sq} Sk={sk} {hq}/{hkv} heads hd={hd} "
+                 f"causal={causal} q_offset={off} {str(dtype)[6:]}")
+        print(f"[kernels] flash_attention {shape}: max |err| {e:.3g} "
+              f"(atol {tol[dtype]:g})")
+        if not (e <= tol[dtype] and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version at {shape}")
+        err = max(err, e) if b == LM_B else err
+    del q, k, v, got, want
+    q, k, v = inputs(LM_B, LM_S, LM_S, LM_HQ, LM_HKV, LM_HD, torch.bfloat16)
+    # 2 operations per multiply-add, QK^T and PV, over the causal pairs
+    flops = 4 * LM_B * LM_HQ * LM_HD * LM_S * (LM_S + 1) // 2
+    nbytes = sum(x.nbytes for x in (q, k, v)) + q.nbytes
+    ms = device_ms(lambda i: fa.flash_attention(q, k, v), n=3, reps=3)
+    plain_ms = device_ms(lambda i: ref.flash_attention_ref(q, k, v), n=1,
+                         reps=3)
+    lib_ms = device_ms(lambda i: sdpa(torch, q, k, v, True), n=5, reps=3)
+    results["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:85",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
+        * 1e3, bound_by="operations" if flops / BF16_FLOP_PER_S
+        >= nbytes / HBM_BYTES_PER_S else "bytes", library_ms=lib_ms)
+    r = results["flash_attention"]
+    print(f"[kernels] flash_attention at q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)} bf16 causal: {ms:.3f} ms on the card "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, SDPA "
+          f"{lib_ms:.3f} ms; bound {r['bound_ms']:.3f} ms by "
+          f"{r['bound_by']} ({flops:.4g} operations at 989 TFLOP/s bf16; "
+          f"{nbytes / 1e9:.3f} GB at 3.35 TB/s = "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
 
 
 # ------------------------------------------------------------ phase 2
@@ -615,7 +731,8 @@ def phase_serve(torch, counts):
 SERVE_KERNELS = ("cache_probe_dual", "cache_probe_tiled", "embedding_bag")
 KERNEL_GROUPS = (("cache_probe", ("probe_kernel",)),
                  ("embedding_bag", ("bag_kernel",)),
-                 ("matmul", ("gemm", "xmma", "cutlass", "sm90_")),
+                 ("flash_attention", ("fa_kernel",)),
+                 ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
                  ("sort", ("sort", "radix", "cub::")),
                  ("index/scatter", ("index", "scatter", "gather")),
                  ("reduce", ("reduce",)),
@@ -643,7 +760,7 @@ def phase_profile(torch, tag, chunk, drive):
     if not kernels:
         print(f"[{tag}] device time not measured (the profiler recorded "
               "no CUDA events)")
-        return
+        return None
     by_group, by_name = {}, {}
     for e in kernels:
         us = e.time_range.end - e.time_range.start
@@ -664,6 +781,7 @@ def phase_profile(torch, tag, chunk, drive):
     print(f"[{tag}] top device ops, us per step: " + "; ".join(
         f"{n} {us / chunk:.1f}" for n, us in sorted(
             by_name.items(), key=lambda kv: -kv[1])[:6]))
+    return by_group, wall_ms
 
 
 # ------------------------------------------------------------ phase 3
@@ -808,6 +926,176 @@ def phase_entry_multi(torch):
                              f"launches {n}")
 
 
+# ------------------------------------------------------------ phase 6
+LM_STEPS_COLD, LM_STEPS_WARM = 3, 3
+LM_USERS, LM_MINUTES = 1200, 90              # the example's own stream
+LM_SEQ = 2048                                # TinyLlama's context length
+LM_TOL = dict(max_abs=0.1, rel_l2=1e-2)      # cuda vs torch, bf16 tower
+
+
+def lm_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("tinyllama-1.1b"),
+                               attn_impl="flash_kernel")
+
+
+def lm_run(torch, backend, cfg, params, n_steps, launches=None):
+    """The first ``n_steps`` steps of the example's loop at full width.
+    Returns what they produced and the live generator (its state goes on).
+    With ``launches`` (a list), records each step's kernel launches."""
+    from repro_torch.examples import serve_lm_tower as ex
+    from repro_torch.kernels import ops
+
+    gen = ex.serve_steps(cfg, params, seq=LM_SEQ, batch=64,
+                         minutes=LM_MINUTES, users=LM_USERS,
+                         failure_rate=0.02, device="cuda", backend=backend)
+    out = {"src": [], "age": [], "emb": [], "stats": [], "step_ms": []}
+    for _ in range(n_steps):
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, stats, state = next(gen)            # one stats fetch per step
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if launches is not None:
+            after = ops.launch_counts()
+            launches.append({k: after[k] - before[k] for k in after})
+        out["src"].append(res.source)
+        out["age"].append(res.age_ms)
+        out["emb"].append(res.embeddings)
+        out["stats"].append(stats)
+    out.update(state=state, gen=gen)
+    return out
+
+
+def close_errors(torch, a, b):
+    """(max |a - b|, ||a - b|| / ||b||) in float32."""
+    a, b = a.float(), b.float()
+    return (float((a - b).abs().max()),
+            float((a - b).norm() / b.norm().clamp(min=1e-30)))
+
+
+def phase_lm(torch, counts):
+    from repro_torch.core.cache import CacheState
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = lm_config()
+    t0 = time.perf_counter()
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[lm] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd},"
+          f" d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, attn_impl "
+          f"{cfg.attn_impl}: {n_params / 1e9:.3f}B parameters "
+          f"({sum(p.nbytes for p in params.parameters()) / 1e9:.2f} GB) in "
+          f"{time.perf_counter() - t0:.1f}s")
+    steps = LM_STEPS_COLD + LM_STEPS_WARM
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()                    # this path's window
+    per_step = []
+    cuda = lm_run(torch, "cuda", cfg, params, steps, per_step)
+    n = ops.launch_counts()
+    counts["flash_attention"] = n["flash_attention"]
+    for i, c in enumerate(per_step):
+        if c["flash_attention"] != cfg.n_layers or c["cache_probe_dual"] != 1:
+            raise AssertionError(f"LM step {i}: launches {c}; want "
+                                 f"{cfg.n_layers} flash_attention and one "
+                                 "dual probe")
+    hits = [s["direct_hits"] for s in cuda["stats"]]
+    req = [s["requests"] for s in cuda["stats"]]
+    warm = sum(hits[LM_STEPS_COLD:]) / sum(req[LM_STEPS_COLD:])
+    print(f"[lm] serve at seq {LM_SEQ}, B=64, miss budget 48, 2**12 x 8 "
+          f"tiers, 2% failures: {steps} steps, launches {n} "
+          f"({cfg.n_layers} flash_attention + 1 dual probe per step), "
+          f"direct hits per step "
+          f"{hits}, warm hit rate {warm:.4f}, tower inferences "
+          f"{sum(s['tower_inferences'] for s in cuda['stats'])}, fallbacks "
+          f"{sum(s['fallbacks'] for s in cuda['stats'])}; host wall ms per "
+          f"step {[round(t, 1) for t in cuda['step_ms']]}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not warm > 0:
+        raise AssertionError("warm LM steps have no direct hits")
+    for e in cuda["emb"]:
+        if tuple(e.shape) != (64, cfg.user_embed_dim) or not bool(
+                torch.isfinite(e).all()):
+            raise AssertionError(f"LM embeddings {tuple(e.shape)} or "
+                                 "non-finite")
+
+    ops.reset_launch_counts()
+    plain = lm_run(torch, "torch", cfg, params, steps)
+    if sum(ops.launch_counts().values()):
+        raise AssertionError(f"torch replay launched kernels: "
+                             f"{ops.launch_counts()}")
+    print(f"[lm] torch-backend replay (plain attention): host wall ms per "
+          f"step {[round(t, 1) for t in plain['step_ms']]}")
+    for x, y in zip(cuda["src"] + cuda["age"], plain["src"] + plain["age"]):
+        if not torch.equal(x, y):
+            raise AssertionError("LM: sources/ages differ between backends")
+    if cuda["stats"] != plain["stats"]:
+        raise AssertionError("LM: counters differ between backends")
+    for tier in ("direct", "failover"):
+        ta, tb = getattr(cuda["state"], tier), getattr(plain["state"], tier)
+        for name in CacheState._fields:
+            if name != "values" and not torch.equal(getattr(ta, name),
+                                                    getattr(tb, name)):
+                raise AssertionError(f"LM: {tier}.{name} differs between "
+                                     "backends")
+    errs = [close_errors(torch, a, b) for a, b in zip(cuda["emb"],
+                                                      plain["emb"])]
+    errs += [close_errors(torch, getattr(cuda["state"], t).values,
+                          getattr(plain["state"], t).values)
+             for t in ("direct", "failover")]
+    worst = (max(e[0] for e in errs), max(e[1] for e in errs))
+    print(f"[lm] cuda and torch backends: sources, ages, counters and the "
+          f"key_hi/key_lo/write_ts/last_access_ts planes of both tiers "
+          f"bit-identical; embeddings and value planes max |err| "
+          f"{worst[0]:.4g}, relative L2 {worst[1]:.3g} (tolerance "
+          f"{LM_TOL['max_abs']} / {LM_TOL['rel_l2']})")
+    if worst[0] > LM_TOL["max_abs"] or worst[1] > LM_TOL["rel_l2"]:
+        raise AssertionError("LM: embeddings differ between backends "
+                             "beyond the tolerance")
+    del plain
+    got = phase_profile(torch, "profile lm", 1,
+                        lambda: next(cuda["gen"])[0].stats)
+    if got is not None:
+        by_group, wall_ms = got
+        flash = by_group.get("flash_attention", 0.0) / 1e3
+        mm = by_group.get("matmul", 0.0) / 1e3
+        busy = sum(by_group.values()) / 1e3
+        print(f"[profile lm] flash_attention {flash:.1f} ms "
+              f"({flash / busy:.1%} of device time), matmul {mm:.1f} ms "
+              f"({mm / busy:.1%}); unprofiled warm step "
+              f"{statistics.median(cuda['step_ms'][LM_STEPS_COLD:]):.1f} ms "
+              f"host wall, idle share estimate "
+              f"{1 - busy / statistics.median(cuda['step_ms'][LM_STEPS_COLD:]):.3f}")
+
+
+# ------------------------------------------------------------ phase 7
+def phase_lm_entry(torch):
+    from repro_torch.examples import serve_lm_tower as ex
+    from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()
+    cfg = lm_config()
+    ops.reset_launch_counts()
+    totals = ex.run(cfg=cfg, seq=LM_SEQ, batch=64, minutes=2, users=100,
+                    failure_rate=0.02, device="cuda", backend="cuda")
+    n = ops.launch_counts()
+    steps = totals["requests"] // 64
+    if (not steps or n["flash_attention"] != cfg.n_layers * steps
+            or n["cache_probe_dual"] != steps):
+        raise AssertionError(f"LM entry point: {steps} steps, launches {n}")
+    print(f"[lm entry] {steps} steps, launches {n}")
+
+
 def main() -> int:
     try:
         import torch
@@ -831,6 +1119,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s")
     phase_entry_multi(torch)
     print(f"[time] multi entry phase done at {time.perf_counter() - t0:.1f}s")
+    phase_lm(torch, counts)
+    print(f"[time] LM serve and profile phases done at "
+          f"{time.perf_counter() - t0:.1f}s")
+    phase_lm_entry(torch)
+    print(f"[time] LM entry phase done at {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in sorted(counts):

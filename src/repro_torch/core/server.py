@@ -171,6 +171,21 @@ def _serve_many_loop(step_fn, flush_fn, state, n_steps: int, acc: dict, *,
     return state, acc, ys
 
 
+def take_rows(features, idx):
+    """Index every tensor of a feature pytree along its first axis: a bare
+    tensor, or a (nested) dict, tuple or list of tensors. The reference
+    does this with ``tree_map(lambda x: x[sel], features)``, so a tower
+    may take any of these forms."""
+    if isinstance(features, torch.Tensor):
+        return features[idx]
+    if isinstance(features, dict):
+        return {k: take_rows(v, idx) for k, v in features.items()}
+    if isinstance(features, (tuple, list)):
+        return type(features)(take_rows(v, idx) for v in features)
+    raise TypeError(f"features must be a tensor or a dict/tuple/list of "
+                    f"tensors, got {type(features).__name__}")
+
+
 def _one_hot(slots: torch.Tensor, n_models: int) -> torch.Tensor:
     """(B, M) bool: row b is True at column slots[b]."""
     return slots[:, None] == torch.arange(n_models, device=slots.device)
@@ -224,7 +239,7 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
     order = torch.sort((~infer).to(torch.int32), stable=True).indices
     sel = order[:miss_budget]
     sel_is_inf = infer[sel]
-    towered = tower_fn(params, {k: v[sel] for k, v in features.items()})
+    towered = tower_fn(params, take_rows(features, sel))
     towered = towered.to(direct.values.dtype)
     sel_failed = failure_mask[sel]
     sel_ok = sel_is_inf & ~sel_failed
@@ -325,8 +340,9 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
 class CachedEmbeddingServer:
     """Binds a user-tower fn to ERCache semantics.
 
-    ``tower_fn(params, features) -> (rows, D)`` takes a dict of feature
-    tensors with ``miss_budget`` rows (fewer when the batch is smaller).
+    ``tower_fn(params, features) -> (rows, D)`` takes the batch's features
+    (a tensor, or a dict/tuple/list of tensors, :func:`take_rows`) cut to
+    ``miss_budget`` rows (fewer when the batch is smaller).
     """
 
     cfg: CacheConfig
@@ -417,7 +433,7 @@ class CachedEmbeddingServer:
                    flush_every: int = 1, collect: bool = True):
         """Run S serve steps over a stream staged on the device.
 
-        ``keys`` is an (S, B) Key64, ``features`` a dict of (S, B, ...)
+        ``keys`` is an (S, B) Key64, ``features`` a pytree of (S, B, ...)
         tensors, ``now_ms`` (S,) int32, ``failure_mask`` (S, B) bool (None:
         no failures). The flush runs every ``flush_every`` steps (0: only
         at the end); a tail flush always runs, so the returned rings are
@@ -436,7 +452,7 @@ class CachedEmbeddingServer:
 
         def step(st, i):
             return self.serve_step(params, st, Key64(keys.hi[i], keys.lo[i]),
-                                   {k: v[i] for k, v in features.items()},
+                                   take_rows(features, i),
                                    now_ms[i], failure_mask[i])
 
         return _serve_many_loop(step, lambda st, i: self.flush(st, now_ms[i]),
@@ -670,7 +686,7 @@ class MultiModelServer:
         def step(st, i):
             return self.serve_step(params, st, slots[i],
                                    Key64(keys.hi[i], keys.lo[i]),
-                                   {k: v[i] for k, v in features.items()},
+                                   take_rows(features, i),
                                    now_ms[i], failure_mask[i])
 
         return _serve_many_loop(step, lambda st, i: self.flush(st, now_ms[i]),

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 _M32 = 0xFFFFFFFF
+NEG_INF = -1e30
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -75,3 +76,29 @@ def embedding_bag_ref(table, ids, mode: str = "sum"):
     if mode == "mean":
         out = out / mask.sum(dim=1, keepdim=True).clamp(min=1)
     return out.to(table.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """q (B, Sq, Hq, hd); k, v (B, Sk, Hkv, hd); GQA by head repetition
+    (query head h reads KV head h // n_rep). float32 scores and softmax,
+    masked scores -1e30, output in q's dtype.
+
+    Computed one batch row at a time so that no (B, Hq, Sq, Sk) score
+    tensor exists at once (25.8 GB at the LM tower's B=48, 32 heads,
+    2048 tokens); the rows are independent, so the numbers are those of
+    the whole-batch formula."""
+    B, Sq, Hq, hd = q.shape
+    Sk, n_rep = k.shape[1], Hq // k.shape[2]
+    scale = hd ** -0.5
+    keep = (torch.arange(Sk, device=q.device)[None, :]
+            <= torch.arange(Sq, device=q.device)[:, None] + q_offset)
+    out = torch.empty_like(q)
+    for b in range(B):
+        kr = k[b].repeat_interleave(n_rep, dim=1).to(torch.float32)
+        vr = v[b].repeat_interleave(n_rep, dim=1).to(torch.float32)
+        s = torch.einsum("qhd,khd->hqk", q[b].to(torch.float32), kr) * scale
+        if causal:
+            s = torch.where(keep[None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out[b] = torch.einsum("hqk,khd->qhd", p, vr).to(q.dtype)
+    return out

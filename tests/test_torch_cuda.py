@@ -16,6 +16,7 @@ from repro_torch.core.config import NO_TTL_MS  # noqa: E402
 from repro_torch.core.hashing import EMPTY_HI  # noqa: E402
 from repro_torch.kernels import cache_probe as pk  # noqa: E402
 from repro_torch.kernels import embedding_bag as ebk  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -260,7 +261,8 @@ def test_lookup_dual_multi_is_one_launch(cuda):
     assert ops.launch_counts() == {"cache_probe_dual": 0,
                                    "cache_probe_dual_multi": 1,
                                    "cache_probe_tiled": 0,
-                                   "embedding_bag": 0}
+                                   "embedding_bag": 0,
+                                   "flash_attention": 0}
     want = C.lookup_dual_multi(direct, failover, policy, slots, k, 6 * MIN,
                                backend="torch")
     for g, w in zip(got, want):
@@ -325,3 +327,82 @@ def test_multi_serve_many_cuda_backend_matches_torch_backend(cuda):
     for tier in ("direct", "failover"):
         for a, b in zip(getattr(st_c, tier), getattr(st_t, tier)):
             assert torch.equal(a, b)
+
+
+# ------------------------------------------------------ flash attention
+FLASH_EDGES = [  # (B, Sq, Sk, Hq, Hkv, hd, causal, q_offset, dtype)
+    (2, 256, 256, 8, 2, 64, True, 0, torch.bfloat16),
+    (2, 256, 256, 8, 2, 64, True, 0, torch.float32),
+    (2, 256, 256, 4, 4, 64, False, 0, torch.float32),
+    (2, 128, 384, 8, 1, 64, True, 256, torch.float32),
+    (2, 128, 384, 8, 8, 64, True, 256, torch.bfloat16),
+    (1, 256, 256, 8, 1, 128, True, 0, torch.bfloat16),
+    (1, 128, 128, 4, 1, 128, False, 0, torch.float32),
+    (2, 100, 100, 4, 2, 16, True, 0, torch.float32),
+    (1, 1152, 1152, 8, 2, 8, True, 0, torch.float32),
+    (1, 256, 256, 4, 2, 16, True, 0, torch.float32),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,q_offset,dtype",
+                         FLASH_EDGES)
+def test_flash_attention_matches_plain(cuda, b, sq, sk, hq, hkv, hd, causal,
+                                       q_offset, dtype):
+    """The kernel against its plain version: float32 at atol 2e-5 (the JAX
+    suite's bar), bfloat16 compared in float32 at atol 2e-2 (about one
+    bfloat16 ulp at |o| <= 4); one launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(sq + hd)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((b, sq, hq, hd), (b, sk, hkv, hd), (b, sk, hkv, hd)))
+    n0 = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == n0 + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    assert got.dtype == dtype and got.shape == q.shape
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 128, 4, 64), device=cuda)
+    k = torch.zeros((1, 128, 2, 64), device=cuda)
+    n0 = fa.LAUNCHES["flash_attention"]
+    for args in ((q.cpu(), k, k), (q, k.cpu(), k.cpu()),
+                 (q.to(torch.bfloat16), k, k),
+                 (q[..., :48].contiguous(), k[..., :48].contiguous(),
+                  k[..., :48].contiguous()),
+                 (q.transpose(1, 2), k, k),
+                 (torch.zeros((1, 192, 4, 64), device=cuda), k, k)):
+        with pytest.raises(ValueError):
+            fa.flash_attention(*args)
+    assert fa.LAUNCHES["flash_attention"] == n0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_tower_cuda_backend_matches_torch_backend(cuda, dtype):
+    """The SMOKE TinyLlama tower at S=1152 (the flash path): the cuda
+    backend (the kernel, one launch per layer) against the torch backend
+    (its plain version); a CPU tensor with backend="cuda" raises."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True),
+                              attn_impl="flash_kernel", dtype=dtype)
+    model = T.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                          cuda)
+    tokens = torch.randint(0, cfg.vocab, (5, 1152), dtype=torch.int32,
+                           device=cuda)
+    n0 = fa.LAUNCHES["flash_attention"]
+    got = T.user_tower_step(model, tokens, cfg, backend="cuda")
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == n0 + cfg.n_layers
+    want = T.user_tower_step(model, tokens, cfg, backend="torch")
+    assert fa.LAUNCHES["flash_attention"] == n0 + cfg.n_layers
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    with pytest.raises(ValueError):
+        T.user_tower_step(model, tokens.cpu(), cfg, backend="cuda")

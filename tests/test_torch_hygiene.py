@@ -20,10 +20,12 @@ from repro_torch.core.config import (CacheConfig,  # noqa: E402
                                      multi_model_tier_configs)
 from repro_torch.core.hashing import Key64  # noqa: E402
 from repro_torch.data import access_patterns as t_ap  # noqa: E402
+from repro_torch.examples import serve_lm_tower as t_lm_example  # noqa: E402
 from repro_torch.ft import failure as t_failure  # noqa: E402
 from repro_torch.kernels import cache_probe as tpk  # noqa: E402
 from repro_torch.launch import serve as t_launch  # noqa: E402
 from repro_torch.models import recsys as TR  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -125,7 +127,8 @@ def _skip_with_card():
                                    "init_multi_cache",
                                    "init_multi_server_state",
                                    "multi_model_server",
-                                   "run_serving_multi"])
+                                   "run_serving_multi", "lm_init_params",
+                                   "serve_lm_tower_run"])
 def test_default_device_entry_points_raise_without_card(entry):
     _skip_with_card()
     cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=16)
@@ -144,6 +147,10 @@ def test_default_device_entry_points_raise_without_card(entry):
             cfgs=tuple(tier), tower_fn=lambda p, f: f["x"], miss_budget=4),
         "run_serving_multi": lambda: t_launch.run_serving_multi(
             minutes=1, users=10),
+        "lm_init_params": lambda: TT.init_params(
+            torch.Generator(), t_launch.get_config("tinyllama-1.1b",
+                                                   smoke=True)),
+        "serve_lm_tower_run": lambda: t_lm_example.run(minutes=1, users=10),
     }
     with pytest.raises((RuntimeError, AssertionError)):
         calls[entry]()
@@ -186,6 +193,13 @@ def test_cuda_backend_with_cpu_tensors_raises(rng):
         msrv.serve_step(None, mstate, slots, keys, {"x": torch.zeros(5, 8)},
                         0)
     assert tpk.LAUNCHES == n0
+    # the LM tower: backend "cuda" never takes the plain attention on the
+    # CPU
+    lm_cfg = t_launch.get_config("tinyllama-1.1b", smoke=True)
+    lm = TT.init_params(torch.Generator(), lm_cfg, device="cpu")
+    with pytest.raises(ValueError):
+        TT.user_tower_step(lm, torch.zeros((2, 8), dtype=torch.int32),
+                           lm_cfg, backend="cuda")
 
 
 def test_unknown_backend_rejected():

@@ -518,3 +518,38 @@ def test_multi_cli_refuses_flags_the_registry_owns(flags, capsys):
         t_launch.main(["--multi", *flags])
     assert exc.value.code == 2
     assert "--multi" in capsys.readouterr().err
+
+
+def test_multi_model_bare_tensor_features_match_jax(rng):
+    """A tower that takes a bare (B, dim) tensor behind the multi-model
+    tier: sources, ages and every counter equal the JAX tier's (the
+    reference gathers features with ``tree_map``)."""
+    w = (rng.standard_normal((DIM, DIM)) / np.sqrt(DIM)).astype(np.float32)
+    jcfgs, tcfgs = both_cfgs(tier_kw())
+    tower = lambda p, x: x @ p
+    jsrv = JS.MultiModelServer(cfgs=tuple(jcfgs), tower_fn=tower,
+                               miss_budget=MISS_BUDGET)
+    tsrv = TS.MultiModelServer(cfgs=tuple(tcfgs), tower_fn=tower,
+                               miss_budget=MISS_BUDGET, device="cpu")
+    jstate = JS.init_multi_server_state(jcfgs, writebuf_capacity=64)
+    tstate = TS.init_multi_server_state(tcfgs, writebuf_capacity=64,
+                                        device="cpu")
+    ids, slots, _, nows, fails = _stream(rng, lambda i: None)
+    x = np.cos(ids[..., None] * (np.arange(DIM) + 1) * 1e-3).astype(
+        np.float32)
+    jstate, jacc, jys = jsrv.jit_serve_many(
+        jnp.asarray(w), jstate, jnp.asarray(slots), jkeys(ids),
+        jnp.asarray(x), jnp.asarray(nows), jnp.asarray(fails))
+    tstate, tacc, tys = tsrv.serve_many(
+        torch.as_tensor(w), tstate, torch.as_tensor(slots), tkeys(ids),
+        torch.as_tensor(x), torch.as_tensor(nows), torch.as_tensor(fails))
+    assert_exact(tys[1], jys[1], "source")
+    assert_exact(tys[2], jys[2], "age")
+    assert_float(tys[0], jys[0], "embeddings")
+    jacc = jax.device_get(jacc)
+    tacc = TS.fetch_counters(tacc)
+    for k, v in jacc.items():
+        if k in TS._ACC_F32 + TS._ACC_PM_F32:
+            np.testing.assert_allclose(tacc[k], v, rtol=SUM_RTOL, err_msg=k)
+        else:
+            assert_exact(np.asarray(tacc[k]), np.asarray(v), k)

@@ -262,3 +262,74 @@ def test_run_serving_counters_match_jax(opts):
     for k in dataclasses.fields(ServingCounters):
         assert got[k.name] == want[k.name], k.name
     assert got["requests"] > 0 and got["batches"] == want["batches"]
+
+
+# ------------------------------------------- features as any tensor pytree
+FEATURE_FORMS = {  # name -> (wrap an (..., B, dim) array, tower on it)
+    "bare": (lambda x: x, lambda p, f: f @ p),
+    "nested": (lambda x: {"u": (x, {"x": x})},
+               lambda p, f: f["u"][1]["x"] @ p + 0 * f["u"][0]),
+}
+
+
+@pytest.mark.parametrize("form", list(FEATURE_FORMS))
+def test_tensor_pytree_features_match_jax(form, rng):
+    """The reference gathers the tower's inputs with ``tree_map`` (an LM
+    tower takes a bare (B, S) token tensor): ``serve_many`` then
+    ``serve_step`` + ``flush`` over one stream, with coalescing, give the
+    JAX server's sources, ages and counters exactly."""
+    wrap, tower = FEATURE_FORMS[form]
+    dim = 8
+    w = (rng.standard_normal((dim, dim)) / np.sqrt(dim)).astype(np.float32)
+    ids, _, nows, fails = _stream(rng, lambda i: None)
+    x = np.sin(ids[..., None] * (np.arange(dim) + 1) * 1e-3).astype(
+        np.float32)
+    kw = dict(model_id=1, model_type="ctr", n_buckets=16, ways=4,
+              value_dim=dim, cache_ttl_ms=MIN, coalesce_misses=True)
+    jsrv = JS.CachedEmbeddingServer(cfg=JCfg(backend="jnp", **kw),
+                                    tower_fn=tower, miss_budget=MISS_BUDGET)
+    tsrv = TS.CachedEmbeddingServer(cfg=TCfg(backend="torch", **kw),
+                                    tower_fn=tower, miss_budget=MISS_BUDGET)
+    jstate = JS.init_server_state(jsrv.cfg, writebuf_capacity=64)
+    tstate = TS.init_server_state(tsrv.cfg, writebuf_capacity=64,
+                                  device="cpu")
+    jw, tw = jnp.asarray(w), torch.as_tensor(w)
+    jstate, jacc, jys = jsrv.jit_serve_many(
+        jw, jstate, JKey.from_int(ids[:5]), wrap(jnp.asarray(x[:5])),
+        jnp.asarray(nows[:5]), jnp.asarray(fails[:5]))
+    tstate, tacc, tys = tsrv.serve_many(
+        tw, tstate, TKey.from_int(ids[:5], device="cpu"),
+        wrap(torch.as_tensor(x[:5])), torch.as_tensor(nows[:5]),
+        torch.as_tensor(fails[:5]))
+    assert_exact(tys[1], jys[1], "source")
+    assert_exact(tys[2], jys[2], "age")
+    assert_float(tys[0], jys[0], "embeddings")
+    assert TS.fetch_counters(tacc) == {
+        k: (float(v) if k in TS._ACC_F32 else int(v))
+        for k, v in jax.device_get(jacc).items()}
+    for s in range(5, S):
+        jres = jsrv.serve_step(jw, jstate, JKey.from_int(ids[s]),
+                               wrap(jnp.asarray(x[s])), int(nows[s]),
+                               jnp.asarray(fails[s]))
+        tres = tsrv.serve_step(tw, tstate, TKey.from_int(ids[s],
+                                                         device="cpu"),
+                               wrap(torch.as_tensor(x[s])), int(nows[s]),
+                               torch.as_tensor(fails[s]))
+        assert_exact(tres.source, jres.source, f"source {s}")
+        assert_exact(tres.age_ms, jres.age_ms, f"age {s}")
+        for k in ("requests", "direct_hits", "tower_inferences",
+                  "fallbacks", "failover_serves"):
+            assert_exact(tres.stats[k], jres.stats[k], k)
+        jstate = jsrv.flush(jres.state, int(nows[s]))
+        tstate = tsrv.flush(tres.state, int(nows[s]))
+    je, js = JS.serve_step_no_cache(tower, jw, JKey.from_int(ids[0]),
+                                    wrap(jnp.asarray(x[0])),
+                                    jnp.asarray(fails[0]))
+    te, ts = TS.serve_step_no_cache(tower, tw,
+                                    TKey.from_int(ids[0], device="cpu"),
+                                    wrap(torch.as_tensor(x[0])),
+                                    torch.as_tensor(fails[0]))
+    assert_float(te, je)
+    assert_exact(ts, js)
+    with pytest.raises(TypeError):
+        TS.take_rows({"x": np.zeros(3)}, 0)

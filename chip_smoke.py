@@ -46,17 +46,36 @@ Phases, each fatal on failure:
    profiles one more warm step.
 7. **LM entry point**: ``repro_torch.examples.serve_lm_tower.run`` at full
    width.
+8. **LM decode**: the same TinyLlama-1.1B at its published widths
+   generating at B=128 (``LM_SHAPES["decode_32k"].global_batch``):
+   ``prefill_step`` of a 1920-token prompt into a 2048-position KV cache
+   (TinyLlama's context length; 22 ``flash_attention`` launches), then 128
+   greedy decode steps (``decode_step``, ``backend="cuda"``) up to
+   position 2048 (22 ``decode_attention`` launches per step). A ``backend="torch"``
+   replay from a copy of the prefilled cache, fed the same tokens, must
+   give logits within relative L2 0.01 at every step; the first step's
+   logits of 8 rows must match ``forward_hidden`` over prompt + token
+   within relative L2 0.02; one more decode step is profiled.
 
 Phase 1 also holds ``flash_attention`` against its plain version at the
 LM path's shapes (q (48, 2048, 32, 64), k/v (48, 2048, 4, 64), bf16,
 causal) and edge shapes, and times it beside
-``F.scaled_dot_product_attention``.
+``F.scaled_dot_product_attention``; holds ``decode_attention`` against its
+plain version at the decode path's shape (q (128, 32, 64), k/v
+(128, 2048, 4, 64), bf16), at ``LM_SHAPES["decode_32k"]`` and
+``["long_500k"]`` and at edge shapes, timed beside SDPA; and runs the
+probe shootout of ``benchmarks/bench_kernel_probe.py`` (2**12 x 8 x 64
+tier, B=4096, ~60% hits): ``cache_probe_perquery`` against its plain
+version bit for bit (a -0.0 column read back +0.0) and against the tiled
+probe, then perquery, tiled and dual timed side by side.
 
 Each kernel's ``launches`` in the ``kernels`` line counts the run of its
 own path: the single-model serve (phase 2) for the dual and one-table
 probes and the bag, the multi-model serve (phase 4) for the multi-model
-probe, the LM serve (phase 6, its cuda run) for ``flash_attention``; the
-counts are reset just before each path and read just after.
+probe, the LM serve (phase 6, its cuda run) for ``flash_attention``, the
+probe shootout for ``cache_probe_perquery`` and the decode steps (phase 8,
+the cuda run) for ``decode_attention``; the counts are reset just before
+each path and read just after.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and ends
 with ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -482,6 +501,7 @@ def phase_kernels(torch, results):
     del direct, failover, table, small_d, small_f
     kernels_dual_multi(torch, results)
     kernels_flash(torch, results)
+    kernels_decode(torch, results)
 
 
 LM_B, LM_S, LM_HQ, LM_HKV, LM_HD = 48, 2048, 32, 4, 64   # miss budget 48
@@ -576,6 +596,238 @@ def kernels_flash(torch, results):
           f"{r['bound_by']} ({flops:.4g} operations at 989 TFLOP/s bf16; "
           f"{nbytes / 1e9:.3f} GB at 3.35 TB/s = "
           f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+
+
+DEC_B, DEC_PROMPT, DEC_MAX = 128, 1920, 2048   # decode_32k's batch
+
+
+def sdpa_decode(torch, q, k, v, mask, gqa=False):
+    """One PyTorch call computing the same decode attention (the library
+    yardstick; the port never calls it). ``mask`` is the (B, 1, 1, S)
+    boolean valid_len mask. With ``gqa``: q (B, Hq, 1, hd) against k, v
+    viewed (B, Hkv, S, hd) with ``enable_gqa``; without: the n_rep query
+    heads of a KV head as n_rep queries (B, Hkv, n_rep, hd), the same
+    function without repeating the cache."""
+    F = torch.nn.functional
+    B, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if gqa:
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)[:, :, 0]
+    return F.scaled_dot_product_attention(
+        q.view(B, Hkv, Hq // Hkv, hd), kt, vt, attn_mask=mask).view(B, Hq, hd)
+
+
+def decode_bytes(q, k, valid):
+    """Least bytes of one decode launch: the valid prefix of k and v, q
+    read and the output written once."""
+    S, Hkv, hd = k.shape[1:]
+    n = int(valid.clamp(0, S).sum())
+    return 2 * n * Hkv * hd * k.element_size() + 2 * q.nbytes
+
+
+def kernels_decode(torch, results):
+    """decode_attention against its plain version at edge shapes, at the
+    decode path's shape, at decode_32k and at long_500k, and its time on
+    the card beside the plain version and SDPA."""
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+    def inputs(b, s, hq, hkv, hd, dtype):
+        mk = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(dtype)
+        return mk(b, hq, hd), mk(b, s, hkv, hd), mk(b, s, hkv, hd)
+
+    def check(q, k, v, valid, what):
+        n0 = dk.LAUNCHES["decode_attention"]
+        got = dk.decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        if dk.LAUNCHES["decode_attention"] != n0 + 1:
+            raise AssertionError("decode_attention did not count one launch")
+        want = ref.decode_attention_ref(q, k, v, valid)
+        e = float((got.float() - want.float()).abs().max())
+        zero = valid <= 0
+        print(f"[kernels] decode_attention {what}: max |err| {e:.3g} "
+              f"(atol {tol[q.dtype]:g})")
+        if not (e <= tol[q.dtype] and bool(torch.isfinite(got).all())
+                and not bool(got[zero].any())):
+            raise AssertionError(f"decode_attention disagrees with its "
+                                 f"plain version at {what}")
+        return e
+
+    edges = [  # (S, Hq, Hkv, hd, dtype): n_rep 8, 1, 4; hd 8, 16, 64, 128
+        (1024, 32, 4, 64, torch.bfloat16), (1024, 32, 4, 64, torch.float32),
+        (1024, 8, 8, 64, torch.float32), (1024, 32, 4, 128, torch.bfloat16),
+        (1024, 16, 4, 128, torch.float32), (512, 8, 2, 16, torch.float32),
+        (512, 8, 1, 8, torch.bfloat16), (512, 4, 4, 8, torch.float32),
+        (256, 8, 2, 16, torch.bfloat16), (100, 8, 1, 64, torch.float32)]
+    for S, hq, hkv, hd, dtype in edges:
+        valid = torch.tensor([min(n, S) for n in (0, 1, 511, 512, 513, S)],
+                             dtype=torch.int32, device=dev)
+        check(*inputs(len(valid), S, hq, hkv, hd, dtype), valid,
+              f"S={S} {hq}/{hkv} heads hd={hd} {str(dtype)[6:]} valid_len "
+              f"{valid.tolist()}")
+
+    # the decode path's shape: valid_len 1921..2048 (positions 1920..2047)
+    q, k, v = inputs(DEC_B, DEC_MAX, LM_HQ, LM_HKV, LM_HD, torch.bfloat16)
+    valid = torch.arange(DEC_PROMPT + 1, DEC_MAX + 1, dtype=torch.int32,
+                         device=dev)
+    err = check(q, k, v, valid, f"at the decode path q {tuple(q.shape)} "
+                f"k/v {tuple(k.shape)} bf16 valid_len "
+                f"{DEC_PROMPT + 1}..{DEC_MAX}")
+    mask = (torch.arange(DEC_MAX, device=dev)[None, :]
+            < valid[:, None])[:, None, None, :]
+    lib_gqa = device_ms(lambda i: sdpa_decode(torch, q, k, v, mask, True),
+                        n=10, reps=3)
+    row = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:91",
+        max_abs_err=err,
+        ms=device_ms(lambda i: dk.decode_attention(q, k, v, valid), n=20,
+                     reps=3),
+        plain_ms=device_ms(lambda i: ref.decode_attention_ref(q, k, v, valid),
+                           n=2, reps=3),
+        bound_ms=decode_bytes(q, k, valid) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        library_ms=device_ms(lambda i: sdpa_decode(torch, q, k, v, mask),
+                             n=20, reps=3))
+    print(f"[kernels] decode_attention at the decode path: {row['ms']:.4f} ms"
+          f" on the card, plain {row['plain_ms']:.3f} ms, SDPA (query heads "
+          f"folded per KV head) {row['library_ms']:.4f} ms, SDPA enable_gqa "
+          f"{lib_gqa:.4f} ms; bound {row['bound_ms']:.4f} ms by bytes "
+          f"({decode_bytes(q, k, valid) / 1e9:.4f} GB at 3.35 TB/s)")
+    row["library_ms"] = min(row["library_ms"], lib_gqa)
+    results["decode_attention"] = row
+    del q, k, v
+
+    for shape, n_k in (("decode_32k", 5), ("long_500k", 3)):
+        sh = LM_SHAPES[shape]
+        q, k, v = inputs(sh.global_batch, sh.seq_len, LM_HQ, LM_HKV, LM_HD,
+                         torch.bfloat16)
+        valid = (torch.randint(1, sh.seq_len + 1, (sh.global_batch,),
+                               generator=gen, device=dev, dtype=torch.int32)
+                 if sh.global_batch > 1 else
+                 torch.full((1,), sh.seq_len, dtype=torch.int32, device=dev))
+        check(q, k, v, valid, f"at {shape} q {tuple(q.shape)} k/v "
+              f"{tuple(k.shape)} bf16 ({k.nbytes * 2 / 1e9:.2f} GB of KV), "
+              f"valid_len in [{int(valid.min())}, {int(valid.max())}]")
+        ms = device_ms(lambda i: dk.decode_attention(q, k, v, valid), n=n_k,
+                       reps=3)
+        plain = device_ms(lambda i: ref.decode_attention_ref(q, k, v, valid),
+                          n=1, reps=3)
+        extra = ""
+        if shape == "decode_32k":
+            mask = (torch.arange(sh.seq_len, device=dev)[None, :]
+                    < valid[:, None])[:, None, None, :]
+            extra = (f", SDPA (folded) "
+                     f"{device_ms(lambda i: sdpa_decode(torch, q, k, v, mask), n=5, reps=3):.4f} ms")
+        print(f"[kernels] decode_attention at {shape}: {ms:.4f} ms on the "
+              f"card, plain {plain:.3f} ms{extra}; bound "
+              f"{decode_bytes(q, k, valid) / HBM_BYTES_PER_S * 1e3:.4f} ms "
+              f"by bytes ({decode_bytes(q, k, valid) / 1e9:.3f} GB)")
+        del q, k, v
+    torch.cuda.empty_cache()
+
+
+# probe shootout: benchmarks/bench_kernel_probe.py's shapes (:23-26, :45)
+PQ_BUCKETS, PQ_WAYS, PQ_DIM, PQ_B, PQ_TTL, PQ_NOW = 1 << 12, 8, 64, 4096, \
+    60_000, 1000
+
+
+def phase_shootout(torch, results, counts):
+    """The twin of bench_kernel_probe.py on the card: the per-query probe
+    against its plain version (bit for bit, values with a -0.0 column) and
+    the tiled probe, then perquery, tiled and dual timed side by side. The
+    timed launches are the per-query kernel's path."""
+    import numpy as np
+
+    from repro_torch.core import cache as C
+    from repro_torch.core.hashing import Key64, bucket_index
+    from repro_torch.kernels import cache_probe as pk
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def populated(n_keys):
+        st = C.init_cache(PQ_BUCKETS, PQ_WAYS, PQ_DIM, device=dev)
+        ids = np.arange(n_keys, dtype=np.int64) * 7919
+        vals = torch.as_tensor(rng.standard_normal((n_keys, PQ_DIM)),
+                               dtype=torch.float32, device=dev)
+        C.insert(st, Key64.from_int(ids, device=dev), vals, 0, PQ_TTL)
+        return st, ids
+
+    state, ids = populated(PQ_B)
+    failover, _ = populated(PQ_B // 2)
+    state.values[..., 5] = -0.0                  # a -0.0 column
+    probe_ids = np.where(rng.uniform(size=PQ_B) < 0.6,
+                         rng.choice(ids, size=PQ_B),
+                         rng.integers(10 ** 9, 2 * 10 ** 9, size=PQ_B))
+    k = Key64.from_int(probe_ids, device=dev)
+    bd = bucket_index(k, PQ_BUCKETS)
+    bf = bucket_index(k, failover.n_buckets)
+    now = torch.tensor(PQ_NOW, dtype=torch.int32, device=dev)  # no H2D copy
+    args = (state.key_hi, state.key_lo, state.write_ts, state.values, k.hi,
+            k.lo, bd, now, PQ_TTL)
+    got = pk.cache_probe_perquery(*args)
+    want = ref.cache_probe_perquery_ref(*args)
+    tiled = pk.cache_probe_tiled(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+            and torch.equal(got[1].view(torch.int32),
+                            want[1].view(torch.int32))):
+        raise AssertionError("cache_probe_perquery disagrees with its plain "
+                             "version")
+    hit = got[0]
+    if not (torch.equal(hit, tiled[0]) and torch.equal(got[2], tiled[2])
+            and torch.equal(got[1], tiled[1])):
+        raise AssertionError("cache_probe_perquery disagrees with the tiled "
+                             "probe beyond the sign of zero")
+    signs = (int(torch.signbit(got[1][hit, 5]).sum()),
+             int(torch.signbit(tiled[1][hit, 5]).sum()))
+    hits = int(hit.sum())
+    print(f"[shootout] {PQ_BUCKETS}x{PQ_WAYS}x{PQ_DIM} float32, B={PQ_B}: "
+          f"{hits} hits ({hits / PQ_B:.3f}); perquery bit-exact vs plain, "
+          f"equal to tiled on hit/age/values; the -0.0 column has the sign "
+          f"bit set on {signs[0]} perquery and {signs[1]} tiled hit rows")
+    if signs[0] != 0 or signs[1] != hits or not 0 < hits < PQ_B:
+        raise AssertionError(f"-0.0 column: perquery/tiled sign bits {signs} "
+                             f"for {hits} hits")
+
+    ops.reset_launch_counts()                    # the per-query path
+    us = {"perquery": device_ms(lambda i: pk.cache_probe_perquery(*args)),
+          "tiled": device_ms(lambda i: pk.cache_probe_tiled(*args)),
+          "dual": device_ms(lambda i: pk.cache_probe_dual(
+              *state[:4], *failover[:4], k.hi, k.lo, bd, bf, now, PQ_TTL,
+              10 * PQ_TTL))}
+    counts["cache_probe_perquery"] = ops.launch_counts()[
+        "cache_probe_perquery"]
+    us = {n: ms * 1e3 for n, ms in us.items()}
+    print("[shootout] " + json.dumps({
+        "probe_us": us,
+        "tiled_vs_perquery_speedup": us["perquery"] / us["tiled"],
+        "dual_vs_two_tiled_speedup": 2 * us["tiled"] / us["dual"]}))
+    nbytes = (PQ_B * 12 + PQ_B * 12 * PQ_WAYS + hits * PQ_DIM * 4
+              + PQ_B * (1 + PQ_DIM * 4 + 4))
+    results["cache_probe_perquery"] = dict(
+        name="cache_probe_perquery", route="cuda",
+        source="src/repro_torch/csrc/cache_probe.cu",
+        replaces="src/repro/kernels/cache_probe.py:620", max_abs_err=0.0,
+        ms=us["perquery"] / 1e3,
+        plain_ms=device_ms(lambda i: ref.cache_probe_perquery_ref(*args),
+                           n=10),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None)
+    r = results["cache_probe_perquery"]
+    print(f"[shootout] cache_probe_perquery: {us['perquery']:.2f} us on the "
+          f"card (plain {r['plain_ms'] * 1e3:.2f} us, bound "
+          f"{r['bound_ms'] * 1e3:.3f} us by bytes, {nbytes / 1e6:.3f} MB)")
 
 
 # ------------------------------------------------------------ phase 2
@@ -729,7 +981,8 @@ def phase_serve(torch, counts):
 
 
 SERVE_KERNELS = ("cache_probe_dual", "cache_probe_tiled", "embedding_bag")
-KERNEL_GROUPS = (("cache_probe", ("probe_kernel",)),
+KERNEL_GROUPS = (("cache_probe", ("probe_kernel", "perquery_kernel")),
+                 ("decode_attention", ("decode_kernel",)),
                  ("embedding_bag", ("bag_kernel",)),
                  ("flash_attention", ("fa_kernel",)),
                  ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
@@ -741,19 +994,18 @@ KERNEL_GROUPS = (("cache_probe", ("probe_kernel",)),
 
 
 def phase_profile(torch, tag, chunk, drive):
-    """Where a warm serve step's time goes: torch.profiler over one more
-    chunk of a cuda run (``drive()`` continues its state and returns the
-    chunk's device counters), device kernel time by group against the
-    host wall time."""
+    """Where a warm step's time goes: torch.profiler over ``chunk`` more
+    steps of a cuda run (``drive()`` continues its state), device kernel
+    time by group against the host wall time (to the end of the device
+    work)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core import server as srv
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        srv.fetch_counters(drive())
+        drive()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1096,6 +1348,170 @@ def phase_lm_entry(torch):
     print(f"[lm entry] {steps} steps, launches {n}")
 
 
+# ------------------------------------------------------------ phase 8
+DEC_STEPS = DEC_MAX - DEC_PROMPT             # 128 greedy steps to 2048
+# bf16 logits of the cuda run and the torch replay (two attentions that
+# agree to one bf16 ulp, through 22 bf16 layers and a cache each backend
+# writes itself) sit at the same ~1.5% relative L2 as the decode step
+# against the full forward, so both are held at 2e-2; the float32 twin (no
+# bf16 rounding) holds the path itself at 1e-4.
+DEC_TOL = dict(replay_rel_l2=2e-2, forward_rel_l2=2e-2, forward_rows=8,
+               f32_rel_l2=1e-4)
+DEC_F32_B, DEC_F32_STEPS = 8, 8
+
+
+def phase_decode(torch, counts):
+    import dataclasses
+
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    assert LM_SHAPES["decode_32k"].global_batch == DEC_B
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = lm_config()
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             dev)
+    prompt = torch.randint(0, cfg.vocab, (DEC_B, DEC_PROMPT), dtype=torch.int32,
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(7))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = tfm.prefill_step(params, prompt, cfg, backend="cuda",
+                                     max_seq=DEC_MAX)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    n = ops.launch_counts()
+    if n["flash_attention"] != cfg.n_layers or n["decode_attention"]:
+        raise AssertionError(f"prefill launches {n}: want {cfg.n_layers} "
+                             "flash_attention")
+    start = tfm.KVCache(cache.k.clone(), cache.v.clone(),
+                        cache.length.clone())
+    tok = logits.argmax(-1).to(torch.int32)
+
+    ops.reset_launch_counts()                    # this path's window
+    toks, outs, step_ms = [], [], []
+    for _ in range(DEC_STEPS):
+        before = ops.launch_counts()["decode_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tfm.decode_step(params, cache, tok, cfg,
+                                        backend="cuda")
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if ops.launch_counts()["decode_attention"] - before != cfg.n_layers:
+            raise AssertionError("a decode step did not launch "
+                                 f"{cfg.n_layers} decode_attention")
+        toks.append(tok)
+        outs.append(logits)
+        tok = logits.argmax(-1).to(torch.int32)
+    n = ops.launch_counts()
+    counts["decode_attention"] = n["decode_attention"]
+    if (n["decode_attention"] != DEC_STEPS * cfg.n_layers
+            or sum(n.values()) != n["decode_attention"]):
+        raise AssertionError(f"decode launches {n}")
+    if not bool((cache.length == DEC_MAX).all()):
+        raise AssertionError(f"cache length {cache.length.unique().tolist()}")
+    for lg in outs:
+        if tuple(lg.shape) != (DEC_B, cfg.vocab) or not bool(
+                torch.isfinite(lg).all()):
+            raise AssertionError(f"decode logits {tuple(lg.shape)} or "
+                                 "non-finite")
+    kv_gb = (cache.k.nbytes + cache.v.nbytes) / 1e9
+    print(f"[decode] {cfg.arch_id} full width, B={DEC_B}, prompt "
+          f"{DEC_PROMPT} tokens, cache {DEC_MAX} positions ({kv_gb:.2f} GB "
+          f"of KV): prefill {prefill_ms:.1f} ms host wall ({cfg.n_layers} "
+          f"flash_attention); {DEC_STEPS} greedy decode steps, launches "
+          f"{n['decode_attention']} decode_attention ({cfg.n_layers} per "
+          f"step); host wall ms per step median "
+          f"{statistics.median(step_ms):.2f} (first {step_ms[0]:.2f}, min "
+          f"{min(step_ms):.2f}, max {max(step_ms):.2f}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # the first step against the full forward over prompt + token
+    r = DEC_TOL["forward_rows"]
+    full = torch.cat([prompt[:r], toks[0][:r, None]], dim=1)
+    fwd = tfm.logits_from_hidden(params, tfm.forward_hidden(
+        params, full, dataclasses.replace(cfg, attn_impl="chunked"))[:, -1])
+    f_err = close_errors(torch, outs[0][:r], fwd)
+    print(f"[decode] first step vs forward_hidden over prompt + token "
+          f"({r} rows, {full.shape[1]} tokens): max |err| {f_err[0]:.4g}, "
+          f"relative L2 {f_err[1]:.3g} (tolerance "
+          f"{DEC_TOL['forward_rel_l2']})")
+    if f_err[1] > DEC_TOL["forward_rel_l2"]:
+        raise AssertionError("decode step differs from the full forward")
+    del fwd, full
+
+    # the torch backend, teacher-forced with the cuda run's tokens
+    ops.reset_launch_counts()
+    plain, replay_ms, errs, agree = start, [], [], 0
+    for i in range(DEC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, plain = tfm.decode_step(params, plain, toks[i], cfg,
+                                        backend="torch")
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+        errs.append(close_errors(torch, outs[i], logits))
+        agree += int((outs[i].argmax(-1) == logits.argmax(-1)).sum())
+    if sum(ops.launch_counts().values()):
+        raise AssertionError(f"torch replay launched kernels: "
+                             f"{ops.launch_counts()}")
+    worst = (max(e[0] for e in errs), max(e[1] for e in errs))
+    print(f"[decode] torch-backend replay (decode_attention_local), "
+          f"teacher-forced: host wall ms per step median "
+          f"{statistics.median(replay_ms):.2f}; logits max |err| "
+          f"{worst[0]:.4g}, worst relative L2 {worst[1]:.3g} (tolerance "
+          f"{DEC_TOL['replay_rel_l2']}); greedy choices agree on "
+          f"{agree}/{DEC_STEPS * DEC_B} ({agree / (DEC_STEPS * DEC_B):.4f}); "
+          f"relative L2 by step: " + ", ".join(
+              f"{i}: {errs[i][1]:.4f}" for i in (0, 1, 3, 7, 15, 31, 63, 127)))
+    if worst[1] > DEC_TOL["replay_rel_l2"]:
+        raise AssertionError("decode logits differ between backends beyond "
+                             "the tolerance")
+    del plain, start, outs
+
+    # the float32 twin: the same path at B=8 without bf16 rounding
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tfm.init_params(torch.Generator(device=dev).manual_seed(0), f32,
+                          dev)
+    lg, c32 = tfm.prefill_step(p32, prompt[:DEC_F32_B], f32, backend="cuda",
+                               max_seq=DEC_MAX)
+    t32 = tfm.KVCache(c32.k.clone(), c32.v.clone(), c32.length.clone())
+    tok32 = lg.argmax(-1).to(torch.int32)
+    f_errs = []
+    for _ in range(DEC_F32_STEPS):
+        a, c32 = tfm.decode_step(p32, c32, tok32, f32, backend="cuda")
+        b, t32 = tfm.decode_step(p32, t32, tok32, f32, backend="torch")
+        f_errs.append(close_errors(torch, a, b)[1])
+        tok32 = a.argmax(-1).to(torch.int32)
+    print(f"[decode] float32 twin (B={DEC_F32_B}, {DEC_F32_STEPS} steps from "
+          f"the same prompt): cuda vs torch logits worst relative L2 "
+          f"{max(f_errs):.3g} (tolerance {DEC_TOL['f32_rel_l2']})")
+    if max(f_errs) > DEC_TOL["f32_rel_l2"]:
+        raise AssertionError("float32 decode logits differ between backends")
+    del p32, c32, t32
+
+    # one more full-length step (position 2047 again) under the profiler
+    again = tfm.KVCache(cache.k, cache.v, torch.full_like(cache.length,
+                                                          DEC_MAX - 1))
+    got = phase_profile(torch, "profile decode", 1,
+                        lambda: tfm.decode_step(params, again, tok, cfg,
+                                                backend="cuda"))
+    if got is not None:
+        by_group, wall_ms = got
+        busy = sum(by_group.values()) / 1e3
+        dec = by_group.get("decode_attention", 0.0) / 1e3
+        unprof = statistics.median(step_ms)
+        print(f"[profile decode] decode_attention {dec:.3f} ms "
+              f"({dec / busy:.1%} of device time); unprofiled step "
+              f"{unprof:.2f} ms host wall, idle share estimate "
+              f"{1 - busy / unprof:.3f}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1109,6 +1525,7 @@ def main() -> int:
     t0 = time.perf_counter()
     results, counts = {}, {}
     phase_kernels(torch, results)
+    phase_shootout(torch, results, counts)
     print(f"[time] kernels phase done at {time.perf_counter() - t0:.1f}s")
     phase_serve(torch, counts)
     print(f"[time] serve and profile phases done at {time.perf_counter() - t0:.1f}s")
@@ -1124,6 +1541,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s")
     phase_lm_entry(torch)
     print(f"[time] LM entry phase done at {time.perf_counter() - t0:.1f}s")
+    phase_decode(torch, counts)
+    print(f"[time] LM decode and profile phases done at "
+          f"{time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in sorted(counts):

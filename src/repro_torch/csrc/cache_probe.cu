@@ -5,9 +5,19 @@
 //   * _cache_probe_dual  (entry cache_probe_dual)  -> ercache_probe_dual
 //   * _cache_probe_dual_multi (entry cache_probe_dual_multi, TTL gather
 //     _policy_ttls) -> ercache_probe_dual_multi
-// All entries share one kernel body; the dual entries probe the direct and
+//   * _cache_probe_perquery (entry cache_probe_perquery, the benchmark's
+//     one-query-per-grid-step baseline) -> ercache_probe_perquery
+// All entries share one probe body; the dual entries probe the direct and
 // the failover table for the same queries in ONE launch, as the serve step
 // requires (one probe launch per step).
+//
+// Per-query entry: one CTA of one warp per query, as the TPU kernel's one
+// query per grid step, and no way output. Its value is the reference
+// kernel's masked SUM over the ways (the winning row plus zeros), so it is
+// the winning row + 0.0: a stored -0.0 comes back +0.0 and every other
+// value keeps its bits. The kernel clears a lone sign bit instead of adding
+// (a float add would also canonicalize NaN payloads); on a miss it writes
+// zeros, like the others.
 //
 // Multi-model tier: the tables are the POOLED (M*Nb, W) views of the
 // per-model stacks and the buckets already carry the slot offset, so the
@@ -84,7 +94,16 @@ __device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a - (uint32_t)b);
 }
 
-template <typename T>
+// x + 0.0 on the raw bits of an IEEE value: -0.0 -> +0.0, nothing else.
+__device__ __forceinline__ uint32_t plus_zero(uint32_t x) {
+  return x == 0x80000000u ? 0u : x;
+}
+__device__ __forceinline__ uint16_t plus_zero(uint16_t x) {
+  return x == (uint16_t)0x8000u ? (uint16_t)0u : x;
+}
+
+// kMaskedSum: the per-query contract (no way output; value + 0.0).
+template <typename T, bool kMaskedSum = false>
 __device__ __forceinline__ void probe_one(const Table& t, const Out& o, int q,
                                           int32_t q_hi, int32_t q_lo,
                                           int32_t now, int32_t ttl, int D,
@@ -102,13 +121,16 @@ __device__ __forceinline__ void probe_one(const Table& t, const Out& o, int q,
   const int32_t ts_hit = __shfl_sync(kFullMask, ts, way < 0 ? 0 : way);
   if (lane == 0) {
     o.hit[q] = mask != 0u;
-    o.way[q] = way;
+    if (!kMaskedSum) o.way[q] = way;
     o.age[q] = mask != 0u ? wrap_sub(now, ts_hit) : -1;
   }
   const T* src = static_cast<const T*>(t.values) +
                  (row + (way < 0 ? 0 : way)) * (size_t)D;
   T* dst = static_cast<T*>(o.value) + (size_t)q * D;
-  for (int d = lane; d < D; d += 32) dst[d] = mask != 0u ? src[d] : T(0);
+  for (int d = lane; d < D; d += 32) {
+    const T x = mask != 0u ? src[d] : T(0);
+    dst[d] = kMaskedSum ? plus_zero(x) : x;
+  }
 }
 
 template <typename T>
@@ -131,6 +153,15 @@ __global__ void probe_kernel(Table direct, Out out_d, Table failover,
   }
   probe_one<T>(direct, out_d, q, hi, lo, now, ttl_d, D, lane);
   if (dual) probe_one<T>(failover, out_f, q, hi, lo, now, ttl_f, D, lane);
+}
+
+template <typename T>
+__global__ void perquery_kernel(Table t, Out o, const int32_t* q_hi,
+                                const int32_t* q_lo, const int32_t* now_p,
+                                int D) {
+  const int q = blockIdx.x;
+  probe_one<T, true>(t, o, q, q_hi[q], q_lo[q], *now_p, t.ttl, D,
+                     threadIdx.x);
 }
 
 int launch(const Table& direct, const Out& out_d, const Table& failover,
@@ -209,6 +240,28 @@ int ercache_probe_dual_multi(
   const Out of{f_hit, f_out, f_age, f_way};
   return launch(d, od, f, of, true, Policy{slots, policy}, q_hi, q_lo, now, B,
                 D, elem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int ercache_probe_perquery(const int32_t* key_hi, const int32_t* key_lo,
+                           const int32_t* write_ts, const void* values,
+                           int ways, const int32_t* q_hi, const int32_t* q_lo,
+                           const int32_t* bucket, const int32_t* now, int ttl,
+                           int B, int D, int elem_bytes, uint8_t* hit,
+                           void* out, int32_t* age, void* stream) {
+  const Table t{key_hi, key_lo, write_ts, values, bucket, ttl, ways};
+  const Out o{hit, out, age, nullptr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (elem_bytes) {
+    case 4:
+      perquery_kernel<uint32_t><<<B, 32, 0, s>>>(t, o, q_hi, q_lo, now, D);
+      break;
+    case 2:
+      perquery_kernel<uint16_t><<<B, 32, 0, s>>>(t, o, q_hi, q_lo, now, D);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 const char* ercache_probe_strerror(int code) {

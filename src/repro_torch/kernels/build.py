@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("cache_probe", "embedding_bag", "flash_attention")
+SOURCES = ("cache_probe", "decode_attention", "embedding_bag",
+           "flash_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,7 +1,7 @@
 """Fused ERCache bucket probes: the cache read as hand-written CUDA kernels.
 
 Twin of ``repro/kernels/cache_probe.py``. One source,
-``csrc/cache_probe.cu``, with three entries:
+``csrc/cache_probe.cu``, with four entries:
 
 * :func:`cache_probe_tiled` (alias :func:`cache_probe`) probes one table;
 * :func:`cache_probe_dual` probes the direct AND failover tables for the
@@ -9,9 +9,14 @@ Twin of ``repro/kernels/cache_probe.py``. One source,
   exactly one per step;
 * :func:`cache_probe_dual_multi` is the dual probe of a stacked
   multi-model tier, each query at its own model's TTLs; the multi-model
-  ``serve_step`` makes exactly one per step.
+  ``serve_step`` makes exactly one per step;
+* :func:`cache_probe_perquery` is the reference's one-query-per-grid-step
+  probe, the dispatch baseline of the probe shootout: (hit, value, age),
+  no way, and the value as the reference's masked sum (the winning row +
+  0.0, so a stored -0.0 comes back +0.0).
 
-All follow ``ref.cache_probe_ref`` bit for bit. On a CPU tensor a wrapper
+All follow ``ref.cache_probe_ref`` (the per-query probe
+``ref.cache_probe_perquery_ref``) bit for bit. On a CPU tensor a wrapper
 runs that plain version; on a CUDA tensor it launches the kernel (and
 counts the launch in :data:`LAUNCHES`) or raises. The Pallas tile padding
 of the reference is a TPU artefact and has no counterpart here: the kernel
@@ -26,9 +31,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# One increment per kernel launch, nowhere else. The per-query probe of the
-# reference joins with its own kernel.
-LAUNCHES = {"tiled": 0, "dual": 0, "dual_multi": 0}
+# One increment per kernel launch, nowhere else: the reference's four keys.
+LAUNCHES = {"tiled": 0, "dual": 0, "dual_multi": 0, "perquery": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +45,8 @@ _ARGTYPES = {
     "ercache_probe_dual_multi": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
                                  _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "ercache_probe_perquery": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -135,6 +141,35 @@ def cache_probe(key_hi, key_lo, write_ts, values, q_hi, q_lo, buckets,
     """Alias of :func:`cache_probe_tiled` (the serving probe)."""
     return cache_probe_tiled(key_hi, key_lo, write_ts, values, q_hi, q_lo,
                              buckets, now_ms, ttl_ms)
+
+
+def cache_probe_perquery(key_hi, key_lo, write_ts, values, q_hi, q_lo,
+                         buckets, now_ms, ttl_ms):
+    """One query per CTA (the reference's one query per grid step). Same
+    contract as ``ref.cache_probe_perquery_ref``: returns (hit (B,) bool,
+    value (B, D) with -0.0 read back as +0.0, age (B,) int32, -1 on a
+    miss)."""
+    if not q_hi.is_cuda:
+        return ref.cache_probe_perquery_ref(key_hi, key_lo, write_ts, values,
+                                            q_hi, q_lo, buckets, now_ms,
+                                            ttl_ms)
+    dev = q_hi.device
+    _check_queries(q_hi, q_lo, buckets, dev)
+    _check_table(key_hi, key_lo, write_ts, values, dev)
+    B = q_hi.shape[0]
+    hit, out, age, _ = _outputs(B, values)
+    if B == 0:
+        return hit, out, age
+    now = _now_tensor(now_ms, dev)
+    lib, fn = _entry("ercache_probe_perquery")
+    code = fn(*_ptrs(key_hi, key_lo, write_ts, values), key_hi.shape[1],
+              *_ptrs(q_hi, q_lo, buckets, now), int(ttl_ms), B,
+              values.shape[-1], values.element_size(),
+              *_ptrs(hit, out, age),
+              torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, "ercache_probe_strerror", code, "cache_probe_perquery")
+    LAUNCHES["perquery"] += 1
+    return hit, out, age
 
 
 def cache_probe_dual(d_key_hi, d_key_lo, d_write_ts, d_values,

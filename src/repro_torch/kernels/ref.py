@@ -8,10 +8,14 @@ holds the kernels against them on the card. They run on any device.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 _M32 = 0xFFFFFFFF
 NEG_INF = -1e30
+# float32 bytes of k and v that decode_attention_ref converts at once
+_DECODE_CHUNK_BYTES = 1 << 30
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -48,6 +52,18 @@ def cache_probe_ref(key_hi, key_lo, write_ts, values, q_hi, q_lo, buckets,
                                   device=values.device))
     age = torch.where(hit, age_all[rows, way], -1).to(torch.int32)
     return hit, out, age, torch.where(hit, way, -1).to(torch.int32)
+
+
+def cache_probe_perquery_ref(key_hi, key_lo, write_ts, values, q_hi, q_lo,
+                             buckets, now_ms, ttl_ms):
+    """The per-query probe's contract: (hit, value, age) of
+    :func:`cache_probe_ref`, without the way. The reference kernel builds
+    the value as a masked SUM over the ways, so the row is the winning row
+    plus 0.0: a stored -0.0 comes back +0.0 (the tiled probe copies the
+    bits and keeps -0.0); a miss gives zeros and age -1."""
+    hit, out, age, _ = cache_probe_ref(key_hi, key_lo, write_ts, values,
+                                       q_hi, q_lo, buckets, now_ms, ttl_ms)
+    return hit, out + 0.0, age
 
 
 def cache_probe_dual_multi_ref(d_key_hi, d_key_lo, d_write_ts, d_values,
@@ -101,4 +117,45 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
             s = torch.where(keep[None], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
         out[b] = torch.einsum("hqk,khd->qhd", p, vr).to(q.dtype)
+    return out
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         valid_len: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """One query token against a KV cache, as the Pallas decode kernel.
+
+    q (B, Hq, hd); k, v (B, S, Hkv, hd); valid_len (B,) int32, positions
+    at and after it masked (None: all S). Query head h reads KV head
+    h // n_rep. q is scaled by hd**-0.5 in float32 before the product,
+    masked scores are -1e30, the softmax is float32 and the output is cast
+    to q's dtype. A row with ``valid_len <= 0`` gives ZEROS: the kernel
+    skips every block and divides a zero accumulator by max(l, 1e-30)
+    (``ref.decode_attention_ref`` and ``decode_attention_local`` of the
+    JAX package give the mean of v there instead).
+
+    Computed over chunks of batch rows whose float32 k and v take at most
+    1 GiB (the decode_32k cache is 4.3 GB in bfloat16); the rows are
+    independent, so the numbers are those of the whole-batch formula."""
+    B, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    n_rep = Hq // Hkv
+    if valid_len is None:
+        valid = torch.full((B,), S, dtype=torch.long, device=q.device)
+    else:
+        valid = valid_len.to(device=q.device, dtype=torch.long)
+    pos = torch.arange(S, device=q.device)
+    rows = max(1, _DECODE_CHUNK_BYTES // (S * Hkv * hd * 4 * 2))
+    out = torch.empty_like(q)
+    for b0 in range(0, B, rows):
+        sl = slice(b0, b0 + rows)
+        qg = (q[sl].to(torch.float32) * hd ** -0.5).reshape(-1, Hkv, n_rep,
+                                                            hd)
+        s = torch.einsum("bknd,bskd->bkns", qg, k[sl].to(torch.float32))
+        keep = pos[None, :] < valid[sl, None]                 # (b, S)
+        s = torch.where(keep[:, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkns,bskd->bknd", p, v[sl].to(torch.float32))
+        o = torch.where((valid[sl] > 0)[:, None, None, None], o, 0.0)
+        out[sl] = o.reshape(-1, Hq, hd).to(q.dtype)
     return out

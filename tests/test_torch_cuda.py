@@ -15,6 +15,7 @@ from repro_torch.core import cache as C  # noqa: E402
 from repro_torch.core.config import NO_TTL_MS  # noqa: E402
 from repro_torch.core.hashing import EMPTY_HI  # noqa: E402
 from repro_torch.kernels import cache_probe as pk  # noqa: E402
+from repro_torch.kernels import decode_attention as dk  # noqa: E402
 from repro_torch.kernels import embedding_bag as ebk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -260,7 +261,9 @@ def test_lookup_dual_multi_is_one_launch(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"cache_probe_dual": 0,
                                    "cache_probe_dual_multi": 1,
+                                   "cache_probe_perquery": 0,
                                    "cache_probe_tiled": 0,
+                                   "decode_attention": 0,
                                    "embedding_bag": 0,
                                    "flash_attention": 0}
     want = C.lookup_dual_multi(direct, failover, policy, slots, k, 6 * MIN,
@@ -406,3 +409,128 @@ def test_lm_tower_cuda_backend_matches_torch_backend(cuda, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     with pytest.raises(ValueError):
         T.user_tower_step(model, tokens.cpu(), cfg, backend="cuda")
+
+
+# ------------------------------------------------------ per-query probe
+@pytest.mark.parametrize("batch", [1, 37, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_probe_perquery_matches_plain(cuda, batch, dtype):
+    """The per-query kernel against its plain version bit for bit, with a
+    -0.0 column (read back +0.0); against the tiled probe on hit and age,
+    and on values up to the sign of zero."""
+    rng = np.random.default_rng(batch + 1)
+    now, ttl = 10 * MIN, MIN
+    tables, queries = probe_population(rng, 256, 8, 50, batch, now, ttl,
+                                       dtype, cuda)
+    tables[3][..., 7] = -0.0
+    n0 = pk.LAUNCHES["perquery"]
+    got = pk.cache_probe_perquery(*tables, *queries, now, ttl)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["perquery"] == n0 + 1
+    want = ref.cache_probe_perquery_ref(*tables, *queries, now, ttl)
+    assert_same(got, want)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got[1].view(bits), want[1].view(bits))
+    assert not bool(torch.signbit(got[1][:, 7]).any())
+    hit, val, age, _ = pk.cache_probe_tiled(*tables, *queries, now, ttl)
+    assert torch.equal(got[0], hit) and torch.equal(got[2], age)
+    assert torch.equal(got[1], val)              # -0.0 == +0.0 as floats
+    if bool(hit.any()):
+        assert bool(torch.signbit(val[hit][:, 7]).all())
+
+
+# ------------------------------------------------------ decode attention
+DECODE_EDGES = [  # (S, Hq, Hkv, hd, dtype)
+    (1024, 8, 2, 64, torch.float32),
+    (1024, 8, 2, 64, torch.bfloat16),
+    (1024, 4, 4, 128, torch.float32),
+    (1024, 32, 4, 128, torch.bfloat16),
+    (512, 8, 1, 16, torch.float32),
+    (512, 8, 8, 8, torch.bfloat16),
+    (200, 4, 1, 64, torch.float32),
+    (48, 8, 2, 8, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("s,hq,hkv,hd,dtype", DECODE_EDGES)
+def test_decode_attention_matches_plain(cuda, s, hq, hkv, hd, dtype):
+    """The kernel against its plain version with valid_len 0 (zeros), 1, a
+    partial block and all of S: float32 within 1e-5, bfloat16 within 2e-2
+    (about one bfloat16 ulp at |o| < 1); one launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(s + hd)
+    lens = [0, 1, 511, 512, 513, s, s // 2 + 3]
+    B = len(lens)
+    q = torch.randn((B, hq, hd), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((B, s, hkv, hd), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    valid = torch.tensor([min(n, s) for n in lens], dtype=torch.int32,
+                         device=cuda)
+    n0 = dk.LAUNCHES["decode_attention"]
+    got = dk.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["decode_attention"] == n0 + 1
+    want = ref.decode_attention_ref(q, k, v, valid)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert not bool(got[0].any())                # valid_len 0: zeros
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    # positions past valid_len never reach the output
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(valid.tolist()):
+        k2[b, n:], v2[b, n:] = 99.0, float("nan")
+    torch.testing.assert_close(dk.decode_attention(q, k2, v2, valid), got,
+                               atol=0, rtol=0)
+
+
+def test_decode_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((2, 8, 64), device=cuda)
+    k = torch.zeros((2, 1024, 2, 64), device=cuda)
+    n0 = dk.LAUNCHES["decode_attention"]
+    for args, kw in (((q.cpu(), k, k), {}), ((q, k, k), {"bs": 384}),
+                     ((q.to(torch.bfloat16), k, k), {}),
+                     ((q[:, :5].contiguous(), k, k), {}),
+                     ((q, k.transpose(1, 2), k.transpose(1, 2)), {}),
+                     ((q, k, k, torch.ones(2, device=cuda)), {})):
+        with pytest.raises(ValueError):
+            dk.decode_attention(*args, **kw)
+    assert dk.LAUNCHES["decode_attention"] == n0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_decode_cuda_backend_matches_torch_backend(cuda, dtype):
+    """The SMOKE TinyLlama prefill -> 4 decode steps on the card: the cuda
+    backend (the decode kernel, one launch per layer and step) against the
+    torch backend from a copy of the same cache; a CPU tensor with
+    backend="cuda" raises."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True),
+                              dtype=dtype)
+    model = T.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                          cuda)
+    tokens = torch.randint(0, cfg.vocab, (3, 40), dtype=torch.int32,
+                           device=cuda)
+    _, cache = T.prefill_step(model, tokens, cfg, max_seq=48)
+    plain = T.KVCache(cache.k.clone(), cache.v.clone(), cache.length.clone())
+    nxt = tokens[:, 0]
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for _ in range(4):
+        n0 = dk.LAUNCHES["decode_attention"]
+        got, cache = T.decode_step(model, cache, nxt, cfg, backend="cuda")
+        torch.cuda.synchronize()
+        assert dk.LAUNCHES["decode_attention"] == n0 + cfg.n_layers
+        want, plain = T.decode_step(model, plain, nxt, cfg, backend="torch")
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(cache.k.float(), plain.k.float(),
+                                   atol=tol, rtol=tol)
+        nxt = want.argmax(-1).to(torch.int32)
+    assert cache.length.tolist() == [44] * 3
+    with pytest.raises(ValueError):
+        T.decode_step(model, T.KVCache(cache.k.cpu(), cache.v.cpu(),
+                                       cache.length.cpu()), nxt.cpu(), cfg,
+                      backend="cuda")

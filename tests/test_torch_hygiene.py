@@ -23,6 +23,7 @@ from repro_torch.data import access_patterns as t_ap  # noqa: E402
 from repro_torch.examples import serve_lm_tower as t_lm_example  # noqa: E402
 from repro_torch.ft import failure as t_failure  # noqa: E402
 from repro_torch.kernels import cache_probe as tpk  # noqa: E402
+from repro_torch.kernels import decode_attention as TDA  # noqa: E402
 from repro_torch.launch import serve as t_launch  # noqa: E402
 from repro_torch.models import recsys as TR  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -128,7 +129,8 @@ def _skip_with_card():
                                    "init_multi_server_state",
                                    "multi_model_server",
                                    "run_serving_multi", "lm_init_params",
-                                   "serve_lm_tower_run"])
+                                   "serve_lm_tower_run", "init_kv_cache",
+                                   "decode_attention"])
 def test_default_device_entry_points_raise_without_card(entry):
     _skip_with_card()
     cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=16)
@@ -151,6 +153,12 @@ def test_default_device_entry_points_raise_without_card(entry):
             torch.Generator(), t_launch.get_config("tinyllama-1.1b",
                                                    smoke=True)),
         "serve_lm_tower_run": lambda: t_lm_example.run(minutes=1, users=10),
+        "init_kv_cache": lambda: TT.init_kv_cache(
+            t_launch.get_config("tinyllama-1.1b", smoke=True), 2, 16),
+        "decode_attention": lambda: TDA.decode_attention(
+            torch.zeros((1, 4, 8), device="cuda"),
+            torch.zeros((1, 16, 2, 8), device="cuda"),
+            torch.zeros((1, 16, 2, 8), device="cuda")),
     }
     with pytest.raises((RuntimeError, AssertionError)):
         calls[entry]()
@@ -200,6 +208,15 @@ def test_cuda_backend_with_cpu_tensors_raises(rng):
     with pytest.raises(ValueError):
         TT.user_tower_step(lm, torch.zeros((2, 8), dtype=torch.int32),
                            lm_cfg, backend="cuda")
+    # the LM's generation path: prefill and decode steps
+    cache = TT.init_kv_cache(lm_cfg, 2, 16, device="cpu")
+    with pytest.raises(ValueError):
+        TT.prefill_step(lm, torch.zeros((2, 8), dtype=torch.int32), lm_cfg,
+                        backend="cuda")
+    with pytest.raises(ValueError):
+        TT.decode_step(lm, cache, torch.zeros(2, dtype=torch.int32), lm_cfg,
+                       backend="cuda")
+    assert TDA.LAUNCHES["decode_attention"] == 0
 
 
 def test_unknown_backend_rejected():

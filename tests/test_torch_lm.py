@@ -267,13 +267,16 @@ def test_init_params_shapes_and_scales_match_reference():
     jshapes = jax.tree_util.tree_map(
         lambda a: tuple(a.shape), JT.abstract_params(j_config(
             "tinyllama-1.1b", smoke=True)))
-    for name in ("embed", "final_norm", "user_head"):
+    for name in ("embed", "final_norm", "user_head", "unembed"):
         assert tuple(getattr(model, name).shape) == jshapes[name], name
+    assert set(jshapes) == {"embed", "final_norm", "user_head", "unembed",
+                            "layers"}
     assert len(model.layers) == cfg.n_layers
     for name, shape in jshapes["layers"].items():
         assert tuple(getattr(model.layers[0], name).shape) == shape[1:], name
     assert abs(float(model.embed.std()) - 0.02) < 2e-3
     assert abs(float(model.layers[0].wg.std()) - cfg.d_model ** -0.5) < 0.02
+    assert abs(float(model.unembed.std()) - cfg.d_model ** -0.5) < 0.02
     assert float(model.layers[1].ffn_norm.min()) == 1.0
     assert not any(p.requires_grad for p in model.parameters())
     with pytest.raises(ValueError):

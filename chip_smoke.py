@@ -53,9 +53,12 @@ Phases, each fatal on failure:
    greedy decode steps (``decode_step``, ``backend="cuda"``) up to
    position 2048 (22 ``decode_attention`` launches per step). A ``backend="torch"``
    replay from a copy of the prefilled cache, fed the same tokens, must
-   give logits within relative L2 0.01 at every step; the first step's
-   logits of 8 rows must match ``forward_hidden`` over prompt + token
-   within relative L2 0.02; one more decode step is profiled.
+   give logits within relative L2 0.02 at every step, and the same replay
+   with one 64-position tile of v zeroed in every layer (a planted fault)
+   must exceed that bar; a float32 twin at B=8 holds the two backends
+   within relative L2 1e-4; the first step's logits of 8 rows must match
+   ``forward_hidden`` over prompt + token within relative L2 0.02; one
+   more decode step is profiled.
 
 Phase 1 also holds ``flash_attention`` against its plain version at the
 LM path's shapes (q (48, 2048, 32, 64), k/v (48, 2048, 4, 64), bf16,
@@ -601,22 +604,47 @@ def kernels_flash(torch, results):
 DEC_B, DEC_PROMPT, DEC_MAX = 128, 1920, 2048   # decode_32k's batch
 
 
-def sdpa_decode(torch, q, k, v, mask, gqa=False):
+def sdpa_decode(torch, q, k, v, mask):
     """One PyTorch call computing the same decode attention (the library
-    yardstick; the port never calls it). ``mask`` is the (B, 1, 1, S)
-    boolean valid_len mask. With ``gqa``: q (B, Hq, 1, hd) against k, v
-    viewed (B, Hkv, S, hd) with ``enable_gqa``; without: the n_rep query
-    heads of a KV head as n_rep queries (B, Hkv, n_rep, hd), the same
-    function without repeating the cache."""
-    F = torch.nn.functional
-    B, Hq, hd = q.shape
-    Hkv = k.shape[2]
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    if gqa:
-        return F.scaled_dot_product_attention(
-            q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)[:, :, 0]
-    return F.scaled_dot_product_attention(
-        q.view(B, Hkv, Hq // Hkv, hd), kt, vt, attn_mask=mask).view(B, Hq, hd)
+    yardstick; the port never calls it): q (B, Hq, 1, hd) against k, v
+    viewed (B, Hkv, S, hd) with ``enable_gqa`` and ``mask``, the
+    (B, 1, 1, S) boolean valid_len mask."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        enable_gqa=True)[:, :, 0]
+
+
+def valid_mask(torch, valid, S):
+    """(B, 1, 1, S) boolean mask of the positions below valid_len."""
+    return (torch.arange(S, device=valid.device)[None, :]
+            < valid[:, None])[:, None, None, :]
+
+
+# decode_attention against its plain version: float32 at atol 1e-5;
+# bfloat16 per (row, head) within 2**-6 of that head's largest |output|
+# (two bf16 ulps of it), never more than 2e-2, and in relative L2 within
+# 2**-8. Outputs scale as sqrt(e / valid_len) (~0.04 at the decode path,
+# ~0.002 at long_500k), so a fixed bf16 atol alone would pass a kernel
+# that writes zeros or loses a tile.
+DEC_KERNEL_TOL = dict(f32_atol=1e-5, bf16_rel_max=2.0 ** -6, bf16_atol=2e-2,
+                      bf16_rel_l2=2.0 ** -8)
+
+
+def decode_kernel_errors(torch, got, want):
+    """(max |err|, worst per-(row, head) max |err| / max |want|, relative
+    L2, within DEC_KERNEL_TOL) of a decode_attention output (B, Hq, hd)
+    against its plain version."""
+    t = DEC_KERNEL_TOL
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(-1)
+    scale = want.abs().amax(-1)
+    ratio = float((err / scale.clamp(min=1e-30)).max())
+    rel_l2 = float((got - want).norm() / want.norm().clamp(min=1e-30))
+    bar = (t["bf16_rel_max"] * scale).clamp(max=t["bf16_atol"])
+    ok = ((bool((err <= bar).all()) and rel_l2 <= t["bf16_rel_l2"]) if bf16
+          else float(err.max()) <= t["f32_atol"])
+    return float(err.max()), ratio, rel_l2, ok
 
 
 def decode_bytes(q, k, valid):
@@ -637,7 +665,7 @@ def kernels_decode(torch, results):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    t = DEC_KERNEL_TOL
 
     def inputs(b, s, hq, hkv, hd, dtype):
         mk = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(dtype)
@@ -650,12 +678,16 @@ def kernels_decode(torch, results):
         if dk.LAUNCHES["decode_attention"] != n0 + 1:
             raise AssertionError("decode_attention did not count one launch")
         want = ref.decode_attention_ref(q, k, v, valid)
-        e = float((got.float() - want.float()).abs().max())
-        zero = valid <= 0
-        print(f"[kernels] decode_attention {what}: max |err| {e:.3g} "
-              f"(atol {tol[q.dtype]:g})")
-        if not (e <= tol[q.dtype] and bool(torch.isfinite(got).all())
-                and not bool(got[zero].any())):
+        e, ratio, rel_l2, ok = decode_kernel_errors(torch, got, want)
+        bar = (f"per head max |err| / max |want| {ratio:.3g} (bar "
+               f"{t['bf16_rel_max']:g}, at most atol {t['bf16_atol']:g}), "
+               f"relative L2 {rel_l2:.3g} (bar "
+               f"{t['bf16_rel_l2']:g})" if q.dtype == torch.bfloat16 else
+               f"atol {t['f32_atol']:g}")
+        print(f"[kernels] decode_attention {what}: max |err| {e:.3g}, "
+              f"max |want| {float(want.float().abs().max()):.3g}; {bar}")
+        if not (ok and bool(torch.isfinite(got).all())
+                and not bool(got[valid <= 0].any())):
             raise AssertionError(f"decode_attention disagrees with its "
                                  f"plain version at {what}")
         return e
@@ -680,10 +712,7 @@ def kernels_decode(torch, results):
     err = check(q, k, v, valid, f"at the decode path q {tuple(q.shape)} "
                 f"k/v {tuple(k.shape)} bf16 valid_len "
                 f"{DEC_PROMPT + 1}..{DEC_MAX}")
-    mask = (torch.arange(DEC_MAX, device=dev)[None, :]
-            < valid[:, None])[:, None, None, :]
-    lib_gqa = device_ms(lambda i: sdpa_decode(torch, q, k, v, mask, True),
-                        n=10, reps=3)
+    mask = valid_mask(torch, valid, DEC_MAX)
     row = dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/csrc/decode_attention.cu",
@@ -698,13 +727,11 @@ def kernels_decode(torch, results):
         library_ms=device_ms(lambda i: sdpa_decode(torch, q, k, v, mask),
                              n=20, reps=3))
     print(f"[kernels] decode_attention at the decode path: {row['ms']:.4f} ms"
-          f" on the card, plain {row['plain_ms']:.3f} ms, SDPA (query heads "
-          f"folded per KV head) {row['library_ms']:.4f} ms, SDPA enable_gqa "
-          f"{lib_gqa:.4f} ms; bound {row['bound_ms']:.4f} ms by bytes "
-          f"({decode_bytes(q, k, valid) / 1e9:.4f} GB at 3.35 TB/s)")
-    row["library_ms"] = min(row["library_ms"], lib_gqa)
+          f" on the card, plain {row['plain_ms']:.3f} ms, SDPA (enable_gqa) "
+          f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
+          f"bytes ({decode_bytes(q, k, valid) / 1e9:.4f} GB at 3.35 TB/s)")
     results["decode_attention"] = row
-    del q, k, v
+    del q, k, v, mask
 
     for shape, n_k in (("decode_32k", 5), ("long_500k", 3)):
         sh = LM_SHAPES[shape]
@@ -723,10 +750,11 @@ def kernels_decode(torch, results):
                           n=1, reps=3)
         extra = ""
         if shape == "decode_32k":
-            mask = (torch.arange(sh.seq_len, device=dev)[None, :]
-                    < valid[:, None])[:, None, None, :]
-            extra = (f", SDPA (folded) "
-                     f"{device_ms(lambda i: sdpa_decode(torch, q, k, v, mask), n=5, reps=3):.4f} ms")
+            mask = valid_mask(torch, valid, sh.seq_len)
+            lib = device_ms(lambda i: sdpa_decode(torch, q, k, v, mask), n=5,
+                            reps=3)
+            extra = f", SDPA (enable_gqa) {lib:.4f} ms"
+            del mask
         print(f"[kernels] decode_attention at {shape}: {ms:.4f} ms on the "
               f"card, plain {plain:.3f} ms{extra}; bound "
               f"{decode_bytes(q, k, valid) / HBM_BYTES_PER_S * 1e3:.4f} ms "
@@ -996,16 +1024,23 @@ KERNEL_GROUPS = (("cache_probe", ("probe_kernel", "perquery_kernel")),
 def phase_profile(torch, tag, chunk, drive):
     """Where a warm step's time goes: torch.profiler over ``chunk`` more
     steps of a cuda run (``drive()`` continues its state), device kernel
-    time by group against the host wall time (to the end of the device
-    work)."""
+    time by group against the host wall time. A serve loop's ``drive()``
+    returns its device counters, and the wall ends with their read-back
+    (``fetch_counters``) as in the serve loop; any other ends at a
+    synchronize."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import server as srv
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        drive()
-        torch.cuda.synchronize()
+        out = drive()
+        if isinstance(out, dict):
+            srv.fetch_counters(out)
+        else:
+            torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1353,11 +1388,13 @@ DEC_STEPS = DEC_MAX - DEC_PROMPT             # 128 greedy steps to 2048
 # bf16 logits of the cuda run and the torch replay (two attentions that
 # agree to one bf16 ulp, through 22 bf16 layers and a cache each backend
 # writes itself) sit at the same ~1.5% relative L2 as the decode step
-# against the full forward, so both are held at 2e-2; the float32 twin (no
-# bf16 rounding) holds the path itself at 1e-4.
+# against the full forward, so both are held at 2e-2, not 1e-2. The float32
+# twin (no bf16 rounding) holds the path itself at 1e-4, and a control
+# replay with one tile of the cache's values zeroed must fail the 2e-2 bar.
 DEC_TOL = dict(replay_rel_l2=2e-2, forward_rel_l2=2e-2, forward_rows=8,
                f32_rel_l2=1e-4)
 DEC_F32_B, DEC_F32_STEPS = 8, 8
+DEC_CTRL_TILE, DEC_CTRL_STEPS = (512, 576), 2
 
 
 def phase_decode(torch, counts):
@@ -1472,7 +1509,25 @@ def phase_decode(torch, counts):
     if worst[1] > DEC_TOL["replay_rel_l2"]:
         raise AssertionError("decode logits differ between backends beyond "
                              "the tolerance")
-    del plain, start, outs
+
+    # the control: the same replay with one 64-position tile of v zeroed in
+    # every layer (an attention that loses a tile) must fail the bar
+    lo, hi = DEC_CTRL_TILE
+    start.v[:, :, lo:hi] = 0                   # start shares plain's k/v
+    bad, ctrl = start, []
+    for i in range(DEC_CTRL_STEPS):
+        logits, bad = tfm.decode_step(params, bad, toks[i], cfg,
+                                      backend="torch")
+        ctrl.append(close_errors(torch, outs[i], logits)[1])
+    print(f"[decode] control: the replay with v zeroed at positions "
+          f"{lo}..{hi - 1} of every layer reads relative L2 "
+          + ", ".join(f"{e:.3g}" for e in ctrl)
+          + f" over {DEC_CTRL_STEPS} steps (must exceed "
+          f"{DEC_TOL['replay_rel_l2']})")
+    if min(ctrl) <= DEC_TOL["replay_rel_l2"]:
+        raise AssertionError("the replay bar does not separate a one-tile "
+                             "fault")
+    del plain, start, bad, outs
 
     # the float32 twin: the same path at B=8 without bf16 rounding
     f32 = dataclasses.replace(cfg, dtype="float32")

@@ -62,11 +62,16 @@ Phases, each fatal on failure:
 
 Phase 1 also holds ``flash_attention`` against its plain version at the
 LM path's shapes (q (48, 2048, 32, 64), k/v (48, 2048, 4, 64), bf16,
-causal) and edge shapes, and times it beside
-``F.scaled_dot_product_attention``; holds ``decode_attention`` against its
-plain version at the decode path's shape (q (128, 32, 64), k/v
-(128, 2048, 4, 64), bf16), at ``LM_SHAPES["decode_32k"]`` and
-``["long_500k"]`` and at edge shapes, timed beside SDPA; and runs the
+causal) and edge shapes (FLASH_KERNEL_TOL: bf16 per (batch, row, head)
+scaled to the outputs), checks that the plain version with one 64-key
+tile of v zeroed fails that bar, and times it beside
+``F.scaled_dot_product_attention``; holds ``decode_attention`` (split
+across the cache, ``split_plan``) against its plain version at the decode
+path's shape (q (128, 32, 64), k/v (128, 2048, 4, 64), bf16), at
+``LM_SHAPES["decode_32k"]`` and ``["long_500k"]`` and at edge shapes with
+a valid_len on a split boundary (DEC_KERNEL_TOL), timed beside SDPA at
+all three; each time is printed with its rate and roofline share; and
+runs the
 probe shootout of ``benchmarks/bench_kernel_probe.py`` (2**12 x 8 x 64
 tier, B=4096, ~60% hits): ``cache_probe_perquery`` against its plain
 version bit for bit (a -0.0 column read back +0.0) and against the tiled
@@ -528,16 +533,56 @@ def sdpa(torch, q, k, v, causal):
             repeat_kv(v, n_rep).transpose(1, 2), is_causal=causal)
 
 
+# decode_attention against its plain version: float32 at atol 1e-5;
+# bfloat16 per (row, head) within 2**-6 of that head's largest |output|
+# (two bf16 ulps of it), never more than 2e-2, and in relative L2 within
+# 2**-8. Outputs scale as sqrt(e / valid_len) (~0.04 at the decode path,
+# ~0.002 at long_500k), so a fixed bf16 atol alone would pass a kernel
+# that writes zeros or loses a tile. flash_attention is held to the same
+# rule per (batch, query row, head) in bfloat16 (its late causal rows
+# shrink as ~1/sqrt(position), ~0.02 at 2048) and at atol 2e-5 in float32.
+DEC_KERNEL_TOL = dict(f32_atol=1e-5, bf16_rel_max=2.0 ** -6, bf16_atol=2e-2,
+                      bf16_rel_l2=2.0 ** -8)
+FLASH_KERNEL_TOL = dict(DEC_KERNEL_TOL, f32_atol=2e-5)
+
+
+def attention_errors(torch, got, want, tol):
+    """(max |err|, worst per-(row, head) max |err| / max |want|, relative
+    L2, within ``tol``) of an attention output (..., hd) against its plain
+    version: float32 at ``tol["f32_atol"]``, bfloat16 by the scaled rule
+    above."""
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(-1)
+    scale = want.abs().amax(-1)
+    ratio = float((err / scale.clamp(min=1e-30)).max())
+    rel_l2 = float((got - want).norm() / want.norm().clamp(min=1e-30))
+    bar = (tol["bf16_rel_max"] * scale).clamp(max=tol["bf16_atol"])
+    ok = ((bool((err <= bar).all()) and rel_l2 <= tol["bf16_rel_l2"]) if bf16
+          else float(err.max()) <= tol["f32_atol"])
+    return float(err.max()), ratio, rel_l2, ok
+
+
+def tol_text(tol, dtype, ratio, rel_l2):
+    """The bar an attention check read, for its [kernels] line."""
+    if str(dtype) != "torch.bfloat16":
+        return f"atol {tol['f32_atol']:g}"
+    return (f"per head max |err| / max |want| {ratio:.3g} (bar "
+            f"{tol['bf16_rel_max']:g}, at most atol {tol['bf16_atol']:g}), "
+            f"relative L2 {rel_l2:.3g} (bar {tol['bf16_rel_l2']:g})")
+
+
 def kernels_flash(torch, results):
     """flash_attention against its plain version at the LM path's shapes
-    and at edge shapes, and its time on the card beside the plain version
-    and SDPA."""
+    and at edge shapes (FLASH_KERNEL_TOL), a planted fault that must fail
+    that bar, and its time on the card beside the plain version and
+    SDPA."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    tol = FLASH_KERNEL_TOL
 
     def inputs(b, sq, sk, hq, hkv, hd, dtype):
         mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
@@ -548,14 +593,20 @@ def kernels_flash(torch, results):
         (LM_B, LM_S, LM_S, LM_HQ, LM_HKV, LM_HD, True, 0, torch.bfloat16),
         (2, 256, 256, 8, 2, 64, True, 0, torch.float32),
         (2, 256, 256, 8, 2, 64, False, 0, torch.float32),
+        (2, 256, 256, 8, 2, 64, False, 0, torch.bfloat16),
         (2, 128, 384, 8, 1, 64, True, 256, torch.float32),
         (2, 128, 384, 8, 8, 64, True, 256, torch.bfloat16),
         (2, 512, 512, 32, 4, 128, True, 0, torch.bfloat16),
+        (2, 128, 384, 8, 2, 128, True, 256, torch.bfloat16),
+        (2, 100, 100, 4, 1, 128, True, 0, torch.bfloat16),
         (2, 256, 256, 4, 1, 128, False, 0, torch.float32),
         (3, 128, 128, 4, 4, 64, True, 0, torch.float32),
         (2, 100, 100, 4, 2, 16, True, 0, torch.float32),
+        (2, 100, 100, 8, 2, 16, True, 0, torch.bfloat16),
         (1, 1152, 1152, 8, 2, 8, True, 0, torch.float32),
+        (1, 1152, 1152, 8, 2, 8, True, 0, torch.bfloat16),
         (1, 1152, 1152, 4, 2, 16, True, 0, torch.bfloat16),
+        (1, 1152, 1152, 8, 1, 128, True, 0, torch.bfloat16),
     ]
     for b, sq, sk, hq, hkv, hd, causal, off, dtype in edges:
         q, k, v = inputs(b, sq, sk, hq, hkv, hd, dtype)
@@ -565,24 +616,42 @@ def kernels_flash(torch, results):
         if fa.LAUNCHES["flash_attention"] != n0 + 1:
             raise AssertionError("flash_attention did not count one launch")
         want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=off)
-        e = float((got.float() - want.float()).abs().max())
+        e, ratio, rel_l2, ok = attention_errors(torch, got, want, tol)
         shape = (f"B={b} Sq={sq} Sk={sk} {hq}/{hkv} heads hd={hd} "
                  f"causal={causal} q_offset={off} {str(dtype)[6:]}")
-        print(f"[kernels] flash_attention {shape}: max |err| {e:.3g} "
-              f"(atol {tol[dtype]:g})")
-        if not (e <= tol[dtype] and bool(torch.isfinite(got).all())):
+        print(f"[kernels] flash_attention {shape}: max |err| {e:.3g}, max "
+              f"|want| {float(want.float().abs().max()):.3g}; "
+              + tol_text(tol, dtype, ratio, rel_l2))
+        if not (ok and bool(torch.isfinite(got).all())):
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version at {shape}")
-        err = max(err, e) if b == LM_B else err
+        if b == LM_B:
+            err = e
+            # the planted fault: the plain version with the last 64 keys
+            # of v zeroed (a kernel that drops the late rows' last tile,
+            # whose outputs are the smallest) must fail the bar
+            v_bad = v.clone()
+            v_bad[:, sk - 64:] = 0
+            bad = ref.flash_attention_ref(q, k, v_bad, causal=causal)
+            be, bratio, brel, bok = attention_errors(torch, bad, want, tol)
+            print(f"[kernels] flash_attention control (v zeroed at keys "
+                  f"{sk - 64}..{sk - 1}): max |err| {be:.3g} (a fixed atol "
+                  f"{tol['bf16_atol']:g} would "
+                  f"{'pass' if be <= tol['bf16_atol'] else 'fail'} it); "
+                  + tol_text(tol, dtype, bratio, brel) + " -> must fail")
+            if bok:
+                raise AssertionError("the flash bf16 bar does not separate "
+                                     "a one-tile fault")
+            del v_bad, bad
     del q, k, v, got, want
     q, k, v = inputs(LM_B, LM_S, LM_S, LM_HQ, LM_HKV, LM_HD, torch.bfloat16)
     # 2 operations per multiply-add, QK^T and PV, over the causal pairs
     flops = 4 * LM_B * LM_HQ * LM_HD * LM_S * (LM_S + 1) // 2
     nbytes = sum(x.nbytes for x in (q, k, v)) + q.nbytes
-    ms = device_ms(lambda i: fa.flash_attention(q, k, v), n=3, reps=3)
+    ms = device_ms(lambda i: fa.flash_attention(q, k, v), n=10, reps=3)
     plain_ms = device_ms(lambda i: ref.flash_attention_ref(q, k, v), n=1,
                          reps=3)
-    lib_ms = device_ms(lambda i: sdpa(torch, q, k, v, True), n=5, reps=3)
+    lib_ms = device_ms(lambda i: sdpa(torch, q, k, v, True), n=10, reps=3)
     results["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -594,9 +663,11 @@ def kernels_flash(torch, results):
     r = results["flash_attention"]
     print(f"[kernels] flash_attention at q {tuple(q.shape)} k/v "
           f"{tuple(k.shape)} bf16 causal: {ms:.3f} ms on the card "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, SDPA "
-          f"{lib_ms:.3f} ms; bound {r['bound_ms']:.3f} ms by "
-          f"{r['bound_by']} ({flops:.4g} operations at 989 TFLOP/s bf16; "
+          f"({flops / ms / 1e9:.1f} TFLOP/s, {r['bound_ms'] / ms:.1%} of its "
+          f"bound), plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms "
+          f"({flops / lib_ms / 1e9:.1f} TFLOP/s, {r['bound_ms'] / lib_ms:.1%}"
+          f"); bound {r['bound_ms']:.3f} ms by {r['bound_by']} "
+          f"({flops:.4g} operations at 989 TFLOP/s bf16; "
           f"{nbytes / 1e9:.3f} GB at 3.35 TB/s = "
           f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
 
@@ -618,33 +689,6 @@ def valid_mask(torch, valid, S):
     """(B, 1, 1, S) boolean mask of the positions below valid_len."""
     return (torch.arange(S, device=valid.device)[None, :]
             < valid[:, None])[:, None, None, :]
-
-
-# decode_attention against its plain version: float32 at atol 1e-5;
-# bfloat16 per (row, head) within 2**-6 of that head's largest |output|
-# (two bf16 ulps of it), never more than 2e-2, and in relative L2 within
-# 2**-8. Outputs scale as sqrt(e / valid_len) (~0.04 at the decode path,
-# ~0.002 at long_500k), so a fixed bf16 atol alone would pass a kernel
-# that writes zeros or loses a tile.
-DEC_KERNEL_TOL = dict(f32_atol=1e-5, bf16_rel_max=2.0 ** -6, bf16_atol=2e-2,
-                      bf16_rel_l2=2.0 ** -8)
-
-
-def decode_kernel_errors(torch, got, want):
-    """(max |err|, worst per-(row, head) max |err| / max |want|, relative
-    L2, within DEC_KERNEL_TOL) of a decode_attention output (B, Hq, hd)
-    against its plain version."""
-    t = DEC_KERNEL_TOL
-    bf16 = got.dtype == torch.bfloat16
-    got, want = got.float(), want.float()
-    err = (got - want).abs().amax(-1)
-    scale = want.abs().amax(-1)
-    ratio = float((err / scale.clamp(min=1e-30)).max())
-    rel_l2 = float((got - want).norm() / want.norm().clamp(min=1e-30))
-    bar = (t["bf16_rel_max"] * scale).clamp(max=t["bf16_atol"])
-    ok = ((bool((err <= bar).all()) and rel_l2 <= t["bf16_rel_l2"]) if bf16
-          else float(err.max()) <= t["f32_atol"])
-    return float(err.max()), ratio, rel_l2, ok
 
 
 def decode_bytes(q, k, valid):
@@ -671,6 +715,8 @@ def kernels_decode(torch, results):
         mk = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(dtype)
         return mk(b, hq, hd), mk(b, s, hkv, hd), mk(b, s, hkv, hd)
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
     def check(q, k, v, valid, what):
         n0 = dk.LAUNCHES["decode_attention"]
         got = dk.decode_attention(q, k, v, valid)
@@ -678,14 +724,13 @@ def kernels_decode(torch, results):
         if dk.LAUNCHES["decode_attention"] != n0 + 1:
             raise AssertionError("decode_attention did not count one launch")
         want = ref.decode_attention_ref(q, k, v, valid)
-        e, ratio, rel_l2, ok = decode_kernel_errors(torch, got, want)
-        bar = (f"per head max |err| / max |want| {ratio:.3g} (bar "
-               f"{t['bf16_rel_max']:g}, at most atol {t['bf16_atol']:g}), "
-               f"relative L2 {rel_l2:.3g} (bar "
-               f"{t['bf16_rel_l2']:g})" if q.dtype == torch.bfloat16 else
-               f"atol {t['f32_atol']:g}")
-        print(f"[kernels] decode_attention {what}: max |err| {e:.3g}, "
-              f"max |want| {float(want.float().abs().max()):.3g}; {bar}")
+        e, ratio, rel_l2, ok = attention_errors(torch, got, want, t)
+        n_split, split_len = dk.split_plan(q.shape[0], k.shape[1],
+                                           k.shape[2], sms)
+        print(f"[kernels] decode_attention {what}, {n_split} split(s) of "
+              f"{split_len} keys: max |err| {e:.3g}, max |want| "
+              f"{float(want.float().abs().max()):.3g}; "
+              + tol_text(t, q.dtype, ratio, rel_l2))
         if not (ok and bool(torch.isfinite(got).all())
                 and not bool(got[valid <= 0].any())):
             raise AssertionError(f"decode_attention disagrees with its "
@@ -699,7 +744,11 @@ def kernels_decode(torch, results):
         (512, 8, 1, 8, torch.bfloat16), (512, 4, 4, 8, torch.float32),
         (256, 8, 2, 16, torch.bfloat16), (100, 8, 1, 64, torch.float32)]
     for S, hq, hkv, hd, dtype in edges:
-        valid = torch.tensor([min(n, S) for n in (0, 1, 511, 512, 513, S)],
+        # valid_len 0 (zeros), 1, around 512, all of S, and ending exactly
+        # on the first split boundary
+        bound = dk.split_plan(7, S, hkv, sms)[1]
+        valid = torch.tensor([min(n, S) for n in (0, 1, 511, 512, 513, S,
+                                                  bound)],
                              dtype=torch.int32, device=dev)
         check(*inputs(len(valid), S, hq, hkv, hd, dtype), valid,
               f"S={S} {hq}/{hkv} heads hd={hd} {str(dtype)[6:]} valid_len "
@@ -726,10 +775,14 @@ def kernels_decode(torch, results):
         bound_by="bytes",
         library_ms=device_ms(lambda i: sdpa_decode(torch, q, k, v, mask),
                              n=20, reps=3))
+    nb = decode_bytes(q, k, valid)
     print(f"[kernels] decode_attention at the decode path: {row['ms']:.4f} ms"
-          f" on the card, plain {row['plain_ms']:.3f} ms, SDPA (enable_gqa) "
-          f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
-          f"bytes ({decode_bytes(q, k, valid) / 1e9:.4f} GB at 3.35 TB/s)")
+          f" on the card ({nb / row['ms'] / 1e6:.0f} GB/s, "
+          f"{row['bound_ms'] / row['ms']:.1%} of its bound), plain "
+          f"{row['plain_ms']:.3f} ms, SDPA (enable_gqa) "
+          f"{row['library_ms']:.4f} ms ({row['bound_ms'] / row['library_ms']:.1%}"
+          f"); bound {row['bound_ms']:.4f} ms by bytes ({nb / 1e9:.4f} GB at "
+          f"3.35 TB/s)")
     results["decode_attention"] = row
     del q, k, v, mask
 
@@ -748,17 +801,17 @@ def kernels_decode(torch, results):
                        reps=3)
         plain = device_ms(lambda i: ref.decode_attention_ref(q, k, v, valid),
                           n=1, reps=3)
-        extra = ""
-        if shape == "decode_32k":
-            mask = valid_mask(torch, valid, sh.seq_len)
-            lib = device_ms(lambda i: sdpa_decode(torch, q, k, v, mask), n=5,
-                            reps=3)
-            extra = f", SDPA (enable_gqa) {lib:.4f} ms"
-            del mask
+        mask = valid_mask(torch, valid, sh.seq_len)
+        lib = device_ms(lambda i: sdpa_decode(torch, q, k, v, mask), n=n_k,
+                        reps=3)
+        del mask
+        nb = decode_bytes(q, k, valid)
+        bound = nb / HBM_BYTES_PER_S * 1e3
         print(f"[kernels] decode_attention at {shape}: {ms:.4f} ms on the "
-              f"card, plain {plain:.3f} ms{extra}; bound "
-              f"{decode_bytes(q, k, valid) / HBM_BYTES_PER_S * 1e3:.4f} ms "
-              f"by bytes ({decode_bytes(q, k, valid) / 1e9:.3f} GB)")
+              f"card ({nb / ms / 1e6:.0f} GB/s, {bound / ms:.1%} of its "
+              f"bound), plain {plain:.3f} ms, SDPA (enable_gqa) {lib:.4f} ms "
+              f"({bound / lib:.1%}); bound {bound:.4f} ms by bytes "
+              f"({nb / 1e9:.3f} GB)")
         del q, k, v
     torch.cuda.empty_cache()
 
@@ -1010,9 +1063,10 @@ def phase_serve(torch, counts):
 
 SERVE_KERNELS = ("cache_probe_dual", "cache_probe_tiled", "embedding_bag")
 KERNEL_GROUPS = (("cache_probe", ("probe_kernel", "perquery_kernel")),
-                 ("decode_attention", ("decode_kernel",)),
+                 ("decode_attention", ("decode_split_kernel",
+                                       "decode_combine_kernel")),
                  ("embedding_bag", ("bag_kernel",)),
-                 ("flash_attention", ("fa_kernel",)),
+                 ("flash_attention", ("fa_kernel", "fa_wgmma_kernel")),
                  ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
                  ("sort", ("sort", "radix", "cub::")),
                  ("index/scatter", ("index", "scatter", "gather")),

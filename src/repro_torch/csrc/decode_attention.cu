@@ -9,10 +9,10 @@
 // kernel): q (B, Hq, hd), k and v (B, S, Hkv, hd), float32 or bfloat16,
 // valid_len (B,) int32; query head h reads KV head h / n_rep; q is scaled by
 // hd^-0.5 in float32 before the product; positions at and after valid_len[b]
-// are masked (score -1e30) and blocks starting at or beyond it are skipped;
-// the softmax state (m, l, acc) is float32; the output is acc / max(l, 1e-30)
-// cast to q's dtype, so a row with valid_len <= 0 gives zeros. A valid_len
-// above S means all S positions.
+// are masked (score -1e30) and never read; the softmax state (m, l, acc) is
+// float32; the output is acc / max(l, 1e-30) cast to q's dtype, so a row
+// with valid_len <= 0 gives zeros. A valid_len above S means all S
+// positions.
 //
 // What bounds it: it reads each valid key's k and v row once, q once, and
 // writes the output: 4 * B * Hq * hd * valid operations against
@@ -21,21 +21,43 @@
 // path's shapes (B=128, 32/4 heads, hd 64, bf16, 2048 valid positions) the
 // cache prefix is 268 MB, ~80 us at 3.35 TB/s.
 //
-// The design (simple first; split-S across CTAs, cp.async/TMA and tensor
-// cores are later work): the TPU grid's sequential S axis becomes a loop in
-// one CTA of 128 threads per (batch row, KV head), which walks the cache in
-// tiles of TK keys and stops at valid_len. Only the valid keys are read: the
-// tail of the last tile is zero-filled, never loaded (a stale NaN times
-// p = 0 would poison acc). Each tile of k and v goes global -> registers as
-// 16-byte loads (neighbouring threads on neighbouring bytes of a key row),
-// is converted to float32 into shared memory, and the NEXT tile's loads are
-// issued before the current one is computed, so a tile's memory latency
-// hides behind the previous tile's arithmetic. The n_rep query heads' q
-// (pre-scaled) sits in shared memory with k; scores are float4 dot products
-// (rows padded by 4 floats: conflict-free 128-bit reads), one (head, key)
-// pair per thread; then one warp per head updates m and l and turns the
-// scores into p; then each thread updates 4 consecutive accumulator dims of
-// one head with p * v. A warp's control flow is uniform.
+// The design: split-S. The TPU grid's sequential S axis is cut into splits
+// of `split_len` keys (whole 64-key tiles); the wrapper picks the number of
+// splits from B * Hkv, S (the longest valid_len it knows without a sync)
+// and the SM count, so that a launch has at least ~2 CTAs per SM (264 CTAs
+// or more at long_500k instead of the B * Hkv = 4 of one CTA per (row, KV
+// head)) and no CTA walks more than 4096 keys. One CTA of 4 warps runs per
+// (batch row, KV head, split, group of NR query heads); NR = 8, 4 or 1
+// divides n_rep, so at n_rep 4 and 8 each key's k and v rows are read from
+// device memory once per KV head. Each warp walks its own warp tiles of the
+// split (32 keys; fewer for rows above 128 bytes) up to valid_len with its
+// own online softmax, through its own 2-stage ring in shared memory: the
+// next tile's k and v rows come by 16-byte cp.async copies (XOR-swizzled
+// chunks) while the current tile is computed, so the memory stays busy
+// without registers holding loads and without block-wide barriers:
+//
+// - scores: lane j owns key j of the tile, reads its k row from the ring,
+//   converts it in registers and takes the NR dot products against q
+//   (pre-scaled in float32, in shared memory, read as broadcast float4s),
+//   so k is read from device memory once and never n_rep times;
+// - softmax: the tile's max per head by warp shuffles, float32 p =
+//   exp(s - m) kept per lane in l and written to a warp-private p buffer;
+// - P.V: lanes split over (key group, 16-byte slice of the v row); each
+//   reads its keys' v slices from the ring and accumulates p * v for the
+//   NR heads in float32 registers (no bf16 rounding of p).
+//
+// Keys past valid_len are never loaded (a stale NaN times p = 0 would
+// poison acc). The 4 warps' states merge in shared memory (each warp's
+// ring, free by then, holds its accumulator). With one split
+// the CTA writes the output; otherwise it writes float32 partials (m, l,
+// acc) to the wrapper's scratch and decode_combine merges a row's splits
+// as seq_sharded_decode_attention does (repro/distributed/collectives.py):
+// m = max of the partial maxima, l and acc the sums of the partials scaled
+// by exp(m_s - m). The one trap: a split wholly at or past valid_len reads
+// nothing and writes m = -1e30, l = 0, acc = 0, so it drops out of the
+// merge (exp(-1e30 - m) = 0) and a row with valid_len <= 0 still gives
+// zeros. The JAX partials of such a split would carry l = Sl (every p =
+// exp(-1e30 + 1e30) = 1) and make that row the mean of v.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,47 +65,65 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSmem = 232448;  // bytes a block may opt in to on sm_90
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 64;  // split granularity: splits are whole 64-key tiles
+constexpr int kStages = 2;  // per-warp ring of k/v tiles
 
-template <typename T, int HD>
-struct Tile {
-  static constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16 bytes
-  static constexpr int kRowVecs = HD / kVec;         // 16-byte loads per row
-  // keys per tile: at most 64, and k + v of a tile in 8 uint4 per thread
-  static constexpr int kTK0 = 8 * kThreads * 16 / (2 * HD * (int)sizeof(T));
-  static constexpr int TK = kTK0 < 64 ? kTK0 : 64;
-  static constexpr int kChunks = 2 * TK * kRowVecs / kThreads;
-  static constexpr int KS = HD + 4;  // padded k / q row (floats)
-  static constexpr int PS = TK + 1;  // padded p row (floats)
-  static_assert(HD % kVec == 0 && TK % 4 == 0, "bad width");
-  static_assert(kChunks * kThreads == 2 * TK * kRowVecs, "bad tile");
+template <typename T, int HD, int NR>
+struct Cfg {
+  static constexpr int RB = HD * (int)sizeof(T);  // bytes of a k or v row
+  static constexpr int CH = RB / 16;              // 16-byte chunks per row
+  static constexpr int VE = 16 / (int)sizeof(T);  // elements per chunk
+  // keys per warp tile: 32 (a lane each in the score pass), fewer for rows
+  // above 128 bytes so that a stage of k and v stays at 8 KB
+  static constexpr int WT = RB <= 128 ? 32 : 4096 / RB;
+  static constexpr int KG = 32 / CH;  // P.V: key groups (lanes per row: CH)
+  static constexpr int kStage = WT * HD;  // elements of k (or v) per stage
+  static_assert(RB % 16 == 0 && CH <= 32 && 32 % CH == 0, "bad width");
+  static_assert(kTile % WT == 0 && WT % KG == 0, "bad tile");
 };
 
-template <typename T, int HD>
-size_t smem_bytes(int n_rep) {
-  using C = Tile<T, HD>;
-  return sizeof(float) * ((size_t)C::TK * C::KS + (size_t)C::TK * HD +
-                          (size_t)n_rep * (C::KS + C::PS + HD + 3));
+// Element offset of 16-byte chunk c of row r in a [rows][HD] tile, chunks
+// XORed with bits of the row so that lanes reading one chunk of 8
+// consecutive rows (the score pass) hit distinct bank groups.
+template <int CH>
+__device__ __forceinline__ int swz(int r, int c) {
+  if constexpr (CH >= 8) return c ^ (r & 7);
+  else if constexpr (CH == 4) return c ^ ((r >> 1) & 3);
+  else if constexpr (CH == 2) return c ^ ((r >> 2) & 1);
+  else return c;
 }
 
-__device__ __forceinline__ void put(float* dst, const uint4& u, float) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&u);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
 }
-__device__ __forceinline__ void put(float* dst, const uint4& u,
-                                    __nv_bfloat16) {
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16 bytes of shared memory -> float32 (bf16 -> float32 is exact).
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  float f[8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 p =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
-  *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(f[4], f[5], f[6], f[7]);
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -95,192 +135,324 @@ __device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);  // round to nearest even, as torch's cast
 }
 
-// Issue the 16-byte loads of one tile (keys k0 .. k0 + nk - 1) into buf.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(uint4 (&buf)[Tile<T, HD>::kChunks],
-                                          const T* kb, const T* vb,
-                                          size_t key_stride, int k0, int nk) {
-  using C = Tile<T, HD>;
+__device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
-  for (int i = 0; i < C::kChunks; ++i) {
-    const int c = threadIdx.x + kThreads * i;
-    const bool is_v = c >= C::TK * C::kRowVecs;
-    const int r = is_v ? c - C::TK * C::kRowVecs : c;
-    const int j = r / C::kRowVecs, part = r % C::kRowVecs;
-    buf[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (j < nk)
-      buf[i] = *reinterpret_cast<const uint4*>(
-          (is_v ? vb : kb) + (size_t)(k0 + j) * key_stride + part * C::kVec);
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// cp.async one warp tile (keys t0 .. t0 + WT - 1, those below kend; the
+// rest zero-filled, never read) of k and v into a stage.
+template <typename T, int HD, int NR>
+__device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kb,
+                                          const T* vb, size_t stride, int t0,
+                                          int kend, int lane) {
+  using C = Cfg<T, HD, NR>;
+#pragma unroll
+  for (int e = lane; e < C::WT * C::CH; e += 32) {
+    const int r = e / C::CH, c = e % C::CH;
+    const bool ok = t0 + r < kend;
+    const size_t off = ok ? (size_t)(t0 + r) * stride + c * C::VE : 0;
+    const int so = r * HD + swz<C::CH>(r, c) * C::VE;
+    cp_async16(ks + so, kb + off, ok);
+    cp_async16(vs + so, vb + off, ok);
   }
 }
 
-template <typename T, int HD>
+// Grid: one CTA per (batch row, KV head, split, head group), head group
+// fastest. `part` (nullable when n_split == 1) is (B, Hq, n_split, HD + 2)
+// float32: acc, then m, then l.
+template <typename T, int HD, int NR>
 __global__ void __launch_bounds__(kThreads)
-    decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v,
-                  const int32_t* __restrict__ valid_len, T* __restrict__ out,
-                  int S, int Hq, int Hkv, float scale) {
-  using C = Tile<T, HD>;
-  constexpr int TK = C::TK, KS = C::KS, PS = C::PS, HD4 = HD / 4;
-  const int n_rep = Hq / Hkv;
-  const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
+    decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const int32_t* __restrict__ valid_len,
+                        T* __restrict__ out, float* __restrict__ part, int S,
+                        int Hq, int Hkv, int n_split, int split_len,
+                        float scale) {
+  using C = Cfg<T, HD, NR>;
+  constexpr int CH = C::CH, VE = C::VE, WT = C::WT, KG = C::KG;
+  extern __shared__ uint4 smem_dec[];
+  T* ring = reinterpret_cast<T*>(smem_dec);  // [kWarps][kStages][2][WT][HD]
+  __shared__ __align__(16) float Qs[NR * HD];         // scaled q
+  __shared__ __align__(16) float Ps[kWarps][WT * NR];  // p, key-major
+  __shared__ float Wm[kWarps][NR], Wl[kWarps][NR];
+  static_assert(kStages * 2 * C::kStage * sizeof(T) >=
+                    NR * HD * sizeof(float), "ring too small for the merge");
+
+  const int n_rep = Hq / Hkv, groups = n_rep / NR;
+  int idx = blockIdx.x;
+  const int hg = idx % groups;
+  idx /= groups;
+  const int sp = idx % n_split;
+  idx /= n_split;
+  const int kvh = idx % Hkv, b = idx / Hkv;
+  const int h0 = kvh * n_rep + hg * NR;  // first query head of the group
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // [TK][KS]
-  float* Vs = Ks + TK * KS;                     // [TK][HD]
-  float* Qs = Vs + TK * HD;                     // [n_rep][KS], 16 B aligned
-  float* Acc = Qs + n_rep * KS;                 // [n_rep][HD], 16 B aligned
-  float* Ps = Acc + n_rep * HD;                 // [n_rep][PS]
-  float* Ms = Ps + n_rep * PS;                  // [n_rep]
-  float* Ls = Ms + n_rep;
-  float* Cs = Ls + n_rep;                       // this tile's rescale
-
-  const size_t q0 = ((size_t)b * Hq + (size_t)kvh * n_rep) * HD;
-  for (int e = tid; e < n_rep * HD; e += kThreads) {
-    Qs[(e / HD) * KS + e % HD] = to_f(q[q0 + e]) * scale;
-    Acc[e] = 0.0f;
-  }
-  for (int h = tid; h < n_rep; h += kThreads) {
-    Ms[h] = kNegInf;
-    Ls[h] = 0.0f;
-  }
-
-  const int kend = min(max(valid_len[b], 0), S);  // keys to read
-  const size_t key_stride = (size_t)Hkv * HD;     // elements between keys
+  const int s0 = sp * split_len;
+  const int kend = min(min(valid_len[b], S), s0 + split_len);  // keys < kend
+  const size_t stride = (size_t)Hkv * HD;  // elements between keys
   const T* kb = k + ((size_t)b * S * Hkv + kvh) * HD;
   const T* vb = v + ((size_t)b * S * Hkv + kvh) * HD;
-
-  uint4 buf[C::kChunks];
-  if (kend > 0) load_tile<T, HD>(buf, kb, vb, key_stride, 0, min(TK, kend));
-  for (int k0 = 0; k0 < kend; k0 += TK) {
-    const int nk = min(TK, kend - k0);
-    __syncthreads();  // the previous tile (and q, Acc at first) is consumed
+  T* my = ring + (size_t)warp * kStages * 2 * C::kStage;
+  const int step = kWarps * WT;  // this warp's tiles: t0, t0 + step, ...
+  int t0 = s0 + warp * WT;
 #pragma unroll
-    for (int i = 0; i < C::kChunks; ++i) {
-      const int c = tid + kThreads * i;
-      const bool is_v = c >= TK * C::kRowVecs;
-      const int r = is_v ? c - TK * C::kRowVecs : c;
-      const int j = r / C::kRowVecs, col = (r % C::kRowVecs) * C::kVec;
-      put(is_v ? Vs + j * HD + col : Ks + j * KS + col, buf[i], T());
+  for (int i = 0; i < kStages - 1; ++i) {  // the ring's first tiles
+    if (t0 + i * step < kend)
+      load_tile<T, HD, NR>(my + i * 2 * C::kStage,
+                           my + (i * 2 + 1) * C::kStage, kb, vb, stride,
+                           t0 + i * step, kend, lane);
+    cp_async_commit();
+  }
+
+  for (int e = tid; e < NR * HD; e += kThreads)
+    Qs[e] = to_f(q[((size_t)b * Hq + h0) * HD + e]) * scale;
+  __syncthreads();
+
+  float m[NR], l[NR], acc[NR][VE];
+#pragma unroll
+  for (int h = 0; h < NR; ++h) {
+    m[h] = kNegInf;
+    l[h] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VE; ++e) acc[h][e] = 0.f;
+  }
+  float* P = Ps[warp];
+  const float4* Q4 = reinterpret_cast<const float4*>(Qs);
+  const int kg = lane / CH, slice = lane % CH;  // P.V roles
+
+  for (int i = 0; t0 < kend; ++i, t0 += step) {
+    {  // keep kStages - 1 tiles in flight ahead of this one
+      const int ahead = t0 + (kStages - 1) * step;
+      const int st = (i + kStages - 1) % kStages;
+      if (ahead < kend)
+        load_tile<T, HD, NR>(my + st * 2 * C::kStage,
+                             my + (st * 2 + 1) * C::kStage, kb, vb, stride,
+                             ahead, kend, lane);
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();
+      __syncwarp();
     }
-    __syncthreads();
-    if (k0 + TK < kend)  // in flight while this tile is computed
-      load_tile<T, HD>(buf, kb, vb, key_stride, k0 + TK,
-                       min(TK, kend - k0 - TK));
+    const T* ks = my + (i % kStages) * 2 * C::kStage;
+    const T* vs = ks + C::kStage;
 
-    // scores: one (head, key) pair per thread, keys past the tile -1e30
-    for (int p = tid; p < n_rep * TK; p += kThreads) {
-      const int h = p / TK, j = p % TK;
-      float s = kNegInf;
-      if (j < nk) {
-        const float4* qr = reinterpret_cast<const float4*>(Qs + h * KS);
-        const float4* kr = reinterpret_cast<const float4*>(Ks + j * KS);
-        s = 0.0f;
+    // scores: lane j owns key t0 + j
+    const bool ok = lane < WT && t0 + lane < kend;
+    float s[NR];
 #pragma unroll
-        for (int i = 0; i < HD4; ++i) {
-          const float4 a = qr[i], c = kr[i];
-          s = fmaf(a.x, c.x, s);
-          s = fmaf(a.y, c.y, s);
-          s = fmaf(a.z, c.z, s);
-          s = fmaf(a.w, c.w, s);
+    for (int h = 0; h < NR; ++h) s[h] = 0.f;
+    if (lane < WT) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        float kf[VE];
+        unpack(*reinterpret_cast<const uint4*>(
+                   ks + lane * HD + swz<CH>(lane, c) * VE),
+               kf);
+#pragma unroll
+        for (int h = 0; h < NR; ++h) {
+#pragma unroll
+          for (int e = 0; e < VE / 4; ++e) {
+            const float4 qv = Q4[(h * HD + c * VE) / 4 + e];
+            s[h] = fmaf(qv.x, kf[4 * e + 0], s[h]);
+            s[h] = fmaf(qv.y, kf[4 * e + 1], s[h]);
+            s[h] = fmaf(qv.z, kf[4 * e + 2], s[h]);
+            s[h] = fmaf(qv.w, kf[4 * e + 3], s[h]);
+          }
         }
       }
-      Ps[h * PS + j] = s;
     }
-    __syncthreads();
-
-    // online softmax: one warp per head
-    for (int h = warp; h < n_rep; h += kWarps) {
-      float mx = kNegInf;
-      for (int j = lane; j < TK; j += 32) mx = fmaxf(mx, Ps[h * PS + j]);
+    // online softmax per head (key t0 is always valid: m_new is finite)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = Ms[h];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.0f;
-      for (int j = lane; j < TK; j += 32) {
-        const float p = expf(Ps[h * PS + j] - m_new);
-        Ps[h * PS + j] = p;
-        sum += p;
-      }
+    for (int h = 0; h < NR; ++h) {
+      const float x = ok ? s[h] : kNegInf;
+      const float m_new = fmaxf(m[h], warp_max(x));
+      const float corr = expf(m[h] - m_new);
+      m[h] = m_new;
+      const float p = ok ? expf(x - m_new) : 0.f;
+      if (lane < WT) P[lane * NR + h] = p;
+      l[h] = l[h] * corr + p;  // this lane's share; warp-summed last
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        Cs[h] = corr;
-        Ls[h] = Ls[h] * corr + sum;
-        Ms[h] = m_new;
+      for (int e = 0; e < VE; ++e) acc[h][e] *= corr;
+    }
+    __syncwarp();
+    // acc += p . v over this lane's keys (key group kg), its 16-byte slice
+#pragma unroll
+    for (int jj = 0; jj < WT / KG; ++jj) {
+      const int j = kg + KG * jj;
+      if (t0 + j < kend) {
+        float vf[VE];
+        unpack(*reinterpret_cast<const uint4*>(
+                   vs + j * HD + swz<CH>(j, slice) * VE),
+               vf);
+#pragma unroll
+        for (int h = 0; h < NR; ++h) {
+          const float p = P[j * NR + h];
+#pragma unroll
+          for (int e = 0; e < VE; ++e) acc[h][e] = fmaf(p, vf[e], acc[h][e]);
+        }
       }
     }
-    __syncthreads();
+    __syncwarp();  // this stage and the p buffer are consumed
+  }
+  cp_async_wait<0>();
+  __syncwarp();  // the ring is free: it takes this warp's accumulator
 
-    // acc = acc * corr + p . v, 4 dims of one head per thread
-    const float4* V4 = reinterpret_cast<const float4*>(Vs);
-    float4* A4 = reinterpret_cast<float4*>(Acc);
-    for (int g = tid; g < n_rep * HD4; g += kThreads) {
-      const int h = g / HD4, d4 = g % HD4;
-      const float corr = Cs[h];
-      float4 a = A4[g];
-      a.x *= corr;
-      a.y *= corr;
-      a.z *= corr;
-      a.w *= corr;
-      const float* pr = Ps + h * PS;
-      for (int j = 0; j < nk; ++j) {
-        const float p = pr[j];
-        const float4 x = V4[j * HD4 + d4];
-        a.x = fmaf(p, x.x, a.x);
-        a.y = fmaf(p, x.y, a.y);
-        a.z = fmaf(p, x.z, a.z);
-        a.w = fmaf(p, x.w, a.w);
-      }
-      A4[g] = a;
+  // merge the warp's key groups, then the 4 warps
+#pragma unroll
+  for (int h = 0; h < NR; ++h) {
+    l[h] = warp_sum(l[h]);
+#pragma unroll
+    for (int off = CH; off < 32; off <<= 1)
+#pragma unroll
+      for (int e = 0; e < VE; ++e)
+        acc[h][e] += __shfl_xor_sync(0xffffffffu, acc[h][e], off);
+  }
+  if (lane < CH) {
+    float* wacc = reinterpret_cast<float*>(my);
+#pragma unroll
+    for (int h = 0; h < NR; ++h)
+#pragma unroll
+      for (int e = 0; e < VE; ++e) wacc[h * HD + slice * VE + e] = acc[h][e];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < NR; ++h) {
+      Wm[warp][h] = m[h];
+      Wl[warp][h] = l[h];
     }
   }
   __syncthreads();
+  for (int e = tid; e < NR * HD; e += kThreads) {
+    const int h = e / HD, d = e % HD;
+    float mc = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mc = fmaxf(mc, Wm[w][h]);
+    float lc = 0.f, ac = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float corr = expf(Wm[w][h] - mc);
+      lc += Wl[w][h] * corr;
+      ac += reinterpret_cast<const float*>(
+                ring + (size_t)w * kStages * 2 * C::kStage)[e] * corr;
+    }
+    if (n_split == 1) {
+      from_f(out + ((size_t)b * Hq + h0 + h) * HD + d,
+             ac / fmaxf(lc, 1e-30f));
+    } else {
+      float* pp = part + (((size_t)b * Hq + h0 + h) * n_split + sp) * (HD + 2);
+      pp[d] = ac;
+      if (d == 0) {
+        pp[HD] = mc;
+        pp[HD + 1] = lc;
+      }
+    }
+  }
+}
 
-  for (int e = tid; e < n_rep * HD; e += kThreads)
-    from_f(out + q0 + e, Acc[e] / fmaxf(Ls[e / HD], 1e-30f));
+// One warp per (batch row, query head): the online-softmax merge of its
+// n_split partials, in split order.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+    decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
+                          int rows, int n_split) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* pp = part + (size_t)row * n_split * (HD + 2);
+  float mg = kNegInf;
+  for (int s = lane; s < n_split; s += 32) mg = fmaxf(mg, pp[s * (HD + 2) + HD]);
+  mg = warp_max(mg);
+  float lg = 0.f;
+  for (int s = lane; s < n_split; s += 32) {
+    const float* ps = pp + s * (HD + 2);
+    lg += ps[HD + 1] * expf(ps[HD] - mg);
+  }
+  lg = warp_sum(lg);
+  const float denom = fmaxf(lg, 1e-30f);
+  for (int d = lane; d < HD; d += 32) {
+    float a = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float* ps = pp + s * (HD + 2);
+      a += ps[d] * expf(ps[HD] - mg);
+    }
+    from_f(out + (size_t)row * HD + d, a / denom);
+  }
+}
+
+template <typename T, int HD, int NR>
+int launch_nr(const void* q, const void* k, const void* v,
+              const int32_t* valid_len, void* out, float* part, int B, int S,
+              int Hq, int Hkv, int n_split, int split_len, float scale,
+              cudaStream_t stream) {
+  const long long ctas =
+      (long long)B * Hkv * n_split * ((Hq / Hkv) / NR);
+  if (ctas <= 0 || ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  using C = Cfg<T, HD, NR>;
+  constexpr size_t smem = sizeof(T) * kWarps * kStages * 2 * C::kStage;
+  static bool attr_set = false;  // above 48 KB only as opted-in dynamic smem
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_split_kernel<T, HD, NR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  decode_split_kernel<T, HD, NR><<<(unsigned)ctas, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), valid_len, static_cast<T*>(out), part, S, Hq,
+      Hkv, n_split, split_len, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return (int)e;
+  const int rows = B * Hq;
+  decode_combine_kernel<T, HD>
+      <<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+          part, static_cast<T*>(out), rows, n_split);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v,
-           const int32_t* valid_len, void* out, int B, int S, int Hq, int Hkv,
-           float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, HD>(Hq / Hkv);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  static size_t opted = 48 * 1024;  // above 48 KB only after opting in
-  if (smem > opted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    opted = smem;
-  }
-  decode_kernel<T, HD><<<B * Hkv, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), valid_len, static_cast<T*>(out), S, Hq, Hkv,
-      scale);
-  return (int)cudaGetLastError();
+           const int32_t* valid_len, void* out, float* part, int B, int S,
+           int Hq, int Hkv, int n_split, int split_len, float scale,
+           cudaStream_t s) {
+  const int n_rep = Hq / Hkv;
+  if (n_rep % 8 == 0)
+    return launch_nr<T, HD, 8>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
+                               n_split, split_len, scale, s);
+  if (n_rep % 4 == 0)
+    return launch_nr<T, HD, 4>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
+                               n_split, split_len, scale, s);
+  return launch_nr<T, HD, 1>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
+                             n_split, split_len, scale, s);
 }
 
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v,
-                const int32_t* valid_len, void* out, int B, int S, int Hq,
-                int Hkv, int hd, float scale, cudaStream_t s) {
+                const int32_t* valid_len, void* out, float* part, int B,
+                int S, int Hq, int Hkv, int hd, int n_split, int split_len,
+                float scale, cudaStream_t s) {
   switch (hd) {
     case 8:
-      return launch<T, 8>(q, k, v, valid_len, out, B, S, Hq, Hkv, scale, s);
+      return launch<T, 8>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
+                          n_split, split_len, scale, s);
     case 16:
-      return launch<T, 16>(q, k, v, valid_len, out, B, S, Hq, Hkv, scale, s);
+      return launch<T, 16>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
+                           n_split, split_len, scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, valid_len, out, B, S, Hq, Hkv, scale, s);
+      return launch<T, 64>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
+                           n_split, split_len, scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, valid_len, out, B, S, Hq, Hkv, scale,
-                            s);
+      return launch<T, 128>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
+                            n_split, split_len, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -291,21 +463,30 @@ int dispatch_hd(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype_code: 0 = float32, 1 = bfloat16. q, k, v, valid_len and out
-// contiguous; q, k and v 16-byte aligned.
+// contiguous; q, k and v 16-byte aligned. The keys are cut into n_split
+// splits of split_len (a multiple of 64, n_split * split_len >= S); with
+// n_split > 1, part is float32 scratch of B * Hq * n_split * (hd + 2).
 int ercache_decode_attention(const void* q, const void* k, const void* v,
-                             const int32_t* valid_len, void* out, int B, int S,
-                             int Hq, int Hkv, int hd, float scale,
+                             const int32_t* valid_len, void* out, void* part,
+                             int B, int S, int Hq, int Hkv, int hd,
+                             int n_split, int split_len, float scale,
                              int dtype_code, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || n_split <= 0 ||
+      split_len <= 0 || split_len % kTile != 0 ||
+      (long long)n_split * split_len < S ||
+      (long long)(n_split - 1) * split_len >= S ||
+      (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
   switch (dtype_code) {
     case 0:
-      return dispatch_hd<float>(q, k, v, valid_len, out, B, S, Hq, Hkv, hd,
-                                scale, s);
+      return dispatch_hd<float>(q, k, v, valid_len, out, p, B, S, Hq, Hkv, hd,
+                                n_split, split_len, scale, s);
     case 1:
-      return dispatch_hd<__nv_bfloat16>(q, k, v, valid_len, out, B, S, Hq,
-                                        Hkv, hd, scale, s);
+      return dispatch_hd<__nv_bfloat16>(q, k, v, valid_len, out, p, B, S, Hq,
+                                        Hkv, hd, n_split, split_len, scale,
+                                        s);
     default:
       return (int)cudaErrorInvalidValue;
   }

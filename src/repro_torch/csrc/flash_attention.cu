@@ -19,25 +19,59 @@
 // bf16, causal) that is 8.25e11 operations against ~0.9 GB of q, k, v and
 // output: about 900 operations per byte, so compute bounds it (0.83 ms at
 // the tensor cores' 989 TFLOP/s bf16 rate; 12 ms at the CUDA cores' 67
-// TFLOP/s float32 rate, which is the rate this kernel can reach).
+// TFLOP/s float32 rate).
 //
-// The design (simple first; tensor cores are later work): the TPU grid's
-// sequential KV axis becomes a loop inside one CTA per (q tile of 64 rows,
-// head, batch row), which walks its KV tiles only up to its last row's
-// diagonal. The CTAs of the longest causal rows are launched first. Each
-// 64-key tile of K and V is converted to float32 and staged in shared
-// memory (zero-filled past the last key). Each query row belongs to G
-// consecutive lanes (G = 2, or hd/32 from hd 128 on), each holding hd/G of
-// the row's q (pre-scaled) and accumulator dims in registers, in 4-wide
-// groups so that shared memory is read as float4; a score is the lanes'
-// partial dot products summed with __shfl_xor_sync, which leaves the same
-// bits on every lane of the row. The softmax is updated once per chunk of
-// 16 keys: chunk max, one rescale of l and acc, then p * V accumulated with
-// float32 FMAs on the CUDA cores. Control flow is uniform across a warp;
-// keys a row may not see score -1e30, as in the reference.
+// Two bodies, chosen by dtype and head width (a dispatch, not a fallback):
+//
+// fa_wgmma_kernel: bfloat16 at hd 16, 64 and 128, on the tensor cores
+// through Hopper's warpgroup mma. One CTA = one warpgroup (4 warps, 16
+// query rows each) per (64-row q tile, query head, batch row). The launch
+// order is linear: the longest causal q tiles first, and within a q tile
+// the n_rep query heads of one KV head next to each other, so 7 of a
+// group's 8 CTAs find each K/V tile in L2. Q goes to shared memory once;
+// each 64-key tile of K and V comes from device memory as bf16 by 16-byte
+// cp.async.cg copies into a 2-stage ring, the next tile's copies issued
+// before the current tile is computed; keys past the last one the CTA
+// needs are zero-filled, never read. Tiles are stored in wgmma's canonical
+// swizzled layout (128-byte rows at hd 64/128, 32-byte at hd 16), so
+// S = Q K^T is wgmma m64n64k16 with both operands read by descriptor from
+// shared memory (K-major), accumulating in float32; Q is NOT pre-scaled in
+// bf16. The online softmax (m, l, acc) stays in float32 registers, m in
+// units of log2: the row max is taken on the raw scores (the scale is
+// positive) and p = 2^(s * scale * log2 e - m) is one FMA and one
+// ex2.approx, so the scale hd^-0.5 is applied to S in float32 (at hd 16
+// and 64 a power of two: S equals the reference's (q * scale) . k up to
+// summation order). p is summed into l in float32, then packed to bf16 as
+// the register A operand of acc += P V, a wgmma m64n{hd}k16 that reads V
+// transposed (MN-major) from its [key][dim] tile; the accumulator
+// fragment of S is the A fragment of P. P in bf16 is the one new rounding
+// against the reference, which multiplies float32 p by float32 v. The
+// mask (causal, q_offset, the last key) is applied only on tiles that
+// cross it; ragged Sq and Sk are masked per row and per key, not padded in
+// memory. The output acc / max(l, 1e-30) is rounded to nearest even into
+// bf16, staged in the Q buffer and written as 16-byte stores. Each wgmma
+// is waited for before its registers are used (no producer warp, no TMA,
+// no overlap of softmax with the next product inside a warpgroup: the
+// FA-3 schedule is later work); CTAs on one SM overlap each other.
+//
+// fa_kernel: float32 (where TF32 would break the 2e-5 bar against the
+// reference) and bfloat16 at hd 8 (below the mma depth of 16), on the CUDA
+// cores. The TPU grid's sequential KV axis becomes a loop inside one CTA
+// per (q tile of 64 rows, head, batch row), which walks its KV tiles only
+// up to its last row's diagonal, longest causal rows first. Each 64-key
+// tile of K and V is converted to float32 and staged in shared memory
+// (zero-filled past the last key). Each query row belongs to G consecutive
+// lanes (G = 2, or hd/32 from hd 128 on), each holding hd/G of the row's q
+// (pre-scaled) and accumulator dims in registers, in 4-wide groups so that
+// shared memory is read as float4; a score is the lanes' partial dot
+// products summed with __shfl_xor_sync. The softmax is updated once per
+// chunk of 16 keys, then p * V accumulated with float32 FMAs. Keys a row
+// may not see score -1e30, as in the reference.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -203,6 +237,392 @@ __global__ void __launch_bounds__(Shape<HD>::kThreads)
   }
 }
 
+// ------------------------------------------------ tensor-core body (bf16)
+using bf16 = __nv_bfloat16;
+constexpr int kBQTC = 64;             // query rows per CTA: one warpgroup
+constexpr int kBKTC = 64;             // keys per K/V tile
+constexpr int kStages = 2;            // K/V ring depth
+constexpr int kThreadsTC = 128;       // 4 warps, 16 query rows each
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory tiles are [atom][rows][AW] bf16: AW = 64 elements (128-byte
+// rows, the 128-byte swizzle) at hd 64 and 128, 16 (32-byte rows, the
+// 32-byte swizzle) at hd 16. This is the canonical layout wgmma reads
+// through a matrix descriptor: K-major for Q and K, MN-major (transposed)
+// for V.
+template <int HD>
+struct TC {
+  static constexpr int AW = HD < 64 ? HD : 64;   // elements per atom row
+  static constexpr int CPA = AW / 8;              // 16-byte chunks per row
+  static constexpr int DT = HD / 8;               // n-tiles of the output
+  static constexpr int NT = kBKTC / 8;            // n-tiles of S
+  static constexpr int kTile = kBKTC * HD;        // elements of a K/V tile
+  static constexpr uint64_t kSwizzle = AW == 64 ? 1 : 3;  // 128 B : 32 B
+  static constexpr uint32_t kGroup = 8 * AW * 2;  // bytes of 8 atom rows
+  static constexpr size_t kSmem =  // + 1024 to align the tiles to 1024 B
+      1024 + sizeof(bf16) * ((size_t)kBQTC * HD + 2 * kStages * kTile);
+  static_assert(AW == 64 || AW == 16, "bad width");
+};
+
+// Element offset of 16-byte chunk c (of HD / 8) of row r in a tile of
+// `rows` rows: the chunk index within its atom row XORed with row bits, as
+// the hardware swizzle does (address bits [4, 7) ^= bits [7, 10) for
+// 128-byte rows, bit 4 ^= bit 7 for 32-byte rows).
+template <int HD>
+__device__ __forceinline__ int soff(int rows, int r, int c) {
+  using C = TC<HD>;
+  const int x = C::AW == 64 ? (r & 7) : ((r >> 2) & 1);
+  return (c / C::CPA) * rows * C::AW + r * C::AW + ((c % C::CPA) ^ x) * 8;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// the threads' cp.async writes become visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Registers a wgmma writes asynchronously are not ready when its asm
+// statement returns: this keeps the compiler from touching them before the
+// wait that completes it.
+template <int N>
+__device__ __forceinline__ void pin(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle mode.
+template <int HD>
+__device__ __forceinline__ uint64_t sdesc(const void* p, uint32_t lbo,
+                                          uint32_t sbo) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (TC<HD>::kSwizzle << 62);
+}
+
+// d (+)= A (smem, K-major) * B (smem, K-major), m64n64k16, bf16 -> f32
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A (registers) * B (smem, MN-major), m64n16k16, bf16 -> f32
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A (registers) * B (smem, MN-major), m64n64k16, bf16 -> f32
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A (registers) * B (smem, MN-major), m64n128k16, bf16 -> f32
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);  // lo: low half
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// cp.async the first `valid` of ROWS rows (row stride `stride` elements)
+// into a swizzled tile; the rest is zero-filled.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          size_t stride, int valid) {
+  constexpr int CH = HD / 8, N = ROWS * CH;
+  static_assert(N % kThreadsTC == 0, "bad tile");
+#pragma unroll
+  for (int i = 0; i < N / kThreadsTC; ++i) {
+    const int e = threadIdx.x + kThreadsTC * i, r = e / CH, c = e % CH;
+    const bool ok = r < valid;
+    cp_async16(dst + soff<HD>(ROWS, r, c), ok ? src + r * stride + c * 8 : src,
+               ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsTC)
+    fa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out, int B,
+                    int Sq, int Sk, int Hq, int Hkv, int causal, int q_offset,
+                    float scale_log2) {
+  using C = TC<HD>;
+  constexpr int NT = C::NT, DT = C::DT, AW = C::AW;
+  extern __shared__ uint8_t smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_tc) + 1023) & ~uintptr_t(1023));
+  bf16* Ks = Qs + kBQTC * HD;  // [kStages] K tiles, then [kStages] V tiles
+  bf16* Vs = Ks + kStages * C::kTile;
+
+  // linear launch order: q tile slowest (longest first), head fastest
+  const int nq = (Sq + kBQTC - 1) / kBQTC;
+  const int h = blockIdx.x % Hq, rest = blockIdx.x / Hq;
+  const int b = rest % B, qt = nq - 1 - rest / B;
+  const int kvh = h / (Hq / Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // accumulator fragment coordinates
+
+  const int q0 = qt * kBQTC;
+  int k_end = Sk;  // keys this CTA needs: with `causal`, to its diagonal
+  if (causal) k_end = min(Sk, min(q0 + kBQTC, Sq) + q_offset);
+  const int n_tiles = (k_end + kBKTC - 1) / kBKTC;
+
+  const size_t q_stride = (size_t)Hq * HD, kv_stride = (size_t)Hkv * HD;
+  const bf16* qg = q + ((size_t)b * Sq + q0) * q_stride + (size_t)h * HD;
+  const bf16* kg = k + (size_t)b * Sk * kv_stride + (size_t)kvh * HD;
+  const bf16* vg = v + (size_t)b * Sk * kv_stride + (size_t)kvh * HD;
+
+  load_rows<HD, kBQTC>(Qs, qg, q_stride, Sq - q0);
+  load_rows<HD, kBKTC>(Ks, kg, kv_stride, min(kBKTC, k_end));
+  load_rows<HD, kBKTC>(Vs, vg, kv_stride, min(kBKTC, k_end));
+  cp_async_commit();
+
+  const int w0 = q0 + warp * 16;  // this warp's first row
+  const int pos_min = w0 + q_offset;
+  float o[DT * 4];
+#pragma unroll
+  for (int i = 0; i < DT * 4; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBKTC;
+    if (t + 1 < n_tiles) {  // the next tile's copies fly during this one
+      const int st = (t + 1) % kStages, k1 = k0 + kBKTC;
+      load_rows<HD, kBKTC>(Ks + st * C::kTile, kg + (size_t)k1 * kv_stride,
+                           kv_stride, min(kBKTC, k_end - k1));
+      load_rows<HD, kBKTC>(Vs + st * C::kTile, vg + (size_t)k1 * kv_stride,
+                           kv_stride, min(kBKTC, k_end - k1));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const bf16* Kt = Ks + (t % kStages) * C::kTile;
+    const bf16* Vt = Vs + (t % kStages) * C::kTile;
+
+    // S = Q K^T over the head dim, 16 at a time (within an atom row: +32 B)
+    float s[NT * 4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int a = kk * 16 / AW, e = kk * 16 % AW;
+      wgmma_ss(s, sdesc<HD>(Qs + a * kBQTC * AW + e, 16, C::kGroup),
+               sdesc<HD>(Kt + a * kBKTC * AW + e, 16, C::kGroup), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    pin(s);
+
+    // mask where the tile crosses the diagonal or the last key
+    if (k0 + kBKTC > k_end || (causal && k0 + kBKTC - 1 > pos_min)) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+          const int qpos = w0 + g + 8 * (e >> 1) + q_offset;
+          if (kpos >= k_end || (causal && kpos > qpos)) s[4 * j + e] = kNegInf;
+        }
+      }
+    }
+    // online softmax, rows g (r = 0) and g + 8 (r = 1) of this warp
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // m in units of log2: the scale (> 0) commutes with the max
+      const float m_new = fmaxf(m[r], mx * scale_log2);
+      const float corr = fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[4 * j + e] = fast_exp2(fmaf(s[4 * j + e], scale_log2, -m_new));
+          sum += s[4 * j + e];
+        }
+      }
+      l[r] = l[r] * corr + sum;  // this thread's share; quad-summed last
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        o[4 * d + 2 * r] *= corr;
+        o[4 * d + 2 * r + 1] *= corr;
+      }
+    }
+    // acc += P (bf16, registers) . V (transposed from its [key][dim] tile)
+    uint32_t pa[NT / 2][4];
+#pragma unroll
+    for (int kc = 0; kc < NT / 2; ++kc) {
+      pa[kc][0] = pack_bf16(s[8 * kc + 0], s[8 * kc + 1]);
+      pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+      pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+      pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+    }
+    pin(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < NT / 2; ++kc)
+      wgmma_rs(o, pa[kc], sdesc<HD>(Vt + kc * 16 * AW, kBKTC * AW * 2,
+                                    C::kGroup));
+    wgmma_commit();
+    wgmma_wait();
+    pin(o);
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+  if (w0 >= Sq) return;
+  // stage the warp's 16 rows in its rows of the Q buffer, then 16-byte
+  // stores
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const float denom = fmaxf(lr, 1e-30f);
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      *reinterpret_cast<uint32_t*>(
+          Qs + soff<HD>(kBQTC, warp * 16 + g + 8 * r, d) + 2 * t4) =
+          pack_bf16(o[4 * d + 2 * r] / denom, o[4 * d + 2 * r + 1] / denom);
+  }
+  __syncwarp();
+  bf16* og = out + ((size_t)b * Sq + w0) * q_stride + (size_t)h * HD;
+#pragma unroll
+  for (int e = lane; e < 16 * DT; e += 32) {
+    const int r = e / DT, c = e % DT;
+    if (w0 + r < Sq)
+      *reinterpret_cast<uint4*>(og + r * q_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(
+              Qs + soff<HD>(kBQTC, warp * 16 + r, c));
+  }
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+              int Sq, int Sk, int Hq, int Hkv, int causal, int q_offset,
+              float scale, cudaStream_t stream) {
+  using C = TC<HD>;
+  static bool attr_set = false;  // above 48 KB only as opted-in dynamic smem
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fa_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)C::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const long long ctas =
+      (long long)((Sq + kBQTC - 1) / kBQTC) * Hq * (long long)B;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fa_wgmma_kernel<HD><<<(unsigned)ctas, kThreadsTC, C::kSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), B, Sq, Sk, Hq,
+      Hkv, causal, q_offset, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int Hq, int Hkv, int causal, int q_offset,
@@ -228,21 +648,40 @@ template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* out,
                 int B, int Sq, int Sk, int Hq, int Hkv, int hd, int causal,
                 int q_offset, float scale, cudaStream_t s) {
-  switch (hd) {
-    case 8:
-      return launch<T, 8>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, q_offset,
-                          scale, s);
-    case 16:
-      return launch<T, 16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
-                           q_offset, scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
-                           q_offset, scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    switch (hd) {  // the tensor cores; hd 8 is below the mma depth of 16
+      case 8:
+        return launch<T, 8>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
                             q_offset, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+      case 16:
+        return launch_tc<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                             q_offset, scale, s);
+      case 64:
+        return launch_tc<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                             q_offset, scale, s);
+      case 128:
+        return launch_tc<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                              q_offset, scale, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (hd) {
+      case 8:
+        return launch<T, 8>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                            q_offset, scale, s);
+      case 16:
+        return launch<T, 16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                             q_offset, scale, s);
+      case 64:
+        return launch<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                             q_offset, scale, s);
+      case 128:
+        return launch<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                              q_offset, scale, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -7,7 +7,9 @@ through :func:`decode_attention_local` with ``backend="torch"``. The query
 heads are grouped as (B, Hkv, n_rep, hd) against the (B, S, Hkv, hd) cache
 without repeating it, so a long cache never grows n_rep-fold. The
 sequence-sharded combine (``seq_sharded_decode_attention``) joins with the
-scale-out slice.
+scale-out slice; :func:`combine_decode_partials` is its merge, which the
+split decode kernel (``csrc/decode_attention.cu``) runs across the splits
+of one card.
 """
 from __future__ import annotations
 
@@ -57,3 +59,17 @@ def decode_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 < kv_valid_len[:, None])
     _, l, acc = _local_decode_partials(q, k, v, kv_len_mask=mask)
     return (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
+
+
+def combine_decode_partials(m: torch.Tensor, l: torch.Tensor,
+                            acc: torch.Tensor, dtype: torch.dtype
+                            ) -> torch.Tensor:
+    """The online-softmax merge of ``seq_sharded_decode_attention``'s
+    shards: m, l (N, B, Hq) and acc (N, B, Hq, hd) float32 partials of N
+    key ranges -> (B, Hq, hd) in ``dtype``. The max of the partial maxima,
+    then the partial sums and accumulators scaled by exp(m - max)."""
+    m_g = m.amax(dim=0)
+    corr = torch.exp(m - m_g)
+    l_g = (l * corr).sum(dim=0)
+    acc_g = (acc * corr[..., None]).sum(dim=0)
+    return (acc_g / torch.clamp(l_g[..., None], min=1e-30)).to(dtype)

@@ -13,13 +13,20 @@ tile: the wrapper refuses what the reference refuses (``S`` not a multiple
 of ``min(bs, S)``), and the result does not depend on it beyond float
 order.
 
+The kernel splits each row's keys across CTAs (:func:`split_plan`) and,
+with more than one split, merges the splits' float32 partials in a second
+small kernel; ``ref.decode_attention_split_ref`` is that computation in
+plain torch. A wrapper call counts one launch whatever the number of device
+kernels it runs.
+
 On a CPU tensor the wrapper runs ``ref.decode_attention_ref``; on a CUDA
 tensor it launches the kernel (counted in :data:`LAUNCHES`) or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,15 +37,35 @@ LAUNCHES = {"decode_attention": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 64, 128)          # the kernel's template widths
 BLOCK = 512                           # the reference's default bs
+TILE = 64                             # split granularity (the kernel kTile)
+SPLIT_MAX = 4096                      # keys one CTA walks at most
+CTAS_PER_SM = 2                       # the least a launch should offer
 
 
 def _entry():
     lib = build.load("decode_attention")
     fn = lib.ercache_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def split_plan(B: int, S: int, Hkv: int, n_sm: int) -> Tuple[int, int]:
+    """(n_split, split_len): each row's S keys cut into n_split splits of
+    split_len keys (whole TILEs, the last split not empty), at least
+    CTAS_PER_SM * n_sm CTAs over the B * Hkv (row, KV head) pairs where S
+    allows, and no split longer than SPLIT_MAX. S is the longest valid_len
+    the host knows without a sync."""
+    tiles = -(-S // TILE)
+    want = max(-(-CTAS_PER_SM * n_sm // (B * Hkv)), -(-S // SPLIT_MAX), 1)
+    per = max(1, tiles // want)            # tiles per split
+    return -(-tiles // per), per * TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_shapes(q, k, v, valid_len, bs: int) -> None:
@@ -92,9 +119,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    n_split, split_len = split_plan(B, S, Hkv, _sm_count(
+        q.device.index if q.device.index is not None
+        else torch.cuda.current_device()))
+    part = (torch.empty((B, Hq, n_split, hd + 2), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
     lib, fn = _entry()
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
-              out.data_ptr(), B, S, Hq, Hkv, hd, hd ** -0.5,
+              out.data_ptr(), None if part is None else part.data_ptr(), B,
+              S, Hq, Hkv, hd, n_split, split_len, hd ** -0.5,
               _DTYPE_CODES[q.dtype],
               torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "ercache_decode_attention_strerror", code,

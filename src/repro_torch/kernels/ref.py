@@ -12,6 +12,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.collectives import (_local_decode_partials,
+                                                 combine_decode_partials)
+
 _M32 = 0xFFFFFFFF
 NEG_INF = -1e30
 # float32 bytes of k and v that decode_attention_ref converts at once
@@ -159,3 +162,33 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = torch.where((valid[sl] > 0)[:, None, None, None], o, 0.0)
         out[sl] = o.reshape(-1, Hq, hd).to(q.dtype)
     return out
+
+
+def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor,
+                               valid_len: Optional[torch.Tensor], n_split: int,
+                               split_len: int) -> torch.Tensor:
+    """:func:`decode_attention_ref` computed as the split kernel does: the
+    S keys cut into ``n_split`` ranges of ``split_len``, float32 partials
+    (m, l, acc) per range, merged by ``combine_decode_partials``. A range
+    wholly at or past valid_len reads nothing and gives m = -1e30, l = 0,
+    acc = 0, so it drops out of the merge and a row with ``valid_len <= 0``
+    gives zeros (the JAX partials of such a range would carry l = its
+    length)."""
+    B, Hq, hd = q.shape
+    S = k.shape[1]
+    valid = (torch.full((B,), S, dtype=torch.long, device=q.device)
+             if valid_len is None else valid_len.to(q.device, torch.long))
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        lo, hi = i * split_len, min((i + 1) * split_len, S)
+        pos = torch.arange(lo, hi, device=q.device)
+        mask = pos[None, :] < valid[:, None]                  # (B, hi - lo)
+        m, l, acc = _local_decode_partials(q, k[:, lo:hi], v[:, lo:hi],
+                                           kv_len_mask=mask)
+        empty = (valid <= lo)[:, None]
+        ms.append(torch.where(empty, NEG_INF, m))
+        ls.append(torch.where(empty, 0.0, l))
+        accs.append(torch.where(empty[..., None], 0.0, acc))
+    return combine_decode_partials(torch.stack(ms), torch.stack(ls),
+                                   torch.stack(accs), q.dtype)

@@ -11,7 +11,12 @@ Phases, each fatal on failure:
    (B=512 queries on 2**20 x 8-way tables of D=50 float32; the SASRec
    item gather on the 1,000,000 x 50 table; the multi-model probe on the
    8-model pooled tier of phase 4, strict and relaxed policy tables) and
-   time both on the card.
+   time both on the card. The probes are also held at edge tables
+   (``PROBE_EDGES``: D=33, D=64, bfloat16 at D=50, Wd=32 beside Wf=1) and
+   the bag on views off 16-byte alignment, at D=33 and 64 and in
+   bfloat16; an empty launch (``torch.cuda._sleep(0)``) gives the launch
+   floor beside the kernels' times, and the bag is timed once more on an
+   L2-resident table.
 2. **serve**: the full-width SASRec tower (``get_config("sasrec")``) behind
    ``CachedEmbeddingServer`` with ``backend="cuda"``: a cold and a warm
    chunk of ``serve_many`` over a generated stream, then a read-back
@@ -331,6 +336,154 @@ def kernels_dual_multi(torch, results):
           f"{hf:.1f} failover hits per batch)")
 
 
+PROBE_EDGES = [  # (D, dtype, Wd, Wf): copy units of 4 and 16 bytes, the
+    # bfloat16 row of 4-byte units, a full warp of direct ways beside one
+    (33, "float32", 8, 8), (64, "float32", 8, 8), (50, "bfloat16", 8, 8),
+    (50, "float32", 32, 1)]
+
+
+def random_tier(torch, rng, nb, ways, dim, dtype, now, ttl, dev):
+    """A (nb, ways) table of random fresh, expired and empty slots, some
+    keys twice in one bucket, and its int32 key planes as numpy."""
+    import numpy as np
+
+    from repro_torch.core.cache import TS_EMPTY
+    from repro_torch.core.hashing import EMPTY_HI
+
+    key_hi = np.full((nb, ways), EMPTY_HI, np.int32)
+    key_lo = np.zeros((nb, ways), np.int32)
+    ts = np.full((nb, ways), TS_EMPTY, np.int32)
+    live = rng.uniform(size=(nb, ways)) < 0.6
+    key_hi[live] = rng.integers(0, 2 ** 31 - 1, int(live.sum()))
+    key_lo[live] = rng.integers(-2 ** 31, 2 ** 31 - 1, int(live.sum()))
+    ts[live] = now - rng.integers(0, 2 * ttl, int(live.sum()))
+    if ways > 1:
+        dup = rng.integers(0, nb, nb // 8)
+        key_hi[dup, 1], key_lo[dup, 1] = key_hi[dup, 0], key_lo[dup, 0]
+    values = torch.randn((nb, ways, dim), device=dev).to(getattr(torch,
+                                                                 dtype))
+    planes = tuple(torch.as_tensor(a, device=dev) for a in (key_hi, key_lo,
+                                                            ts))
+    return planes + (values,), (key_hi, key_lo)
+
+
+def kernels_probe_edges(torch):
+    """The three serve probes (dual, tiled, dual-multi with strict and
+    NO_TTL_MS failover columns) bit for bit against their plain versions
+    at PROBE_EDGES, B=512 and 37: a quarter of the queries probe a direct
+    slot's key at its bucket, a quarter a failover slot's, half random
+    keys."""
+    import numpy as np
+
+    from repro_torch.core.config import NO_TTL_MS
+    from repro_torch.core.hashing import EMPTY_HI
+    from repro_torch.kernels import cache_probe as pk
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    now = torch.tensor(10 * MIN, dtype=torch.int32, device=dev)
+    strict = torch.tensor([[MIN, 60 * MIN], [3 * MIN, 5 * MIN],
+                           [MIN // 2, 2 * MIN]], dtype=torch.int32,
+                          device=dev)
+    relaxed = strict.clone()
+    relaxed[:, 1] = NO_TTL_MS
+    nb_d, nb_f = 1 << 12, 1 << 10
+    for dim, dtype, wd, wf in PROBE_EDGES:
+        rng = np.random.default_rng(dim + wd)
+        d, (dhi, dlo) = random_tier(torch, rng, nb_d, wd, dim, dtype,
+                                    10 * MIN, MIN, dev)
+        f, (fhi, flo) = random_tier(torch, rng, nb_f, wf, dim, dtype,
+                                    10 * MIN, 60 * MIN, dev)
+        for b in (BATCH, 37):
+            q_hi = rng.integers(0, 2 ** 31 - 1, b).astype(np.int32)
+            q_lo = rng.integers(-2 ** 31, 2 ** 31 - 1, b).astype(np.int32)
+            bd = rng.integers(0, nb_d, b).astype(np.int32)
+            bf = rng.integers(0, nb_f, b).astype(np.int32)
+            n = b // 4
+            for sl, hi, lo, rows in ((slice(0, n), dhi, dlo, bd),
+                                     (slice(n, 2 * n), fhi, flo, bf)):
+                r, w = np.nonzero(hi != EMPTY_HI)         # stored slots
+                pick = rng.integers(0, len(r), n)
+                q_hi[sl], q_lo[sl] = hi[r[pick], w[pick]], lo[r[pick],
+                                                              w[pick]]
+                rows[sl] = r[pick]
+            q_hi, q_lo, bd, bf = (torch.as_tensor(a, device=dev)
+                                  for a in (q_hi, q_lo, bd, bf))
+            slots = torch.as_tensor(rng.integers(0, 3, b).astype(np.int32),
+                                    device=dev)
+            got = [pk.cache_probe_dual(*d, *f, q_hi, q_lo, bd, bf, now, MIN,
+                                       60 * MIN),
+                   (pk.cache_probe_tiled(*d, q_hi, q_lo, bd, now, MIN),),
+                   pk.cache_probe_dual_multi(*d, *f, q_hi, q_lo, slots, bd,
+                                             bf, strict, now),
+                   pk.cache_probe_dual_multi(*d, *f, q_hi, q_lo, slots, bd,
+                                             bf, relaxed, now)]
+            torch.cuda.synchronize()
+            want = [(ref.cache_probe_ref(*d, q_hi, q_lo, bd, now, MIN),
+                     ref.cache_probe_ref(*f, q_hi, q_lo, bf, now, 60 * MIN)),
+                    (ref.cache_probe_ref(*d, q_hi, q_lo, bd, now, MIN),)]
+            want += [ref.cache_probe_dual_multi_ref(
+                *d, *f, q_hi, q_lo, slots, bd, bf, t, now)
+                for t in (strict, relaxed)]
+            for entry, g_all, w_all in zip(("dual", "tiled", "dual-multi",
+                                            "dual-multi NO_TTL_MS"), got,
+                                           want):
+                for g_half, w_half in zip(g_all, w_all):
+                    for g, w in zip(g_half, w_half):
+                        if g.dtype != w.dtype or not torch.equal(g, w):
+                            raise AssertionError(
+                                f"cache_probe {entry} disagrees with its "
+                                f"plain version at D={dim} {dtype} Wd={wd} "
+                                f"Wf={wf} B={b}")
+            hits = [int(want[0][i][0].sum()) for i in (0, 1)]
+            if not all(0 < h < b for h in hits):
+                raise AssertionError(f"probe edge lacks hits or misses: "
+                                     f"direct/failover hits {hits} of {b}")
+    print("[kernels] dual, tiled and dual-multi (strict and NO_TTL_MS) "
+          "probes bit-exact vs plain at B=512/37 on edges " + ", ".join(
+              f"D={d} {t} Wd={wd} Wf={wf}" for d, t, wd, wf in PROBE_EDGES))
+
+
+def kernels_bag_edges(torch, table):
+    """The bag kernel against its plain version on a view of the serve
+    table offset by one row and one element (off 16-byte alignment), on
+    D=33 and D=64 tables and a bfloat16 table at D=50: nnz=1 bit for bit,
+    nnz=4 with -1 pads within atol=rtol=1e-6 (float32)."""
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.kernels import ref
+
+    dev = table.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flat = table.view(-1)
+    n = table.shape[0] - 1
+    views = {"one row off": table[1:],
+             "one element off": flat[1:1 + n * 50].view(n, 50),
+             "D=33": torch.randn(n, 33, generator=gen, device=dev),
+             "D=64": torch.randn(n, 64, generator=gen, device=dev),
+             "D=50 bfloat16": table[:n].to(torch.bfloat16)}
+    err = 0.0
+    for what, t in views.items():
+        ids1 = torch.randint(0, n, (19_200, 1), generator=gen, device=dev,
+                             dtype=torch.int32)
+        if not torch.equal(ebk.embedding_bag(t, ids1),
+                           ref.embedding_bag_ref(t, ids1)):
+            raise AssertionError(f"embedding_bag nnz=1 not exact, {what}")
+        ids4 = torch.randint(0, n, (19_200, 4), generator=gen, device=dev,
+                             dtype=torch.int32)
+        ids4[torch.rand(ids4.shape, generator=gen, device=dev) < 0.3] = -1
+        got, want = ebk.embedding_bag(t, ids4), ref.embedding_bag_ref(t, ids4)
+        if t.dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+            err = max(err, float((got - want).abs().max()))
+        else:   # one bfloat16 rounding of a float32 sum in another order
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                                       rtol=1e-2)
+    print(f"[kernels] embedding_bag edges: nnz=1 exact and nnz=4 within "
+          f"tolerance (float32 max |err| {err:.3g}) on "
+          + ", ".join(views))
+    return err
+
+
 def phase_kernels(torch, results):
     import numpy as np
 
@@ -416,6 +569,7 @@ def phase_kernels(torch, results):
                                      "plain version at Wd=8, Wf=4")
     print("[kernels] probes bit-exact vs plain at B=512/509/37/1, "
           "and at Wd=8 Wf=4 Nb_d=4096 Nb_f=1024")
+    kernels_probe_edges(torch)
 
     # -- timing at the serve shape, a fresh batch per launch
     def dual_fn(i):
@@ -487,6 +641,7 @@ def phase_kernels(torch, results):
     print(f"[kernels] embedding_bag exact at nnz=1 ({n_bags} and 25600 "
           f"bags), nnz=4 with -1 pads within atol=rtol=1e-6 "
           f"(max |err| {err:.3g})")
+    err = max(err, kernels_bag_edges(torch, table))
     bag_bytes = n_bags * (4 + 50 * 4 + 50 * 4)
     ids_long = [i.long() for i in bag_ids]
     results["embedding_bag"] = dict(
@@ -500,6 +655,18 @@ def phase_kernels(torch, results):
         bound_ms=bag_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=device_ms(lambda i: torch.nn.functional.embedding_bag(
             ids_long[i % 40], table, mode="sum")))
+    floor_us = device_ms(lambda i: torch.cuda._sleep(0)) * 1e3
+    print(f"[kernels] launch floor: {floor_us:.2f} us a launch of an empty "
+          f"kernel (torch.cuda._sleep(0)), timed as the kernels below")
+    # the same bags on a table that fits in L2: what is left is the launch
+    # and the dependent id -> row chain, not HBM bytes
+    small = table[:65_536].clone()
+    small_ids = [i % 65_536 for i in bag_ids]
+    small_us = device_ms(lambda i: ebk.embedding_bag(
+        small, small_ids[i % 40])) * 1e3
+    print(f"[kernels] embedding_bag on an L2-resident 65536 x 50 table "
+          f"(13.1 MB): {small_us:.2f} us")
+    del small, small_ids
     for r in results.values():
         print(f"[kernels] {r['name']}: {r['ms'] * 1e3:.2f} us on the card "
               f"(plain {r['plain_ms'] * 1e3:.2f} us, bound "

@@ -7,9 +7,10 @@
 //     _policy_ttls) -> ercache_probe_dual_multi
 //   * _cache_probe_perquery (entry cache_probe_perquery, the benchmark's
 //     one-query-per-grid-step baseline) -> ercache_probe_perquery
-// All entries share one probe body; the dual entries probe the direct and
-// the failover table for the same queries in ONE launch, as the serve step
-// requires (one probe launch per step).
+// The tiled, dual and dual-multi entries share one probe body
+// (probe_kernel); the dual entries probe the direct and the failover table
+// for the same queries in ONE launch, as the serve step requires (one probe
+// launch per step).
 //
 // Per-query entry: one CTA of one warp per query, as the TPU kernel's one
 // query per grid step, and no way output. Its value is the reference
@@ -50,20 +51,32 @@
 // table: ~1 KB a query for both tables at W=8, D=50 f32, ~0.5 MB at B=512
 // (the multi-model entry adds a 4-byte slot per query and the table).
 // That is well under a microsecond of HBM time, so a serve-size launch is
-// bound by launch latency. The design keeps it to one launch and one
-// dependent round trip per table: one warp per query, lanes on ways (the
-// three metadata words are coalesced 32-byte reads), then the warp copies
-// only the winning row (W x less value traffic than fetching the bucket).
-// Value rows are D*elem bytes (200 B at D=50 f32), so rows are at best
-// 8-byte aligned and are copied element by element, never as 16-byte
-// vectors. Values are copied as raw bits (uint32 / uint16), so the probe is
-// bit-exact for float32, bfloat16 and float16 tables alike.
+// bound by launch latency and by the chain of DEPENDENT HBM round trips
+// each warp waits on (each a full HBM latency). The design cuts that
+// chain to three, whatever the entry:
+//   1. every load that depends only on q at once: q_hi, q_lo, the clock,
+//      both buckets and, on the multi entry, the slot;
+//   2. both tables' metadata together, lane w on way w of the direct table
+//      (w < Wd) AND of the failover table (w < Wf), beside the TTL pair
+//      read at the slot; then the two ballots;
+//   3. both winning rows loaded before either is stored.
+// One warp per query, lanes on ways (the three metadata words are
+// coalesced 32-byte reads), and the warp fetches only the winning row (W x
+// less value traffic than fetching the bucket). Rows are copied as raw
+// bits in the widest unit (16, 8, 4 or 2 bytes) that divides the row's
+// D*elem bytes and the tables' and outputs' base addresses, chosen on the
+// host: 8 bytes at D=50 float32 (one pass over 25 lanes), 16 at D=64, 4 at
+// D=50 bfloat16, the element otherwise. The probe is therefore bit-exact
+// for float32, bfloat16 and float16 tables alike.
+//
+// The per-query entry keeps its own body (probe_one, one table, one query
+// per CTA): it is the shootout's baseline and mirrors the TPU's grid.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kWarpsPerBlock = 8;  // one query per warp
 constexpr unsigned kFullMask = 0xffffffffu;
 
 struct Table {
@@ -102,8 +115,8 @@ __device__ __forceinline__ uint16_t plus_zero(uint16_t x) {
   return x == (uint16_t)0x8000u ? (uint16_t)0u : x;
 }
 
-// kMaskedSum: the per-query contract (no way output; value + 0.0).
-template <typename T, bool kMaskedSum = false>
+// The per-query entry's body: one table, no way output, value + 0.0.
+template <typename T>
 __device__ __forceinline__ void probe_one(const Table& t, const Out& o, int q,
                                           int32_t q_hi, int32_t q_lo,
                                           int32_t now, int32_t ttl, int D,
@@ -121,7 +134,6 @@ __device__ __forceinline__ void probe_one(const Table& t, const Out& o, int q,
   const int32_t ts_hit = __shfl_sync(kFullMask, ts, way < 0 ? 0 : way);
   if (lane == 0) {
     o.hit[q] = mask != 0u;
-    if (!kMaskedSum) o.way[q] = way;
     o.age[q] = mask != 0u ? wrap_sub(now, ts_hit) : -1;
   }
   const T* src = static_cast<const T*>(t.values) +
@@ -129,30 +141,82 @@ __device__ __forceinline__ void probe_one(const Table& t, const Out& o, int q,
   T* dst = static_cast<T*>(o.value) + (size_t)q * D;
   for (int d = lane; d < D; d += 32) {
     const T x = mask != 0u ? src[d] : T(0);
-    dst[d] = kMaskedSum ? plus_zero(x) : x;
+    dst[d] = plus_zero(x);
   }
 }
 
-template <typename T>
+// The serve entries' body. kDual: probe the failover table too; kPolicy:
+// per-query TTLs from the multi-model policy table. U is the copy unit.
+template <typename U, bool kDual, bool kPolicy>
 __global__ void probe_kernel(Table direct, Out out_d, Table failover,
-                             Out out_f, bool dual, Policy pol,
-                             const int32_t* q_hi, const int32_t* q_lo,
-                             const int32_t* now_p, int B, int D) {
+                             Out out_f, Policy pol, const int32_t* q_hi,
+                             const int32_t* q_lo, const int32_t* now_p,
+                             int B, int row_units) {
   const int lane = threadIdx.x & 31;
   const int q = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (q >= B) return;  // warp-uniform: every lane of a warp shares q
+  // round trip 1: everything that depends only on q
   const int32_t now = *now_p;
   const int32_t hi = q_hi[q];
   const int32_t lo = q_lo[q];
+  const size_t row_d = (size_t)direct.bucket[q] * direct.ways;
+  const size_t row_f = kDual ? (size_t)failover.bucket[q] * failover.ways : 0;
+  const size_t slot = kPolicy ? 2 * (size_t)pol.slots[q] : 0;
+  // round trip 2: both tables' metadata and the TTL pair
   int32_t ttl_d = direct.ttl;
   int32_t ttl_f = failover.ttl;
-  if (pol.policy != nullptr) {
-    const size_t row = 2 * (size_t)pol.slots[q];
-    ttl_d = __ldg(pol.policy + row);
-    ttl_f = __ldg(pol.policy + row + 1);
+  if (kPolicy) {
+    ttl_d = __ldg(pol.policy + slot);
+    ttl_f = __ldg(pol.policy + slot + 1);
   }
-  probe_one<T>(direct, out_d, q, hi, lo, now, ttl_d, D, lane);
-  if (dual) probe_one<T>(failover, out_f, q, hi, lo, now, ttl_f, D, lane);
+  const bool on_d = lane < direct.ways;
+  const bool on_f = kDual && lane < failover.ways;
+  int32_t khi_d = 0, klo_d = 0, ts_d = 0, khi_f = 0, klo_f = 0, ts_f = 0;
+  if (on_d) {
+    khi_d = direct.key_hi[row_d + lane];
+    klo_d = direct.key_lo[row_d + lane];
+    ts_d = direct.write_ts[row_d + lane];
+  }
+  if (on_f) {
+    khi_f = failover.key_hi[row_f + lane];
+    klo_f = failover.key_lo[row_f + lane];
+    ts_f = failover.write_ts[row_f + lane];
+  }
+  const unsigned m_d = __ballot_sync(
+      kFullMask, on_d && khi_d == hi && klo_d == lo &&
+                     wrap_sub(now, ts_d) <= ttl_d);
+  const unsigned m_f =
+      kDual ? __ballot_sync(kFullMask, on_f && khi_f == hi && klo_f == lo &&
+                                           wrap_sub(now, ts_f) <= ttl_f)
+            : 0u;
+  const int way_d = __ffs(m_d) - 1;  // -1 when no way is valid
+  const int way_f = __ffs(m_f) - 1;
+  const int32_t hit_ts_d = __shfl_sync(kFullMask, ts_d, way_d < 0 ? 0 : way_d);
+  const int32_t hit_ts_f = __shfl_sync(kFullMask, ts_f, way_f < 0 ? 0 : way_f);
+  if (lane == 0) {
+    out_d.hit[q] = m_d != 0u;
+    out_d.way[q] = way_d;
+    out_d.age[q] = m_d != 0u ? wrap_sub(now, hit_ts_d) : -1;
+  }
+  if (kDual && lane == 1) {
+    out_f.hit[q] = m_f != 0u;
+    out_f.way[q] = way_f;
+    out_f.age[q] = m_f != 0u ? wrap_sub(now, hit_ts_f) : -1;
+  }
+  // round trip 3: both winning rows (zeros on a miss), loaded then stored
+  const U* src_d = static_cast<const U*>(direct.values) +
+                   (row_d + (way_d < 0 ? 0 : way_d)) * (size_t)row_units;
+  const U* src_f = static_cast<const U*>(failover.values) +
+                   (row_f + (way_f < 0 ? 0 : way_f)) * (size_t)row_units;
+  U* dst_d = static_cast<U*>(out_d.value) + (size_t)q * row_units;
+  U* dst_f = static_cast<U*>(out_f.value) + (size_t)q * row_units;
+  for (int i = lane; i < row_units; i += 32) {
+    const U x_d = m_d != 0u ? src_d[i] : U{};
+    U x_f{};
+    if (kDual && m_f != 0u) x_f = src_f[i];
+    dst_d[i] = x_d;
+    if (kDual) dst_f[i] = x_f;
+  }
 }
 
 template <typename T>
@@ -160,29 +224,55 @@ __global__ void perquery_kernel(Table t, Out o, const int32_t* q_hi,
                                 const int32_t* q_lo, const int32_t* now_p,
                                 int D) {
   const int q = blockIdx.x;
-  probe_one<T, true>(t, o, q, q_hi[q], q_lo[q], *now_p, t.ttl, D,
-                     threadIdx.x);
+  probe_one<T>(t, o, q, q_hi[q], q_lo[q], *now_p, t.ttl, D, threadIdx.x);
 }
 
-int launch(const Table& direct, const Out& out_d, const Table& failover,
-           const Out& out_f, bool dual, const Policy& pol,
-           const int32_t* q_hi, const int32_t* q_lo, const int32_t* now,
-           int B, int D, int elem_bytes, cudaStream_t stream) {
-  const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(32 * kWarpsPerBlock);
-  switch (elem_bytes) {
-    case 4:
-      probe_kernel<uint32_t><<<grid, block, 0, stream>>>(
-          direct, out_d, failover, out_f, dual, pol, q_hi, q_lo, now, B, D);
-      break;
-    case 2:
-      probe_kernel<uint16_t><<<grid, block, 0, stream>>>(
-          direct, out_d, failover, out_f, dual, pol, q_hi, q_lo, now, B, D);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+template <typename U, bool kDual, bool kPolicy>
+int launch_unit(const Table& direct, const Out& out_d, const Table& failover,
+                const Out& out_f, const Policy& pol, const int32_t* q_hi,
+                const int32_t* q_lo, const int32_t* now, int B,
+                int row_units, cudaStream_t stream) {
+  probe_kernel<U, kDual, kPolicy>
+      <<<(B + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0,
+         stream>>>(direct, out_d, failover, out_f, pol, q_hi, q_lo, now, B,
+                   row_units);
   return (int)cudaGetLastError();
+}
+
+template <bool kDual, bool kPolicy>
+int launch(const Table& direct, const Out& out_d, const Table& failover,
+           const Out& out_f, const Policy& pol, const int32_t* q_hi,
+           const int32_t* q_lo, const int32_t* now, int B, int D,
+           int elem_bytes, cudaStream_t stream) {
+  if (elem_bytes != 4 && elem_bytes != 2) return (int)cudaErrorInvalidValue;
+  // the widest unit dividing the row and every base address it copies from
+  // or to (torch allocations are 256-byte aligned; a view may not be)
+  const size_t row_bytes = (size_t)D * elem_bytes;
+  uintptr_t align = row_bytes | (uintptr_t)direct.values |
+                    (uintptr_t)out_d.value;
+  if (kDual) align |= (uintptr_t)failover.values | (uintptr_t)out_f.value;
+  int unit = 16;
+  while (align % unit) unit /= 2;
+  const int units = (int)(row_bytes / unit);
+  switch (unit) {
+    case 16:
+      return launch_unit<uint4, kDual, kPolicy>(direct, out_d, failover, out_f,
+                                                pol, q_hi, q_lo, now, B, units,
+                                                stream);
+    case 8:
+      return launch_unit<uint2, kDual, kPolicy>(direct, out_d, failover, out_f,
+                                                pol, q_hi, q_lo, now, B, units,
+                                                stream);
+    case 4:
+      return launch_unit<uint32_t, kDual, kPolicy>(direct, out_d, failover,
+                                                   out_f, pol, q_hi, q_lo, now,
+                                                   B, units, stream);
+    case 2:
+      return launch_unit<uint16_t, kDual, kPolicy>(direct, out_d, failover,
+                                                   out_f, pol, q_hi, q_lo, now,
+                                                   B, units, stream);
+  }
+  return (int)cudaErrorMisalignedAddress;
 }
 
 }  // namespace
@@ -197,8 +287,9 @@ int ercache_probe_tiled(const int32_t* key_hi, const int32_t* key_lo,
                         int32_t* age, int32_t* way, void* stream) {
   const Table t{key_hi, key_lo, write_ts, values, bucket, ttl, ways};
   const Out o{hit, out, age, way};
-  return launch(t, o, t, o, false, Policy{nullptr, nullptr}, q_hi, q_lo, now,
-                B, D, elem_bytes, static_cast<cudaStream_t>(stream));
+  return launch<false, false>(t, o, t, o, Policy{nullptr, nullptr}, q_hi,
+                              q_lo, now, B, D, elem_bytes,
+                              static_cast<cudaStream_t>(stream));
 }
 
 int ercache_probe_dual(const int32_t* d_key_hi, const int32_t* d_key_lo,
@@ -218,8 +309,9 @@ int ercache_probe_dual(const int32_t* d_key_hi, const int32_t* d_key_lo,
                 f_ways};
   const Out od{d_hit, d_out, d_age, d_way};
   const Out of{f_hit, f_out, f_age, f_way};
-  return launch(d, od, f, of, true, Policy{nullptr, nullptr}, q_hi, q_lo, now,
-                B, D, elem_bytes, static_cast<cudaStream_t>(stream));
+  return launch<true, false>(d, od, f, of, Policy{nullptr, nullptr}, q_hi,
+                             q_lo, now, B, D, elem_bytes,
+                             static_cast<cudaStream_t>(stream));
 }
 
 int ercache_probe_dual_multi(
@@ -238,8 +330,9 @@ int ercache_probe_dual_multi(
                 f_ways};
   const Out od{d_hit, d_out, d_age, d_way};
   const Out of{f_hit, f_out, f_age, f_way};
-  return launch(d, od, f, of, true, Policy{slots, policy}, q_hi, q_lo, now, B,
-                D, elem_bytes, static_cast<cudaStream_t>(stream));
+  return launch<true, true>(d, od, f, of, Policy{slots, policy}, q_hi, q_lo,
+                            now, B, D, elem_bytes,
+                            static_cast<cudaStream_t>(stream));
 }
 
 int ercache_probe_perquery(const int32_t* key_hi, const int32_t* key_lo,

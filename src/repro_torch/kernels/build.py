@@ -11,6 +11,7 @@ Failures raise: there is no fallback to a plain version on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -82,6 +83,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _LIBS[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA ``device``, read from its properties once per
+    process: the kernels size their grids from it."""
+    import torch
+
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None
+                     else index)
 
 
 def check(lib: ctypes.CDLL, strerror: str, code: int, what: str) -> None:

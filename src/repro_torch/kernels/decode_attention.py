@@ -25,7 +25,6 @@ tensor it launches the kernel (counted in :data:`LAUNCHES`) or raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -61,11 +60,6 @@ def split_plan(B: int, S: int, Hkv: int, n_sm: int) -> Tuple[int, int]:
     want = max(-(-CTAS_PER_SM * n_sm // (B * Hkv)), -(-S // SPLIT_MAX), 1)
     per = max(1, tiles // want)            # tiles per split
     return -(-tiles // per), per * TILE
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_shapes(q, k, v, valid_len, bs: int) -> None:
@@ -119,9 +113,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    n_split, split_len = split_plan(B, S, Hkv, _sm_count(
-        q.device.index if q.device.index is not None
-        else torch.cuda.current_device()))
+    n_split, split_len = split_plan(B, S, Hkv, build.sm_count(q.device))
     part = (torch.empty((B, Hq, n_split, hd + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else None)
     lib, fn = _entry()

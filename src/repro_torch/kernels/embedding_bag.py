@@ -1,11 +1,13 @@
 """EmbeddingBag gather-reduce, the recsys towers' hot path, as a CUDA kernel.
 
 Twin of ``repro/kernels/embedding_bag.py`` (source
-``csrc/embedding_bag.cu``). One warp per bag, lanes over D, the ids walked
-in order with a float32 accumulator and one cast at the end: for nnz = 1
-(SASRec's item gather) the result is exact. On a CPU tensor the wrapper
-runs ``ref.embedding_bag_ref``; on a CUDA tensor it launches the kernel
-(counted in :data:`LAUNCHES`) or raises.
+``csrc/embedding_bag.cu``). Lanes cover (bag, vector slice) items, each
+lane loading the ids and then the rows of several items before it adds;
+the grid is one wave of resident blocks, sized from the SM count. Each
+item's ids are walked in order with a float32 accumulator and one cast at
+the end: for nnz = 1 (SASRec's item gather) the result is exact. On a CPU
+tensor the wrapper runs ``ref.embedding_bag_ref``; on a CUDA tensor it
+launches the kernel (counted in :data:`LAUNCHES`) or raises.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ def _entry():
     fn = lib.ercache_embedding_bag
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -49,11 +51,12 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     B, nnz = ids.shape
     D = table.shape[1]
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
-    if B == 0:
+    if B == 0 or D == 0:
         return out
     lib, fn = _entry()
     code = fn(table.data_ptr(), ids.data_ptr(), B, nnz, D,
               int(mode == "mean"), _DTYPE_CODES[table.dtype], out.data_ptr(),
+              build.sm_count(table.device),
               torch.cuda.current_stream(table.device).cuda_stream)
     build.check(lib, "ercache_embedding_bag_strerror", code, "embedding_bag")
     LAUNCHES["embedding_bag"] += 1

@@ -303,7 +303,8 @@ def decode_step(params: LMTower, cache: KVCache, tokens: torch.Tensor,
             kc[rows, at] = torch.where(keep, k.to(kc.dtype), kc[rows, at])
             vc[rows, at] = torch.where(keep, v.to(vc.dtype), vc[rows, at])
             if backend == "cuda":
-                o = decode_attention(q, kc, vc, valid)
+                # one block of S: the reference's decode path takes any S
+                o = decode_attention(q, kc, vc, valid, bs=S)
             else:
                 o = decode_attention_local(q, kc, vc, kv_valid_len=valid)
             x = x + o.reshape(B, Hq * hd) @ layer.wo

@@ -42,8 +42,9 @@ def probe_population(rng, nb, ways, dim, batch, now, ttl, dtype, device):
     key_hi[live] = rng.integers(0, 2 ** 31 - 1, live.sum())
     key_lo[live] = rng.integers(-2 ** 31, 2 ** 31 - 1, live.sum())
     ts[live] = now - rng.integers(0, 2 * ttl, live.sum())
-    dup = rng.integers(0, nb, nb // 8)            # same key in two ways
-    key_hi[dup, 1], key_lo[dup, 1] = key_hi[dup, 0], key_lo[dup, 0]
+    if ways > 1:
+        dup = rng.integers(0, nb, nb // 8)        # same key in two ways
+        key_hi[dup, 1], key_lo[dup, 1] = key_hi[dup, 0], key_lo[dup, 0]
     values = rng.standard_normal((nb, ways, dim)).astype(np.float32)
     rows = rng.integers(0, nb, batch)
     cols = rng.integers(0, ways, batch)
@@ -63,12 +64,17 @@ def assert_same(got, want):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("batch", [1, 37, 512])
+PROBE_DIMS = [1, 33, 50, 64]       # copy units of 4, 4, 8, 16 bytes (f32)
+PROBE_BATCHES = [1, 37, 509, 512]
+
+
+@pytest.mark.parametrize("batch", PROBE_BATCHES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_probe_tiled_matches_plain(cuda, batch, dtype):
-    rng = np.random.default_rng(batch)
+@pytest.mark.parametrize("dim", PROBE_DIMS)
+def test_probe_tiled_matches_plain(cuda, batch, dtype, dim):
+    rng = np.random.default_rng(batch + dim)
     now, ttl = 10 * MIN, MIN
-    tables, queries = probe_population(rng, 256, 8, 50, batch, now, ttl,
+    tables, queries = probe_population(rng, 256, 8, dim, batch, now, ttl,
                                        dtype, cuda)
     n0 = pk.LAUNCHES["tiled"]
     got = pk.cache_probe_tiled(*tables, *queries, now, ttl)
@@ -81,15 +87,20 @@ def test_probe_tiled_matches_plain(cuda, batch, dtype):
 
 
 @pytest.mark.parametrize("wd,wf,nbd,nbf", [(8, 8, 256, 256), (8, 4, 256, 64),
-                                           (2, 32, 16, 128)])
-def test_probe_dual_matches_two_plain(cuda, wd, wf, nbd, nbf):
-    rng = np.random.default_rng(wd * wf)
+                                           (2, 32, 16, 128),
+                                           (32, 1, 64, 256)])
+@pytest.mark.parametrize("batch", PROBE_BATCHES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", PROBE_DIMS)
+def test_probe_dual_matches_two_plain(cuda, wd, wf, nbd, nbf, batch, dtype,
+                                      dim):
+    rng = np.random.default_rng(wd * wf + batch + dim)
     now = 10 * MIN
     d_tab, (q_hi, q_lo, b_d) = probe_population(
-        rng, nbd, wd, 50, 300, now, MIN, torch.float32, cuda)
-    f_tab, _ = probe_population(rng, nbf, wf, 50, 300, now, 60 * MIN,
-                                torch.float32, cuda)
-    b_f = torch.as_tensor(rng.integers(0, nbf, 300).astype(np.int32),
+        rng, nbd, wd, dim, batch, now, MIN, dtype, cuda)
+    f_tab, _ = probe_population(rng, nbf, wf, dim, batch, now, 60 * MIN,
+                                dtype, cuda)
+    b_f = torch.as_tensor(rng.integers(0, nbf, batch).astype(np.int32),
                           device=cuda)
     n0 = pk.LAUNCHES["dual"]
     got_d, got_f = pk.cache_probe_dual(*d_tab, *f_tab, q_hi, q_lo, b_d, b_f,
@@ -112,28 +123,59 @@ def test_probe_rejects_cpu_tables_with_cuda_queries(cuda):
         pk.cache_probe_tiled(*(t.cpu() for t in tables), *queries, MIN, MIN)
 
 
+def assert_bag_close(got, want, nnz):
+    """nnz = 1 bit for bit; more rows: float32 sums in another order than
+    the plain version's, a few ulps."""
+    if nnz == 1:
+        assert torch.equal(got, want)
+        return
+    tol = 1e-6 if got.dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("nnz,pad", [(1, 0.0), (4, 0.3), (7, 1.0)])
 @pytest.mark.parametrize("mode", ["sum", "mean"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_embedding_bag_matches_plain(cuda, nnz, pad, mode, dtype):
-    rng = np.random.default_rng(nnz)
-    table = torch.as_tensor(rng.standard_normal((5000, 50)),
+@pytest.mark.parametrize("dim", [1, 33, 50, 64, 128])
+@pytest.mark.parametrize("batch", [1, 7, 19_200, 25_601])
+def test_embedding_bag_matches_plain(cuda, nnz, pad, mode, dtype, dim,
+                                     batch):
+    """Every copy unit (4, 8, 16 bytes and the bfloat16 element), -1 pads,
+    all-padding bags (pad 1.0), and batches below one warp's items up to
+    more than one wave of them (the kernel strides)."""
+    rng = np.random.default_rng(nnz + dim + batch)
+    table = torch.as_tensor(rng.standard_normal((5000, dim)),
                             device=cuda).to(dtype)
-    ids = rng.integers(0, 5000, (999, nnz)).astype(np.int32)
+    ids = rng.integers(0, 5000, (batch, nnz)).astype(np.int32)
     ids[rng.uniform(size=ids.shape) < pad] = -1
     ids = torch.as_tensor(ids, device=cuda)
     n0 = ebk.LAUNCHES["embedding_bag"]
     got = ebk.embedding_bag(table, ids, mode=mode)
     torch.cuda.synchronize()
     assert ebk.LAUNCHES["embedding_bag"] == n0 + 1
-    want = ref.embedding_bag_ref(table, ids, mode=mode)
-    if nnz == 1:
-        assert torch.equal(got, want)
-    else:
-        # float32 sums of nnz rows in another order: a few ulps
-        tol = 1e-6 if dtype == torch.float32 else 1e-2
-        torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                   rtol=tol)
+    assert_bag_close(got, ref.embedding_bag_ref(table, ids, mode=mode), nnz)
+
+
+@pytest.mark.parametrize("offset", ["row", "element"])
+@pytest.mark.parametrize("nnz", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [33, 50, 64, 128])
+def test_embedding_bag_misaligned_table_matches_plain(cuda, offset, nnz,
+                                                      dtype, dim):
+    """A table view whose base is offset by one row (off a 16-byte boundary
+    unless the row is a multiple of 16 bytes) or by one element (off it
+    always): the kernel copies in a narrower unit, as exact as aligned."""
+    rng = np.random.default_rng(dim + nnz)
+    flat = torch.as_tensor(rng.standard_normal(5001 * dim),
+                           device=cuda).to(dtype)
+    start = dim if offset == "row" else 1
+    table = flat[start:start + 5000 * dim].view(5000, dim)
+    assert table.is_contiguous()
+    ids = rng.integers(-1, 5000, (999, nnz)).astype(np.int32)
+    ids = torch.as_tensor(ids, device=cuda)
+    got = ebk.embedding_bag(table, ids)
+    torch.cuda.synchronize()
+    assert_bag_close(got, ref.embedding_bag_ref(table, ids), nnz)
 
 
 @pytest.mark.parametrize("coalesce,budget,eviction", [(False, None, "ttl"),
@@ -248,6 +290,39 @@ def test_probe_dual_multi_matches_plain(cuda, batch, fo_ways):
             assert_same(g, w)
 
 
+@pytest.mark.parametrize("wd,wf", [(8, 4), (32, 1)])
+@pytest.mark.parametrize("batch", PROBE_BATCHES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", PROBE_DIMS)
+def test_probe_dual_multi_edges_match_plain(cuda, wd, wf, batch, dtype, dim):
+    """The multi-model kernel at every copy unit and both way layouts, on
+    pooled tables of 3 models with their own TTLs (strict, then the
+    NO_TTL_MS failover column), bit for bit."""
+    rng = np.random.default_rng(wd + batch + dim)
+    now = 10 * MIN
+    d_tab, (q_hi, q_lo, b_d) = probe_population(
+        rng, 96, wd, dim, batch, now, MIN, dtype, cuda)
+    f_tab, _ = probe_population(rng, 48, wf, dim, batch, now, 60 * MIN,
+                                dtype, cuda)
+    b_f = torch.as_tensor(rng.integers(0, 48, batch).astype(np.int32),
+                          device=cuda)
+    slots = torch.as_tensor(rng.integers(0, 3, batch).astype(np.int32),
+                            device=cuda)
+    strict = torch.tensor([[MIN, 60 * MIN], [3 * MIN, 5 * MIN],
+                           [MIN // 2, 2 * MIN]], dtype=torch.int32,
+                          device=cuda)
+    relaxed = strict.clone()
+    relaxed[:, 1] = NO_TTL_MS
+    for table in (strict, relaxed):
+        got = pk.cache_probe_dual_multi(*d_tab, *f_tab, q_hi, q_lo, slots,
+                                        b_d, b_f, table, now)
+        torch.cuda.synchronize()
+        want = ref.cache_probe_dual_multi_ref(*d_tab, *f_tab, q_hi, q_lo,
+                                              slots, b_d, b_f, table, now)
+        for g, w in zip(got, want):
+            assert_same(g, w)
+
+
 def test_lookup_dual_multi_is_one_launch(cuda):
     from repro_torch.core.hashing import Key64
     from repro_torch.kernels import ops
@@ -348,6 +423,7 @@ FLASH_EDGES = [  # (B, Sq, Sk, Hq, Hkv, hd, causal, q_offset, dtype)
     (2, 100, 100, 4, 1, 128, True, 0, torch.bfloat16),
     (1, 1152, 1152, 8, 2, 128, True, 0, torch.bfloat16),
     (2, 128, 384, 8, 2, 128, True, 256, torch.bfloat16),
+    (2, 256, 256, 8, 2, 64, False, 0, torch.bfloat16),
 ]
 
 
@@ -521,12 +597,11 @@ def test_decode_attention_refuses_what_the_kernel_does_not_take(cuda):
     assert dk.LAUNCHES["decode_attention"] == n0
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_lm_decode_cuda_backend_matches_torch_backend(cuda, dtype):
-    """The SMOKE TinyLlama prefill -> 4 decode steps on the card: the cuda
-    backend (the decode kernel, one launch per layer and step) against the
-    torch backend from a copy of the same cache; a CPU tensor with
-    backend="cuda" raises."""
+def _decode_cuda_vs_torch(cuda, dtype, prompt, max_seq):
+    """The SMOKE TinyLlama prefill of ``prompt`` tokens into a ``max_seq``
+    cache, then 4 decode steps with the cuda backend (the decode kernel,
+    one launch per layer and step) against the torch backend from a copy
+    of the same cache; returns the model, config, cache and next tokens."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -537,9 +612,9 @@ def test_lm_decode_cuda_backend_matches_torch_backend(cuda, dtype):
                               dtype=dtype)
     model = T.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
                           cuda)
-    tokens = torch.randint(0, cfg.vocab, (3, 40), dtype=torch.int32,
+    tokens = torch.randint(0, cfg.vocab, (3, prompt), dtype=torch.int32,
                            device=cuda)
-    _, cache = T.prefill_step(model, tokens, cfg, max_seq=48)
+    _, cache = T.prefill_step(model, tokens, cfg, max_seq=max_seq)
     plain = T.KVCache(cache.k.clone(), cache.v.clone(), cache.length.clone())
     nxt = tokens[:, 0]
     tol = 1e-4 if dtype == "float32" else 5e-2
@@ -554,8 +629,27 @@ def test_lm_decode_cuda_backend_matches_torch_backend(cuda, dtype):
         torch.testing.assert_close(cache.k.float(), plain.k.float(),
                                    atol=tol, rtol=tol)
         nxt = want.argmax(-1).to(torch.int32)
-    assert cache.length.tolist() == [44] * 3
+    assert cache.length.tolist() == [prompt + 4] * 3
+    return model, cfg, cache, nxt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_decode_cuda_backend_matches_torch_backend(cuda, dtype):
+    """The SMOKE TinyLlama prefill -> 4 decode steps on the card: the cuda
+    backend against the torch backend; a CPU tensor with backend="cuda"
+    raises."""
+    from repro_torch.models import transformer as T
+
+    model, cfg, cache, nxt = _decode_cuda_vs_torch(cuda, dtype, 40, 48)
     with pytest.raises(ValueError):
         T.decode_step(model, T.KVCache(cache.k.cpu(), cache.v.cpu(),
                                        cache.length.cpu()), nxt.cpu(), cfg,
                       backend="cuda")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_decode_cuda_backend_takes_any_cache_length(cuda, dtype):
+    """A 600-position cache, above the kernel wrapper's default block of
+    512 and not a multiple of it: ``decode_step`` passes one block of S, as
+    the reference's decode path takes any S."""
+    _decode_cuda_vs_torch(cuda, dtype, 590, 600)

@@ -153,6 +153,23 @@ def test_decode_attention_refuses_what_reference_refuses(s, bs, hq, rng):
                              torch.as_tensor(k), bs=bs)
 
 
+def test_decode_step_block_takes_any_cache_length(rng):
+    """``decode_step`` calls the kernel with one block of S (``bs=S``): at
+    S=600, which the default bs=512 refuses, the wrapper (its plain version
+    on CPU tensors) returns what the reference's decode path attends with,
+    ``decode_attention_local``."""
+    B, S, Hq, Hkv, hd = 3, 600, 8, 2, 16
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    vl = np.array([1, 513, 600], np.int32)
+    t = [torch.as_tensor(a) for a in (q, k, v, vl)]
+    with pytest.raises(ValueError):
+        TDA.decode_attention(*t)
+    want = JCOL.decode_attention_local(*map(jnp.asarray, (q, k, v)),
+                                       kv_valid_len=jnp.asarray(vl))
+    assert_float(TDA.decode_attention(*t, bs=S), want, atol=ATOL, rtol=0)
+
+
 # ------------------------------------------------------- per-query probe
 def _tier(rng, nb, ways, dim, batch, now, ttl):
     """Tables with fresh, expired and empty slots, a -0.0 value column,

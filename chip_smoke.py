@@ -11,8 +11,9 @@ Phases, each fatal on failure:
    (B=512 queries on 2**20 x 8-way tables of D=50 float32; the SASRec
    item gather on the 1,000,000 x 50 table; the multi-model probe on the
    8-model pooled tier of phase 4, strict and relaxed policy tables) and
-   time both on the card. The probes are also held at edge tables
-   (``PROBE_EDGES``: D=33, D=64, bfloat16 at D=50, Wd=32 beside Wf=1) and
+   time both on the card. The probes (per-query included) are also held
+   at edge tables (``PROBE_EDGES``: D=33, D=64, bfloat16 at D=50, Wd=32
+   beside Wf=1, two adjacent -0.0 columns in the direct tier) and
    the bag on views off 16-byte alignment, at D=33 and 64 and in
    bfloat16; an empty launch (``torch.cuda._sleep(0)``) gives the launch
    floor beside the kernels' times, and the bag is timed once more on an
@@ -64,6 +65,24 @@ Phases, each fatal on failure:
    within relative L2 1e-4; the first step's logits of 8 rows must match
    ``forward_hidden`` over prompt + token within relative L2 0.02; one
    more decode step is profiled.
+9. **overload**: ``launch.serve.overload_timeline`` (the overload arm of
+   the launcher) on the same full-width SASRec tower with 2**20 x 8 tiers
+   of D=50 float32, B=512, over phase 2's stream (20,000 users, 10
+   minutes: 119 steps, 47 pre, 24 outage, 48 post), the inference budget
+   at 0.5 of the stream's miss demand during the outage, a flash crowd,
+   failures at 0.02 with a 0.2 burst in the outage window (Table 3's
+   range). Asserts one dual-probe launch per step, bag launches, deferred
+   misses and relaxed failover serves (nonzero staleness) in the outage
+   with a fallback rate below the one without failover, none deferred
+   before or after, and a ``backend="torch"`` replay bit-identical in
+   every per-phase counter, every plane of both tiers and the budget
+   tokens. A cuda replay of the same plan (set up before the profiler
+   starts, its pre counters checked equal to the run's) then profiles
+   the last warm chunk of pre and the first chunk of the outage, each
+   continuing the replay's state.
+10. **overload and quickstart entry points**:
+    ``launch.serve.run_serving_overload`` and
+    ``repro_torch.examples.quickstart.main`` as a user calls them.
 
 Phase 1 also holds ``flash_attention`` against its plain version at the
 LM path's shapes (q (48, 2048, 32, 64), k/v (48, 2048, 4, 64), bf16,
@@ -80,7 +99,10 @@ runs the
 probe shootout of ``benchmarks/bench_kernel_probe.py`` (2**12 x 8 x 64
 tier, B=4096, ~60% hits): ``cache_probe_perquery`` against its plain
 version bit for bit (a -0.0 column read back +0.0) and against the tiled
-probe, then perquery, tiled and dual timed side by side.
+probe, then perquery, tiled and dual timed side by side. The per-query
+probe runs the tiled probe's body (a warp per query, eight a CTA, each
+copied element passed through +0.0), so ``tiled_vs_perquery_speedup``
+compares two TPU schedules that are one schedule on this card.
 
 Each kernel's ``launches`` in the ``kernels`` line counts the run of its
 own path: the single-model serve (phase 2) for the dual and one-table
@@ -88,7 +110,7 @@ probes and the bag, the multi-model serve (phase 4) for the multi-model
 probe, the LM serve (phase 6, its cuda run) for ``flash_attention``, the
 probe shootout for ``cache_probe_perquery`` and the decode steps (phase 8,
 the cuda run) for ``decode_attention``; the counts are reset just before
-each path and read just after.
+each path and read just after. Phases 9 and 10 check their own counts.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and ends
 with ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -369,10 +391,12 @@ def random_tier(torch, rng, nb, ways, dim, dtype, now, ttl, dev):
 
 def kernels_probe_edges(torch):
     """The three serve probes (dual, tiled, dual-multi with strict and
-    NO_TTL_MS failover columns) bit for bit against their plain versions
-    at PROBE_EDGES, B=512 and 37: a quarter of the queries probe a direct
-    slot's key at its bucket, a quarter a failover slot's, half random
-    keys."""
+    NO_TTL_MS failover columns) and the per-query probe bit for bit
+    against their plain versions at PROBE_EDGES, B=512 and 37: a quarter
+    of the queries probe a direct slot's key at its bucket, a quarter a
+    failover slot's, half random keys. The direct tier holds two adjacent
+    -0.0 columns (both halves of a packed bfloat16 unit), which the
+    per-query probe must read back +0.0."""
     import numpy as np
 
     from repro_torch.core.config import NO_TTL_MS
@@ -394,6 +418,8 @@ def kernels_probe_edges(torch):
                                     10 * MIN, MIN, dev)
         f, (fhi, flo) = random_tier(torch, rng, nb_f, wf, dim, dtype,
                                     10 * MIN, 60 * MIN, dev)
+        d[3][..., 6:8] = -0.0
+        bits = torch.int32 if dtype == "float32" else torch.int16
         for b in (BATCH, 37):
             q_hi = rng.integers(0, 2 ** 31 - 1, b).astype(np.int32)
             q_lo = rng.integers(-2 ** 31, 2 ** 31 - 1, b).astype(np.int32)
@@ -435,12 +461,22 @@ def kernels_probe_edges(torch):
                                 f"cache_probe {entry} disagrees with its "
                                 f"plain version at D={dim} {dtype} Wd={wd} "
                                 f"Wf={wf} B={b}")
+            g = pk.cache_probe_perquery(*d, q_hi, q_lo, bd, now, MIN)
+            w = ref.cache_probe_perquery_ref(*d, q_hi, q_lo, bd, now, MIN)
+            torch.cuda.synchronize()
+            if not (torch.equal(g[0], w[0]) and torch.equal(g[2], w[2])
+                    and torch.equal(g[1].view(bits), w[1].view(bits))
+                    and not bool(torch.signbit(g[1][:, 6:8]).any())):
+                raise AssertionError(
+                    f"cache_probe_perquery disagrees with its plain version "
+                    f"at D={dim} {dtype} W={wd} B={b}")
             hits = [int(want[0][i][0].sum()) for i in (0, 1)]
             if not all(0 < h < b for h in hits):
                 raise AssertionError(f"probe edge lacks hits or misses: "
                                      f"direct/failover hits {hits} of {b}")
-    print("[kernels] dual, tiled and dual-multi (strict and NO_TTL_MS) "
-          "probes bit-exact vs plain at B=512/37 on edges " + ", ".join(
+    print("[kernels] dual, tiled, dual-multi (strict and NO_TTL_MS) and "
+          "per-query probes bit-exact vs plain at B=512/37 (per-query: "
+          "-0.0 read back +0.0) on edges " + ", ".join(
               f"D={d} {t} Wd={wd} Wf={wf}" for d, t, wd, wf in PROBE_EDGES))
 
 
@@ -1061,7 +1097,14 @@ def phase_shootout(torch, results, counts):
         "probe_us": us,
         "tiled_vs_perquery_speedup": us["perquery"] / us["tiled"],
         "dual_vs_two_tiled_speedup": 2 * us["tiled"] / us["dual"]}))
-    nbytes = (PQ_B * 12 + PQ_B * 12 * PQ_WAYS + hits * PQ_DIM * 4
+    # least HBM bytes: each query's (hi, lo, bucket) read once, each
+    # DISTINCT probed bucket's 3*W int32 of metadata and each DISTINCT
+    # winning row once (queries repeat buckets and ids at this shape), the
+    # (hit, value, age) outputs written
+    n_rows = int(torch.unique(bd[hit].long() * PQ_WAYS
+                              + tiled[3][hit].long()).numel())
+    n_bkts = int(torch.unique(bd).numel())
+    nbytes = (PQ_B * 12 + n_bkts * 12 * PQ_WAYS + n_rows * PQ_DIM * 4
               + PQ_B * (1 + PQ_DIM * 4 + 4))
     results["cache_probe_perquery"] = dict(
         name="cache_probe_perquery", route="cuda",
@@ -1075,7 +1118,10 @@ def phase_shootout(torch, results, counts):
     r = results["cache_probe_perquery"]
     print(f"[shootout] cache_probe_perquery: {us['perquery']:.2f} us on the "
           f"card (plain {r['plain_ms'] * 1e3:.2f} us, bound "
-          f"{r['bound_ms'] * 1e3:.3f} us by bytes, {nbytes / 1e6:.3f} MB)")
+          f"{r['bound_ms'] * 1e3:.3f} us by bytes, {nbytes / 1e6:.3f} MB: "
+          f"{n_bkts} distinct buckets, {n_rows} distinct winning rows for "
+          f"{hits} hits; {r['bound_ms'] * 1e3 / us['perquery']:.1%} of "
+          f"its bound)")
 
 
 # ------------------------------------------------------------ phase 2
@@ -1229,7 +1275,7 @@ def phase_serve(torch, counts):
 
 
 SERVE_KERNELS = ("cache_probe_dual", "cache_probe_tiled", "embedding_bag")
-KERNEL_GROUPS = (("cache_probe", ("probe_kernel", "perquery_kernel")),
+KERNEL_GROUPS = (("cache_probe", ("probe_kernel",)),
                  ("decode_attention", ("decode_split_kernel",
                                        "decode_combine_kernel")),
                  ("embedding_bag", ("bag_kernel",)),
@@ -1243,9 +1289,10 @@ KERNEL_GROUPS = (("cache_probe", ("probe_kernel", "perquery_kernel")),
 
 
 def phase_profile(torch, tag, chunk, drive):
-    """Where a warm step's time goes: torch.profiler over ``chunk`` more
-    steps of a cuda run (``drive()`` continues its state), device kernel
-    time by group against the host wall time. A serve loop's ``drive()``
+    """Where a step's time goes: torch.profiler over the ``chunk`` steps
+    that ``drive()`` serves on the card (a warm chunk continuing a cuda
+    run's state, or an overload chunk), device kernel time by group
+    against the host wall time. A serve loop's ``drive()``
     returns its device counters, and the wall ends with their read-back
     (``fetch_counters``) as in the serve loop; any other ends at a
     synchronize."""
@@ -1278,7 +1325,7 @@ def phase_profile(torch, tag, chunk, drive):
         by_group[group] = by_group.get(group, 0.0) + us
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + us
     busy_ms = sum(by_group.values()) / 1e3
-    print(f"[{tag}] warm chunk of {chunk} steps under torch.profiler: "
+    print(f"[{tag}] {chunk} steps under torch.profiler: "
           f"{wall_ms / chunk:.3f} ms host wall per step, "
           f"{busy_ms / chunk:.3f} ms device kernel time per step, device "
           f"idle share {1 - busy_ms / wall_ms:.3f}, "
@@ -1788,6 +1835,170 @@ def phase_decode(torch, counts):
               f"{1 - busy / unprof:.3f}")
 
 
+# ------------------------------------------------------------ phase 9
+# the overload arm at SASRec's published widths over phase 2's stream
+# (20,000 users, 10 minutes: 119 steps of B=512, 47 pre, 24 outage, 48
+# post), Table 3's failure range in the outage window
+OVERLOAD = dict(arch="sasrec", minutes=10, users=20_000, batch=BATCH,
+                budget_frac=0.5, failure_rate=0.02, failure_burst_rate=0.2,
+                n_buckets=N_BUCKETS, smoke=False)
+OVERLOAD_MIN_SPAN = 8                        # steps in each phase, at least
+OVERLOAD_PROFILE_CHUNK = 16                  # steps a profiled chunk
+
+
+def overload_profile(torch, launch, dev, rep):
+    """Replay the cuda overload run chunk by chunk and profile the last
+    (warm) chunk of pre and the first chunk of the outage, each continuing
+    the replay's state. The set-up (tower, tiers, stream, calibration) is
+    done before any profile starts; the replay's pre counters must equal
+    the checked run's."""
+    import dataclasses
+
+    from repro_torch.core import server as srv
+    from repro_torch.core.metrics import ServingCounters
+
+    plan = launch.plan_overload(backend="cuda", device=dev, **OVERLOAD)
+    n_pre = plan.spans[0][2]
+    last_pre = -(-n_pre // OVERLOAD_PROFILE_CHUNK) - 1
+    state, pre, prof = plan.state, ServingCounters(), {}
+    for i, (phase, server, staged) in enumerate(
+            launch.overload_chunks(plan, OVERLOAD_PROFILE_CHUNK)):
+        steps = int(staged[2].shape[0])
+        box = {}
+
+        def drive(server=server, staged=staged, state=state, box=box):
+            box["out"] = server.serve_many(plan.params, state, *staged,
+                                           flush_every=1, collect=False)
+            return box["out"][1]
+
+        if i in (last_pre, last_pre + 1):
+            prof[phase] = (steps, phase_profile(
+                torch, f"profile overload {phase}", steps, drive))
+        else:
+            drive()
+        state, acc, _ = box["out"]
+        if phase != "pre":
+            break
+        pre.merge(ServingCounters.from_stats(srv.fetch_counters(acc)))
+    want = rep["phases"]["pre"]
+    for f in dataclasses.fields(ServingCounters):
+        if getattr(pre, f.name) != want[f.name]:
+            raise AssertionError(f"profile replay pre.{f.name} "
+                                 f"{getattr(pre, f.name)} != {want[f.name]}")
+    for phase, (steps, res) in prof.items():
+        if res is None:
+            continue
+        busy_ms = sum(res[0].values()) / 1e3
+        print(f"[profile overload {phase}] {steps} steps: device kernel "
+              f"time {busy_ms / steps:.3f} ms a step against the "
+              f"unprofiled run's {rep['step_ms']:.3f} ms host step (all "
+              f"119 steps, staging included): idle share estimate "
+              f"{1 - busy_ms / (rep['step_ms'] * steps):.3f}")
+
+
+def phase_overload(torch):
+    import dataclasses
+
+    from repro_torch.core.metrics import ServingCounters
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+
+    dev = torch.device("cuda")
+    runs = {}
+    for backend in ("cuda", "torch"):
+        plan = launch.plan_overload(backend=backend, device=dev, **OVERLOAD)
+        ops.reset_launch_counts()                # this path's window
+        report, state = launch.overload_timeline(
+            plan, log=lambda s, b=backend: print(f"[overload {b}] {s}"))
+        runs[backend] = (report, state, ops.launch_counts())
+        del plan
+    (rep, st, n), (rep_t, st_t, n_t) = runs["cuda"], runs["torch"]
+    ph, steps = rep["phases"], rep["batches"]
+    spans = {p: ph[p]["requests"] // BATCH for p in ph}
+    if n["cache_probe_dual"] != steps or n["embedding_bag"] <= 0:
+        raise AssertionError(f"launches {n} for {steps} overload steps: "
+                             "want one dual probe a step and the bag")
+    if sum(n_t.values()):
+        raise AssertionError(f"the torch backend launched kernels: {n_t}")
+    if min(spans.values()) < OVERLOAD_MIN_SPAN:
+        raise AssertionError(f"overload spans {spans}: fewer than "
+                             f"{OVERLOAD_MIN_SPAN} steps in a phase")
+    out = ph["outage"]
+    if not (out["deferred"] > 0 and out["failover_serves"] > 0
+            and out["mean_failover_stale_ms"] > 0
+            and out["fallback_rate"] < out["fallback_rate_wo_failover"]):
+        raise AssertionError(f"the outage did not degrade through the "
+                             f"relaxed failover tier: {out}")
+    if ph["pre"]["deferred"] or ph["post"]["deferred"]:
+        raise AssertionError("misses deferred at full capacity")
+    for p in ph:
+        for f in dataclasses.fields(ServingCounters):
+            if ph[p][f.name] != rep_t["phases"][p][f.name]:
+                raise AssertionError(f"overload {p}.{f.name} differs "
+                                     "between backends")
+    for tier in ("direct", "failover"):
+        for name, a, b in zip(getattr(st, tier)._fields, getattr(st, tier),
+                              getattr(st_t, tier)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"overload {tier}.{name} differs "
+                                     "between backends")
+    if not torch.equal(st.budget.tokens, st_t.budget.tokens):
+        raise AssertionError("overload budget tokens differ between backends")
+    print(f"[overload] SASRec full width, {N_BUCKETS}x{WAYS} tiers, "
+          f"B={BATCH}, {OVERLOAD['users']} users over "
+          f"{OVERLOAD['minutes']} min, budget {rep['budget_per_step']}/step "
+          f"(0.5 of miss demand {rep['provisioned_miss_rate']}), steps "
+          f"pre/outage/post {spans['pre']}/{spans['outage']}/"
+          f"{spans['post']}, launches {n}; outage deferred "
+          f"{out['deferred']}, failover serves {out['failover_serves']} "
+          f"(mean stale {out['mean_failover_stale_ms']} ms), fallback rate "
+          f"{out['fallback_rate']} vs {out['fallback_rate_wo_failover']} "
+          f"without failover")
+    print(f"[overload] host ms per step cuda {rep['step_ms']} torch "
+          f"{rep_t['step_ms']}; cuda and torch backends bit-identical: every "
+          f"per-phase counter, all 5 planes of both tiers, the budget tokens")
+    del runs, st, st_t
+    overload_profile(torch, launch, dev, rep)
+
+
+# ------------------------------------------------------------ phase 10
+def phase_entry_overload(torch):
+    import contextlib
+    import io
+
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+
+    ops.reset_launch_counts()
+    d = launch.run_serving_overload(
+        minutes=8, users=400, backend="cuda",
+        log=lambda s: print(f"[entry overload] {s}"))
+    n = ops.launch_counts()
+    if (n["cache_probe_dual"] != d["batches"] or n["embedding_bag"] <= 0
+            or sum(p["requests"] for p in d["phases"].values()) <= 0):
+        raise AssertionError(f"overload entry point: {d['batches']} "
+                             f"batches, launches {n}")
+    lines = []
+    for kw in (dict(), dict(device="cpu", backend="torch")):
+        ops.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            quickstart.main(**kw)
+        lines.append(buf.getvalue().splitlines())
+        if not kw:
+            n = ops.launch_counts()
+    for ln in lines[0]:
+        print(f"[quickstart] {ln}")
+    if n["cache_probe_dual"] != 3 or sum(n.values()) != 3:
+        raise AssertionError(f"quickstart launches {n}: want 3 dual probes")
+    if lines[0] != lines[1] or len(lines[0]) != 5:
+        raise AssertionError("quickstart on the card differs from its CPU "
+                             "run on the plain versions")
+    print("[quickstart] 3 dual-probe launches; the same lines as its CPU "
+          "run on the plain versions")
+
+
 def main() -> int:
     try:
         import torch
@@ -1819,6 +2030,12 @@ def main() -> int:
     print(f"[time] LM entry phase done at {time.perf_counter() - t0:.1f}s")
     phase_decode(torch, counts)
     print(f"[time] LM decode and profile phases done at "
+          f"{time.perf_counter() - t0:.1f}s")
+    phase_overload(torch)
+    print(f"[time] overload and profile phases done at "
+          f"{time.perf_counter() - t0:.1f}s")
+    phase_entry_overload(torch)
+    print(f"[time] overload and quickstart entry phase done at "
           f"{time.perf_counter() - t0:.1f}s")
 
     kernels = []

@@ -7,18 +7,21 @@
 //     _policy_ttls) -> ercache_probe_dual_multi
 //   * _cache_probe_perquery (entry cache_probe_perquery, the benchmark's
 //     one-query-per-grid-step baseline) -> ercache_probe_perquery
-// The tiled, dual and dual-multi entries share one probe body
-// (probe_kernel); the dual entries probe the direct and the failover table
-// for the same queries in ONE launch, as the serve step requires (one probe
-// launch per step).
+// Every entry runs one probe body (probe_kernel); the dual entries probe
+// the direct and the failover table for the same queries in ONE launch,
+// as the serve step requires (one probe launch per step).
 //
-// Per-query entry: one CTA of one warp per query, as the TPU kernel's one
-// query per grid step, and no way output. Its value is the reference
-// kernel's masked SUM over the ways (the winning row plus zeros), so it is
-// the winning row + 0.0: a stored -0.0 comes back +0.0 and every other
-// value keeps its bits. The kernel clears a lone sign bit instead of adding
-// (a float add would also canonicalize NaN payloads); on a miss it writes
-// zeros, like the others.
+// Per-query entry: the one-table body with kPlusZero set, which also
+// drops the way output (Out.way == nullptr). Its value is the reference kernel's masked
+// SUM over the ways (the winning row plus zeros), so it is the winning row
+// + 0.0: a stored -0.0 comes back +0.0 and every other value keeps its
+// bits. kPlusZero clears a lone sign bit in each element of a copy unit
+// (each 32-bit word of a 4-byte type, each 16-bit half of a 2-byte one)
+// instead of adding, since a float add would also canonicalize NaN
+// payloads; on a miss it writes zeros, like the others. The TPU's "one
+// query per grid step" against "a tile of queries per grid step" is a
+// difference of TPU schedules: on this card both are one warp per query,
+// eight queries a CTA.
 //
 // Multi-model tier: the tables are the POOLED (M*Nb, W) views of the
 // per-model stacks and the buckets already carry the slot offset, so the
@@ -68,9 +71,6 @@
 // host: 8 bytes at D=50 float32 (one pass over 25 lanes), 16 at D=64, 4 at
 // D=50 bfloat16, the element otherwise. The probe is therefore bit-exact
 // for float32, bfloat16 and float16 tables alike.
-//
-// The per-query entry keeps its own body (probe_one, one table, one query
-// per CTA): it is the shootout's baseline and mirrors the TPU's grid.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,39 +115,32 @@ __device__ __forceinline__ uint16_t plus_zero(uint16_t x) {
   return x == (uint16_t)0x8000u ? (uint16_t)0u : x;
 }
 
-// The per-query entry's body: one table, no way output, value + 0.0.
-template <typename T>
-__device__ __forceinline__ void probe_one(const Table& t, const Out& o, int q,
-                                          int32_t q_hi, int32_t q_lo,
-                                          int32_t now, int32_t ttl, int D,
-                                          int lane) {
-  const size_t row = (size_t)t.bucket[q] * t.ways;
-  bool valid = false;
-  int32_t ts = 0;
-  if (lane < t.ways) {
-    ts = t.write_ts[row + lane];
-    valid = t.key_hi[row + lane] == q_hi && t.key_lo[row + lane] == q_lo &&
-            wrap_sub(now, ts) <= ttl;
-  }
-  const unsigned mask = __ballot_sync(kFullMask, valid);
-  const int way = __ffs(mask) - 1;  // -1 when no way is valid
-  const int32_t ts_hit = __shfl_sync(kFullMask, ts, way < 0 ? 0 : way);
-  if (lane == 0) {
-    o.hit[q] = mask != 0u;
-    o.age[q] = mask != 0u ? wrap_sub(now, ts_hit) : -1;
-  }
-  const T* src = static_cast<const T*>(t.values) +
-                 (row + (way < 0 ? 0 : way)) * (size_t)D;
-  T* dst = static_cast<T*>(o.value) + (size_t)q * D;
-  for (int d = lane; d < D; d += 32) {
-    const T x = mask != 0u ? src[d] : T(0);
-    dst[d] = plus_zero(x);
-  }
+// x + 0.0 on each element of a copy unit, kElem bytes an element.
+template <int kElem>
+__device__ __forceinline__ uint32_t plus_zero_unit(uint32_t x) {
+  if (kElem == 4) return plus_zero(x);
+  return (uint32_t)plus_zero((uint16_t)x) |
+         ((uint32_t)plus_zero((uint16_t)(x >> 16)) << 16);
+}
+template <int kElem>
+__device__ __forceinline__ uint16_t plus_zero_unit(uint16_t x) {
+  return plus_zero(x);  // the launch never pairs 2-byte units with kElem 4
+}
+template <int kElem>
+__device__ __forceinline__ uint2 plus_zero_unit(uint2 x) {
+  return make_uint2(plus_zero_unit<kElem>(x.x), plus_zero_unit<kElem>(x.y));
+}
+template <int kElem>
+__device__ __forceinline__ uint4 plus_zero_unit(uint4 x) {
+  return make_uint4(plus_zero_unit<kElem>(x.x), plus_zero_unit<kElem>(x.y),
+                    plus_zero_unit<kElem>(x.z), plus_zero_unit<kElem>(x.w));
 }
 
-// The serve entries' body. kDual: probe the failover table too; kPolicy:
-// per-query TTLs from the multi-model policy table. U is the copy unit.
-template <typename U, bool kDual, bool kPolicy>
+// The probe body of every entry. kDual: probe the failover table too;
+// kPolicy: per-query TTLs from the multi-model policy table; kPlusZero: 0
+// copies the row's bits, 4 or 2 (the element bytes) reads -0.0 back as
+// +0.0 and writes no way (the per-query entry). U is the copy unit.
+template <typename U, bool kDual, bool kPolicy, int kPlusZero>
 __global__ void probe_kernel(Table direct, Out out_d, Table failover,
                              Out out_f, Policy pol, const int32_t* q_hi,
                              const int32_t* q_lo, const int32_t* now_p,
@@ -195,7 +188,7 @@ __global__ void probe_kernel(Table direct, Out out_d, Table failover,
   const int32_t hit_ts_f = __shfl_sync(kFullMask, ts_f, way_f < 0 ? 0 : way_f);
   if (lane == 0) {
     out_d.hit[q] = m_d != 0u;
-    out_d.way[q] = way_d;
+    if (kPlusZero == 0) out_d.way[q] = way_d;
     out_d.age[q] = m_d != 0u ? wrap_sub(now, hit_ts_d) : -1;
   }
   if (kDual && lane == 1) {
@@ -211,7 +204,8 @@ __global__ void probe_kernel(Table direct, Out out_d, Table failover,
   U* dst_d = static_cast<U*>(out_d.value) + (size_t)q * row_units;
   U* dst_f = static_cast<U*>(out_f.value) + (size_t)q * row_units;
   for (int i = lane; i < row_units; i += 32) {
-    const U x_d = m_d != 0u ? src_d[i] : U{};
+    U x_d = m_d != 0u ? src_d[i] : U{};
+    if (kPlusZero != 0) x_d = plus_zero_unit<kPlusZero>(x_d);
     U x_f{};
     if (kDual && m_f != 0u) x_f = src_f[i];
     dst_d[i] = x_d;
@@ -219,27 +213,19 @@ __global__ void probe_kernel(Table direct, Out out_d, Table failover,
   }
 }
 
-template <typename T>
-__global__ void perquery_kernel(Table t, Out o, const int32_t* q_hi,
-                                const int32_t* q_lo, const int32_t* now_p,
-                                int D) {
-  const int q = blockIdx.x;
-  probe_one<T>(t, o, q, q_hi[q], q_lo[q], *now_p, t.ttl, D, threadIdx.x);
-}
-
-template <typename U, bool kDual, bool kPolicy>
+template <typename U, bool kDual, bool kPolicy, int kPlusZero>
 int launch_unit(const Table& direct, const Out& out_d, const Table& failover,
                 const Out& out_f, const Policy& pol, const int32_t* q_hi,
                 const int32_t* q_lo, const int32_t* now, int B,
                 int row_units, cudaStream_t stream) {
-  probe_kernel<U, kDual, kPolicy>
+  probe_kernel<U, kDual, kPolicy, kPlusZero>
       <<<(B + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0,
          stream>>>(direct, out_d, failover, out_f, pol, q_hi, q_lo, now, B,
                    row_units);
   return (int)cudaGetLastError();
 }
 
-template <bool kDual, bool kPolicy>
+template <bool kDual, bool kPolicy, int kPlusZero = 0>
 int launch(const Table& direct, const Out& out_d, const Table& failover,
            const Out& out_f, const Policy& pol, const int32_t* q_hi,
            const int32_t* q_lo, const int32_t* now, int B, int D,
@@ -253,24 +239,27 @@ int launch(const Table& direct, const Out& out_d, const Table& failover,
   if (kDual) align |= (uintptr_t)failover.values | (uintptr_t)out_f.value;
   int unit = 16;
   while (align % unit) unit /= 2;
+  // an element-wise +0.0 needs whole elements in a unit (a float32 view
+  // is always 4-byte aligned, so this refuses nothing torch can pass)
+  if (unit < kPlusZero) return (int)cudaErrorMisalignedAddress;
   const int units = (int)(row_bytes / unit);
   switch (unit) {
     case 16:
-      return launch_unit<uint4, kDual, kPolicy>(direct, out_d, failover, out_f,
-                                                pol, q_hi, q_lo, now, B, units,
-                                                stream);
+      return launch_unit<uint4, kDual, kPolicy, kPlusZero>(
+          direct, out_d, failover, out_f, pol, q_hi, q_lo, now, B, units,
+          stream);
     case 8:
-      return launch_unit<uint2, kDual, kPolicy>(direct, out_d, failover, out_f,
-                                                pol, q_hi, q_lo, now, B, units,
-                                                stream);
+      return launch_unit<uint2, kDual, kPolicy, kPlusZero>(
+          direct, out_d, failover, out_f, pol, q_hi, q_lo, now, B, units,
+          stream);
     case 4:
-      return launch_unit<uint32_t, kDual, kPolicy>(direct, out_d, failover,
-                                                   out_f, pol, q_hi, q_lo, now,
-                                                   B, units, stream);
+      return launch_unit<uint32_t, kDual, kPolicy, kPlusZero>(
+          direct, out_d, failover, out_f, pol, q_hi, q_lo, now, B, units,
+          stream);
     case 2:
-      return launch_unit<uint16_t, kDual, kPolicy>(direct, out_d, failover,
-                                                   out_f, pol, q_hi, q_lo, now,
-                                                   B, units, stream);
+      return launch_unit<uint16_t, kDual, kPolicy, kPlusZero>(
+          direct, out_d, failover, out_f, pol, q_hi, q_lo, now, B, units,
+          stream);
   }
   return (int)cudaErrorMisalignedAddress;
 }
@@ -344,17 +333,13 @@ int ercache_probe_perquery(const int32_t* key_hi, const int32_t* key_lo,
   const Table t{key_hi, key_lo, write_ts, values, bucket, ttl, ways};
   const Out o{hit, out, age, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (elem_bytes) {
-    case 4:
-      perquery_kernel<uint32_t><<<B, 32, 0, s>>>(t, o, q_hi, q_lo, now, D);
-      break;
-    case 2:
-      perquery_kernel<uint16_t><<<B, 32, 0, s>>>(t, o, q_hi, q_lo, now, D);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const Policy none{nullptr, nullptr};
+  if (elem_bytes == 2)
+    return launch<false, false, 2>(t, o, t, o, none, q_hi, q_lo, now, B, D,
+                                   elem_bytes, s);
+  // launch refuses an element size other than 4 (or 2, above)
+  return launch<false, false, 4>(t, o, t, o, none, q_hi, q_lo, now, B, D,
+                                 elem_bytes, s);
 }
 
 const char* ercache_probe_strerror(int code) {

@@ -15,6 +15,9 @@ Twin of ``repro/kernels/cache_probe.py``. One source,
   no way, and the value as the reference's masked sum (the winning row +
   0.0, so a stored -0.0 comes back +0.0).
 
+All four run one kernel body: a warp per query, eight queries a CTA,
+three dependent HBM round trips, rows copied in the widest aligned unit.
+
 All follow ``ref.cache_probe_ref`` (the per-query probe
 ``ref.cache_probe_perquery_ref``) bit for bit. On a CPU tensor a wrapper
 runs that plain version; on a CUDA tensor it launches the kernel (and
@@ -109,6 +112,28 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
+def _probe_one_table(entry, key_hi, key_lo, write_ts, values, q_hi, q_lo,
+                     buckets, now_ms, ttl_ms, with_way):
+    """Launch the one-table entry ``ercache_probe_<entry>`` on the card:
+    (hit, value, age) and, ``with_way``, the way."""
+    dev = q_hi.device
+    _check_queries(q_hi, q_lo, buckets, dev)
+    _check_table(key_hi, key_lo, write_ts, values, dev)
+    B = q_hi.shape[0]
+    res = _outputs(B, values)[:4 if with_way else 3]
+    if B == 0:
+        return res
+    now = _now_tensor(now_ms, dev)
+    lib, fn = _entry(f"ercache_probe_{entry}")
+    code = fn(*_ptrs(key_hi, key_lo, write_ts, values), key_hi.shape[1],
+              *_ptrs(q_hi, q_lo, buckets, now), int(ttl_ms), B,
+              values.shape[-1], values.element_size(), *_ptrs(*res),
+              torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, "ercache_probe_strerror", code, f"cache_probe_{entry}")
+    LAUNCHES[entry] += 1
+    return res
+
+
 def cache_probe_tiled(key_hi, key_lo, write_ts, values, q_hi, q_lo, buckets,
                       now_ms, ttl_ms):
     """Probe one table. Same contract as ``ref.cache_probe_ref``:
@@ -117,23 +142,8 @@ def cache_probe_tiled(key_hi, key_lo, write_ts, values, q_hi, q_lo, buckets,
     if not q_hi.is_cuda:
         return ref.cache_probe_ref(key_hi, key_lo, write_ts, values, q_hi,
                                    q_lo, buckets, now_ms, ttl_ms)
-    dev = q_hi.device
-    _check_queries(q_hi, q_lo, buckets, dev)
-    _check_table(key_hi, key_lo, write_ts, values, dev)
-    B = q_hi.shape[0]
-    hit, out, age, way = _outputs(B, values)
-    if B == 0:
-        return hit, out, age, way
-    now = _now_tensor(now_ms, dev)
-    lib, fn = _entry("ercache_probe_tiled")
-    code = fn(*_ptrs(key_hi, key_lo, write_ts, values), key_hi.shape[1],
-              *_ptrs(q_hi, q_lo, buckets, now), int(ttl_ms), B,
-              values.shape[-1], values.element_size(),
-              *_ptrs(hit, out, age, way),
-              torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, "ercache_probe_strerror", code, "cache_probe_tiled")
-    LAUNCHES["tiled"] += 1
-    return hit, out, age, way
+    return _probe_one_table("tiled", key_hi, key_lo, write_ts, values, q_hi,
+                            q_lo, buckets, now_ms, ttl_ms, with_way=True)
 
 
 def cache_probe(key_hi, key_lo, write_ts, values, q_hi, q_lo, buckets,
@@ -145,31 +155,19 @@ def cache_probe(key_hi, key_lo, write_ts, values, q_hi, q_lo, buckets,
 
 def cache_probe_perquery(key_hi, key_lo, write_ts, values, q_hi, q_lo,
                          buckets, now_ms, ttl_ms):
-    """One query per CTA (the reference's one query per grid step). Same
-    contract as ``ref.cache_probe_perquery_ref``: returns (hit (B,) bool,
-    value (B, D) with -0.0 read back as +0.0, age (B,) int32, -1 on a
-    miss)."""
+    """The reference's one-query-per-grid-step probe. On the card it runs
+    the tiled probe's body (a warp per query, eight a CTA; the TPU's two
+    schedules are one here) with no way output and each element of the
+    copied row passed through +0.0. Same contract as
+    ``ref.cache_probe_perquery_ref``: returns (hit (B,) bool, value (B, D)
+    with -0.0 read back as +0.0, age (B,) int32, -1 on a miss)."""
     if not q_hi.is_cuda:
         return ref.cache_probe_perquery_ref(key_hi, key_lo, write_ts, values,
                                             q_hi, q_lo, buckets, now_ms,
                                             ttl_ms)
-    dev = q_hi.device
-    _check_queries(q_hi, q_lo, buckets, dev)
-    _check_table(key_hi, key_lo, write_ts, values, dev)
-    B = q_hi.shape[0]
-    hit, out, age, _ = _outputs(B, values)
-    if B == 0:
-        return hit, out, age
-    now = _now_tensor(now_ms, dev)
-    lib, fn = _entry("ercache_probe_perquery")
-    code = fn(*_ptrs(key_hi, key_lo, write_ts, values), key_hi.shape[1],
-              *_ptrs(q_hi, q_lo, buckets, now), int(ttl_ms), B,
-              values.shape[-1], values.element_size(),
-              *_ptrs(hit, out, age),
-              torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, "ercache_probe_strerror", code, "cache_probe_perquery")
-    LAUNCHES["perquery"] += 1
-    return hit, out, age
+    return _probe_one_table("perquery", key_hi, key_lo, write_ts, values,
+                            q_hi, q_lo, buckets, now_ms, ttl_ms,
+                            with_way=False)
 
 
 def cache_probe_dual(d_key_hi, d_key_lo, d_write_ts, d_values,

@@ -1,16 +1,19 @@
 """Serving launcher: request stream -> ERCache -> tower, end to end, on the
 card.
 
-Twin of the basic, ``--no-cache`` and ``--multi`` modes of
+Twin of the basic, ``--no-cache``, ``--multi`` and ``--overload`` modes of
 ``repro/launch/serve.py``: the Fig. 2-calibrated access-pattern generator
 drives one ``CachedEmbeddingServer`` fronting a SASRec user tower (or,
 with ``--multi``, one ``MultiModelServer`` fronting the whole per-model
 registry, each request fanned out to one model); the stream is staged on
 the device in (S, B) chunks and each chunk is ONE ``serve_many`` call
 whose counters come back with ONE host transfer. ``--coalesce`` dedupes
-each batch's missed users so the tower runs once per distinct user. The
-``--overload``, ``--restart``, ``--shards``, ``--regions`` and ``--chaos``
-modes join with their slices.
+each batch's missed users so the tower runs once per distinct user.
+``--overload`` replays the stream against a constrained inference budget
+(SLA admission control): a capacity outage with a flash crowd, whose
+deferred misses degrade through the relaxed-TTL failover tier, reported
+phase by phase. The ``--restart``, ``--shards``, ``--regions`` and
+``--chaos`` modes join with their slices.
 
 Usage::
 
@@ -18,6 +21,9 @@ Usage::
         --minutes 120 --users 5000 --ttl-min 5 [--no-cache] [--coalesce]
     PYTHONPATH=src python -m repro_torch.launch.serve --multi \\
         --minutes 30 --users 1000 [--multi-buckets 4096] [--coalesce]
+    PYTHONPATH=src python -m repro_torch.launch.serve --overload \\
+        --minutes 60 --users 2000 [--budget-frac 0.5] \\
+        [--failure-rate 0.02 --failure-burst-rate 0.2]
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ from repro_torch.core.hashing import Key64
 from repro_torch.core.metrics import ServingCounters, power_savings
 from repro_torch.data.access_patterns import (FIG6_KNOTS, InterArrivalDist,
                                               StreamConfig,
-                                              generate_stream_fast)
+                                              generate_stream_fast,
+                                              simulate_hit_rate)
 from repro_torch.ft.failure import FailureInjector
 from repro_torch.models import recsys as rec_lib
 
@@ -66,12 +73,15 @@ def build_tower(arch: str, backend: str = "cuda", device="cuda",
 
 
 def _stage_chunk(uids, times_ms, features_of, lo: int, n_steps: int,
-                 batch: int, device, injector=None):
+                 batch: int, device, injector=None, override_ids=None):
     """Stage ``n_steps`` consecutive serve batches as (S, B) tensors on the
-    device, one host-to-device copy per array. The failure mask is staged
-    only when an injector rides along (None otherwise)."""
-    ids = np.stack([uids[lo + s * batch: lo + (s + 1) * batch]
-                    for s in range(n_steps)])
+    device, one host-to-device copy per array. ``override_ids`` (S, B)
+    substitutes the user ids (the overload flash crowd) while keeping the
+    clock. The failure mask is staged only when an injector rides along
+    (None otherwise)."""
+    ids = (np.stack([uids[lo + s * batch: lo + (s + 1) * batch]
+                     for s in range(n_steps)]) if override_ids is None
+           else np.asarray(override_ids, np.int64))
     nows = [int(times_ms[lo + (s + 1) * batch - 1]) for s in range(n_steps)]
     feats = [features_of(ids[s], nows[s]) for s in range(n_steps)]
     feats = {k: torch.as_tensor(np.stack([f[k] for f in feats]),
@@ -265,6 +275,226 @@ def run_serving_multi(arch: str = "sasrec", minutes: int = 60,
     return d
 
 
+@dataclasses.dataclass
+class OverloadPlan:
+    """What the overload timeline serves, built before its clock starts:
+    the tower, both servers, the stream, the calibrated budget, the
+    failure injector and the pre / outage / post spans (batch ranges)."""
+    arch: str
+    users: int
+    batch: int
+    seed: int
+    backend: str
+    device: torch.device
+    params: object
+    features_of: object
+    state: srv_lib.ServerState             # the initial state
+    times_ms: np.ndarray
+    uids: np.ndarray
+    budget: float
+    budget_frac: float
+    miss_rate: float
+    failure_rate: float
+    failure_burst_rate: float
+    injector: FailureInjector | None
+    spans: list                            # (phase, lo, hi, server)
+
+
+def plan_overload(arch: str = "sasrec", minutes: int = 60,
+                  users: int = 2000, batch: int = 256,
+                  ttl_min: float = 5.0, failover_ttl_h: float = 1.0,
+                  budget_frac: float = 0.5, burst_start_frac: float = 0.4,
+                  burst_len_frac: float = 0.2, failure_rate: float = 0.0,
+                  failure_burst_rate: float = None,
+                  n_buckets: int = 1 << 14, backend: str = "cuda",
+                  smoke: bool = True, seed: int = 0,
+                  device="cuda") -> OverloadPlan:
+    """Set up the overload scenario of :func:`run_serving_overload` (same
+    arguments) without serving a step."""
+    device = resolve_device(device)
+    tower_cfg, params, tower_fn, features_of = build_tower(
+        arch, backend=backend, device=device, smoke=smoke, seed=seed)
+    stream_cfg = StreamConfig(n_users=users, horizon_s=minutes * 60.0,
+                              seed=seed)
+    times_ms, uids = generate_stream_fast(
+        stream_cfg, InterArrivalDist(FIG6_KNOTS))
+    ttl_ms = int(ttl_min * MINUTE_MS)
+    # provision: steady-state miss demand per batch, from the exact
+    # infinite-capacity TTL simulation of THIS stream (warm-up excluded)
+    warm_ms = int(times_ms[len(times_ms) // 4]) if len(times_ms) else 0
+    miss_rate = 1.0 - simulate_hit_rate(times_ms, uids, ttl_ms,
+                                        measure_from_ms=warm_ms)
+    budget = max(budget_frac * miss_rate * batch, 1.0)
+
+    cache_cfg = CacheConfig(
+        model_id=1, model_type="ctr", cache_ttl_ms=ttl_ms,
+        failover_ttl_ms=int(failover_ttl_h * HOUR_MS),
+        n_buckets=n_buckets, ways=8, value_dim=tower_cfg.user_embed_dim,
+        backend=backend, infer_budget_per_step=budget,
+        failover_ttl_relax=None)
+    outage_srv = srv_lib.CachedEmbeddingServer(
+        cfg=cache_cfg, tower_fn=tower_fn, miss_budget=batch)
+    full_srv = srv_lib.CachedEmbeddingServer(
+        cfg=dataclasses.replace(cache_cfg, infer_budget_per_step=None),
+        tower_fn=tower_fn, miss_budget=batch)
+    state = srv_lib.init_server_state(cache_cfg, writebuf_capacity=batch * 4,
+                                      device=device)
+
+    # a stream shorter than one batch yields zero spans (an all-zero
+    # report) instead of staging past its end
+    n_batches_total = len(uids) // batch
+    burst_lo = int(n_batches_total * burst_start_frac)
+    burst_hi = int(n_batches_total * (burst_start_frac + burst_len_frac))
+
+    # inference-failure stream: burst window aligned to the outage phase
+    injector = None
+    if failure_rate > 0 or failure_burst_rate is not None:
+        lo_ms = int(times_ms[min(burst_lo * batch, len(times_ms) - 1)])
+        hi_ms = int(times_ms[min(burst_hi * batch, len(times_ms) - 1)]) + 1
+        injector = FailureInjector(
+            base_rate=failure_rate,
+            burst_rate=(failure_rate if failure_burst_rate is None
+                        else failure_burst_rate),
+            burst_windows_ms=((lo_ms, hi_ms),), seed=seed)
+    return OverloadPlan(
+        arch=arch, users=users, batch=batch, seed=seed, backend=backend,
+        device=device, params=params, features_of=features_of, state=state,
+        times_ms=times_ms, uids=uids, budget=budget, budget_frac=budget_frac,
+        miss_rate=miss_rate, failure_rate=failure_rate,
+        failure_burst_rate=(failure_rate if failure_burst_rate is None
+                            else failure_burst_rate),
+        injector=injector,
+        spans=[("pre", 0, burst_lo, full_srv),
+               ("outage", burst_lo, burst_hi, outage_srv),
+               ("post", burst_hi, n_batches_total, full_srv)])
+
+
+def overload_chunks(plan: OverloadPlan, chunk_steps: int = 64):
+    """The plan's serve chunks in order: (phase, server, (keys, feats,
+    nows, fails)) staged on the device, the outage's with the flash crowd
+    (same population, arrival order decorrelated) in place of the
+    stream's ids."""
+    burst_rng = np.random.default_rng(plan.seed + 1)
+    for phase, p_lo, p_hi, server in plan.spans:
+        for lo, n_steps in _chunks(p_hi - p_lo, chunk_steps):
+            override = None
+            if phase == "outage":
+                override = burst_rng.integers(0, plan.users,
+                                              size=(n_steps, plan.batch))
+            yield phase, server, _stage_chunk(
+                plan.uids, plan.times_ms, plan.features_of,
+                (p_lo + lo) * plan.batch, n_steps, plan.batch, plan.device,
+                injector=plan.injector, override_ids=override)
+
+
+def overload_timeline(plan: OverloadPlan, chunk_steps: int = 64,
+                      log=print):
+    """Serve ``plan`` end to end: the report of :func:`run_serving_overload`
+    and the final ``ServerState`` (both cache tiers and the admission
+    token bucket, after the last flush)."""
+    phases = {p: ServingCounters() for p, *_ in plan.spans}
+    stale = {p: [0.0, 0] for p in phases}          # [age sum, serve count]
+    state = plan.state
+    t0 = time.perf_counter()
+    for phase, server, staged in overload_chunks(plan, chunk_steps):
+        state, acc, _ = server.serve_many(plan.params, state, *staged,
+                                          flush_every=1, collect=False)
+        c = srv_lib.fetch_counters(acc)          # one transfer per chunk
+        phases[phase].merge(ServingCounters.from_stats(c))
+        stale[phase][0] += c["failover_stale_sum_ms"]
+        stale[phase][1] += c["failover_serves"]
+    if plan.device.type == "cuda":
+        torch.cuda.synchronize(plan.device)
+    wall = time.perf_counter() - t0
+
+    n_batches = plan.spans[-1][2]
+    burst_lo, burst_hi = plan.spans[1][1:3]
+    out = {"budget_per_step": round(plan.budget, 2),
+           "budget_frac": plan.budget_frac,
+           "provisioned_miss_rate": round(plan.miss_rate, 4),
+           "failure_rate": plan.failure_rate,
+           "failure_burst_rate": plan.failure_burst_rate,
+           "wall_s": round(wall, 2), "batches": n_batches,
+           "step_ms": wall * 1e3 / max(n_batches, 1),
+           "device": (torch.cuda.get_device_name(plan.device)
+                      if plan.device.type == "cuda" else "cpu"),
+           "phases": {}}
+    log(f"[serve-overload {plan.arch}] budget={plan.budget:.1f}/step "
+        f"({plan.budget_frac:g}x of {plan.miss_rate:.3f} miss demand) "
+        f"burst=batches[{burst_lo}:{burst_hi}]"
+        + (f" failures={plan.failure_rate:g}/"
+           f"{plan.failure_burst_rate:g}" if plan.injector else "")
+        + f" backend={plan.backend} device={out['device']} ({wall:.1f}s)")
+    for p, c in phases.items():
+        d = c.as_dict()
+        d["mean_failover_stale_ms"] = round(stale[p][0] / max(stale[p][1], 1),
+                                            1)
+        # Table 3's counterfactual: without the failover tier, every
+        # degradation-chain failover serve would have been a default
+        # embedding
+        d["fallback_rate_wo_failover"] = round(
+            (c.fallbacks + c.failover_serves) / max(c.requests, 1), 6)
+        out["phases"][p] = d
+        log(f"  {p:>5}: requests={d['requests']} hit={d['hit_rate']:.3f}"
+            f" deferred={d['deferred']}"
+            f" failures={d['tower_failures']}"
+            f" failover_serves={d['failover_serves']}"
+            f" (stale {d['mean_failover_stale_ms']:.0f}ms)"
+            f" defaults={d['fallbacks']}"
+            f" fallback_rate={d['fallback_rate']:.4f}"
+            f"/wo_failover={d['fallback_rate_wo_failover']:.4f}"
+            f" sla_served={d['sla_served_rate']:.4f}")
+    return out, state
+
+
+def run_serving_overload(arch: str = "sasrec", minutes: int = 60,
+                         users: int = 2000, batch: int = 256,
+                         ttl_min: float = 5.0, failover_ttl_h: float = 1.0,
+                         budget_frac: float = 0.5,
+                         burst_start_frac: float = 0.4,
+                         burst_len_frac: float = 0.2,
+                         failure_rate: float = 0.0,
+                         failure_burst_rate: float = None,
+                         chunk_steps: int = 64, n_buckets: int = 1 << 14,
+                         backend: str = "cuda", smoke: bool = True,
+                         seed: int = 0, device="cuda", log=print) -> dict:
+    """The capacity-outage / overload scenario, end to end.
+
+    Timeline: the run starts at FULL capacity (no admission gate) so the
+    dual-tier caches warm; at ``burst_start_frac`` the capacity OUTAGE
+    begins: the serving tier is swapped for one whose per-step token
+    budget is ``budget_frac`` x the stream's own steady-state miss demand
+    (the exact TTL-cache simulator on the generated stream, warm-up
+    excluded) while a flash crowd of uniform re-accesses from the same
+    population spikes demand; after ``burst_len_frac`` capacity recovers.
+    Deferred misses degrade through the relaxed-TTL failover tier
+    (``failover_ttl_relax=None``: staleness unbounded, SLA defended). Each
+    phase is a contiguous batch range behind ONE server, chunked onto
+    ``serve_many`` with one counter fetch per chunk.
+
+    ``failure_rate`` / ``failure_burst_rate`` wire a ``FailureInjector``
+    in (paper Table 3's inference failures): a base Bernoulli rate
+    everywhere, the burst rate inside the outage window. Each phase then
+    reports ``fallback_rate`` (with the failover tier assisting) beside
+    ``fallback_rate_wo_failover`` (every failover-tier serve would have
+    been a default embedding without it).
+
+    The tower is the SMOKE config by default, as the reference launcher
+    serves; ``smoke=False`` serves the published widths. Returns
+    ``budget_per_step``, ``provisioned_miss_rate`` and, per phase
+    (``pre``, ``outage``, ``post``), the ``ServingCounters`` fields with
+    ``mean_failover_stale_ms`` and ``fallback_rate_wo_failover``.
+    """
+    plan = plan_overload(
+        arch=arch, minutes=minutes, users=users, batch=batch,
+        ttl_min=ttl_min, failover_ttl_h=failover_ttl_h,
+        budget_frac=budget_frac, burst_start_frac=burst_start_frac,
+        burst_len_frac=burst_len_frac, failure_rate=failure_rate,
+        failure_burst_rate=failure_burst_rate, n_buckets=n_buckets,
+        backend=backend, smoke=smoke, seed=seed, device=device)
+    return overload_timeline(plan, chunk_steps, log)[0]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="sasrec")
@@ -281,11 +511,23 @@ def main(argv=None):
     ap.add_argument("--coalesce", action="store_true",
                     help="in-batch inference coalescing: one tower run "
                          "per distinct missed user per batch "
-                         "(incompatible with --no-cache)")
+                         "(incompatible with --no-cache/--overload)")
     ap.add_argument("--multi", action="store_true",
                     help="serve the whole per-model registry as one "
                          "multi-model tier (mixed-model batches, one probe "
                          "launch per batch)")
+    ap.add_argument("--overload", action="store_true",
+                    help="SLA admission-control scenario: constrained "
+                         "inference budget + mid-run re-access burst; "
+                         "deferred misses degrade through the relaxed-TTL "
+                         "failover tier")
+    ap.add_argument("--budget-frac", type=float, default=0.5,
+                    help="--overload: inference budget as a fraction of "
+                         "the stream's steady-state miss demand")
+    ap.add_argument("--failure-burst-rate", type=float, default=None,
+                    help="--overload: failure probability inside the "
+                         "outage window (FailureInjector burst; default: "
+                         "same as --failure-rate)")
     ap.add_argument("--multi-buckets", type=int, default=1 << 12,
                     help="per-model direct-cache buckets in --multi mode")
     ap.add_argument("--backend", default="cuda", choices=["torch", "cuda"],
@@ -295,6 +537,26 @@ def main(argv=None):
                          "enables access-recency touches (incompatible "
                          "with --multi: the registry sets it per model)")
     args = ap.parse_args(argv)
+    if args.overload:
+        if args.multi:
+            ap.error("--overload drives the single-model server; the "
+                     "multi-model registry sets budgets per model "
+                     "(CacheConfig.infer_budget_per_step)")
+        if args.no_cache:
+            ap.error("--overload is a cache-tier scenario; drop --no-cache")
+        if args.coalesce:
+            ap.error("--overload isolates admission control; run "
+                     "--coalesce on the plain/--multi modes")
+        if args.eviction != "ttl":
+            ap.error("--overload fixes eviction=ttl (the scenario "
+                     "isolates admission, not victim order)")
+        return run_serving_overload(
+            arch=args.arch, minutes=args.minutes, users=args.users,
+            batch=args.batch,
+            ttl_min=5.0 if args.ttl_min is None else args.ttl_min,
+            budget_frac=args.budget_frac, failure_rate=args.failure_rate,
+            failure_burst_rate=args.failure_burst_rate,
+            backend=args.backend, chunk_steps=args.chunk_steps)
     if args.multi:
         # flags the multi tier cannot honor: TTLs and eviction come from
         # the per-model registry, and the tier has no cache-off baseline

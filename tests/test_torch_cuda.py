@@ -511,17 +511,32 @@ def test_lm_tower_cuda_backend_matches_torch_backend(cuda, dtype):
 
 
 # ------------------------------------------------------ per-query probe
+PERQUERY_EDGES = [  # (D, dtype, element offset of the values view): copy
+    # units of 4, 8 and 16 bytes in float32, bfloat16 halves packed in
+    # 4- and 16-byte units, and views off 16-byte alignment (4 and 2 bytes)
+    (33, torch.float32, 0), (50, torch.float32, 0), (64, torch.float32, 0),
+    (50, torch.bfloat16, 0), (64, torch.bfloat16, 0),
+    (50, torch.float32, 1), (50, torch.bfloat16, 1)]
+
+
 @pytest.mark.parametrize("batch", [1, 37, 4096])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_probe_perquery_matches_plain(cuda, batch, dtype):
-    """The per-query kernel against its plain version bit for bit, with a
-    -0.0 column (read back +0.0); against the tiled probe on hit and age,
-    and on values up to the sign of zero."""
-    rng = np.random.default_rng(batch + 1)
+@pytest.mark.parametrize("dim,dtype,offset", PERQUERY_EDGES)
+def test_probe_perquery_matches_plain(cuda, batch, dim, dtype, offset):
+    """The per-query kernel against its plain version bit for bit, with
+    two adjacent -0.0 columns (both halves of a packed bfloat16 unit) read
+    back +0.0; against the tiled probe on hit and age, and on values up to
+    the sign of zero."""
+    rng = np.random.default_rng(batch + dim + offset)
     now, ttl = 10 * MIN, MIN
-    tables, queries = probe_population(rng, 256, 8, 50, batch, now, ttl,
+    tables, queries = probe_population(rng, 256, 8, dim, batch, now, ttl,
                                        dtype, cuda)
-    tables[3][..., 7] = -0.0
+    if offset:
+        flat = torch.empty(tables[3].numel() + offset, dtype=dtype,
+                           device=cuda)
+        view = flat[offset:].view(tables[3].shape)
+        view.copy_(tables[3])
+        tables = tables[:3] + (view,)
+    tables[3][..., 6:8] = -0.0
     n0 = pk.LAUNCHES["perquery"]
     got = pk.cache_probe_perquery(*tables, *queries, now, ttl)
     torch.cuda.synchronize()
@@ -530,12 +545,41 @@ def test_probe_perquery_matches_plain(cuda, batch, dtype):
     assert_same(got, want)
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(got[1].view(bits), want[1].view(bits))
-    assert not bool(torch.signbit(got[1][:, 7]).any())
+    assert not bool(torch.signbit(got[1][:, 6:8]).any())
     hit, val, age, _ = pk.cache_probe_tiled(*tables, *queries, now, ttl)
     assert torch.equal(got[0], hit) and torch.equal(got[2], age)
     assert torch.equal(got[1], val)              # -0.0 == +0.0 as floats
     if bool(hit.any()):
-        assert bool(torch.signbit(val[hit][:, 7]).all())
+        assert bool(torch.signbit(val[hit][:, 6:8]).all())
+
+
+# ------------------------------------------------------ overload arm
+def test_overload_cuda_backend_matches_torch_backend(cuda):
+    """The overload timeline at SMOKE size on the card: the cuda backend
+    (one dual probe a step, the bag in the tower) and the torch backend
+    give the same report and bit-identical tiers and budget tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for backend in ("cuda", "torch"):
+        ops.reset_launch_counts()
+        report, state = launch.overload_timeline(
+            launch.plan_overload(minutes=12, users=300, batch=64,
+                                 failure_rate=0.05, failure_burst_rate=0.3,
+                                 backend=backend, device=cuda),
+            chunk_steps=4, log=lambda *_: None)
+        out[backend] = (report, state, ops.launch_counts())
+    (rep_c, st_c, n_c), (rep_t, st_t, n_t) = out["cuda"], out["torch"]
+    assert n_c["cache_probe_dual"] == rep_c["batches"]
+    assert n_c["embedding_bag"] > 0 and sum(n_t.values()) == 0
+    assert rep_c["phases"]["outage"]["deferred"] > 0
+    assert rep_c["phases"] == rep_t["phases"]
+    for tier in ("direct", "failover"):
+        for a, b in zip(getattr(st_c, tier), getattr(st_t, tier)):
+            assert torch.equal(a, b)
+    assert torch.equal(st_c.budget.tokens, st_t.budget.tokens)
 
 
 # ------------------------------------------------------ decode attention

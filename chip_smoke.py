@@ -83,6 +83,28 @@ Phases, each fatal on failure:
 10. **overload and quickstart entry points**:
     ``launch.serve.run_serving_overload`` and
     ``repro_torch.examples.quickstart.main`` as a user calls them.
+11. **compiled**: the compiled entry points (``jit_serve_many``: on the
+    card one CUDA graph per chunk shape, the whole chunk with its flushes,
+    captured at its first call and replayed) against eager
+    ``serve_many`` in the cells of phases 2, 4 and 9 at their widths,
+    over phase 2's whole stream (119 steps in chunks of 64 and 55; the
+    overload's 47/24/48) from identically initialised states: a first
+    compiled run captures, then eager, compiled, compiled, eager, each
+    from its state reset in place, so the compiled runs replay. Asserts
+    counters, sources, ages, embeddings and every state tensor (both
+    tiers, both rings, the budget tokens) bit-identical and each chunk's
+    launches (one probe and one bag a step) on every replay; prints each
+    graph's capture time and pool memory, host wall a step of the four
+    runs, and one profiled chunk of each mode (device kernel time, idle
+    share). Then the LM example's step at phase 6's width, eager
+    (``serve_step`` + ``flush``) against its own compiled loop
+    (``jit_serve_step`` + ``jit_flush``), eager/compiled/compiled/eager.
+
+The launchers and the examples serve through the compiled entry points
+(``jit_serve_many``, ``jit_serve_step``, ``jit_flush``), so phases 3, 5,
+6, 7, 9 and 10 run CUDA graphs (each captured at its first call, whose
+eager run is the call's result); phases 2 and 4 and the profile of phase
+9 drive eager ``serve_many``.
 
 Phase 1 also holds ``flash_attention`` against its plain version at the
 LM path's shapes (q (48, 2048, 32, 64), k/v (48, 2048, 4, 64), bf16,
@@ -1301,8 +1323,9 @@ def phase_profile(torch, tag, chunk, drive):
     from repro_torch.core import server as srv
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host ops' events are not read, and at
+    # ~800 ops a step they cost seconds to record and parse
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = drive()
         if isinstance(out, dict):
@@ -1892,7 +1915,9 @@ def overload_profile(torch, launch, dev, rep):
         print(f"[profile overload {phase}] {steps} steps: device kernel "
               f"time {busy_ms / steps:.3f} ms a step against the "
               f"unprofiled run's {rep['step_ms']:.3f} ms host step (all "
-              f"119 steps, staging included): idle share estimate "
+              f"119 steps, staging included; each chunk is its graph's "
+              f"first call, an eager run and a capture, phase 11 times "
+              f"replays): idle share estimate "
               f"{1 - busy_ms / (rep['step_ms'] * steps):.3f}")
 
 
@@ -1999,6 +2024,257 @@ def phase_entry_overload(torch):
           "run on the plain versions")
 
 
+# ------------------------------------------------------------ phase 11
+COMPILED_CHUNK = 64                          # the launchers' chunk_steps
+COMPILED_STEPS = 119                         # phase 2's whole stream
+LM_COMPILED_STEPS = 3                        # the first one captures
+
+
+def serve_chunks(torch, jit, params, state, calls):
+    """Serve ``calls`` [(server, inputs, steps)] through each server's
+    ``jit_serve_many`` (``jit``) or ``serve_many``, fetching each chunk's
+    counters as the launchers do. Returns the counters, outputs and
+    launches of each call, the host wall in ms and the final state."""
+    from repro_torch.core import server as srv
+    from repro_torch.kernels import ops
+
+    out = {"chunks": [], "ys": [], "launches": []}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for server, inputs, _ in calls:
+        run = server.jit_serve_many if jit else server.serve_many
+        before = ops.launch_counts()
+        state, acc, ys = run(params, state, *inputs, flush_every=1)
+        out["chunks"].append(srv.fetch_counters(acc))
+        after = ops.launch_counts()
+        out["launches"].append({k: after[k] - before[k] for k in after
+                                if after[k] != before[k]})
+        out["ys"].append(ys)
+    torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    out["state"] = state
+    return out
+
+
+def same_run(torch, a, b):
+    return a["chunks"] == b["chunks"] and all(
+        torch.equal(x, y) for ya, yb in zip(a["ys"], b["ys"])
+        for x, y in zip(ya, yb))
+
+
+def compiled_cell(torch, tag, params, calls, init, probe):
+    """One SASRec cell eager against compiled over the same staged chunks,
+    from identically initialised states: a first compiled run captures
+    each chunk shape's graph (and serves it); then eager, compiled,
+    compiled, eager, each from its state reset in place, so the compiled
+    runs replay. Asserts bit-identity of counters, outputs and every
+    state tensor, and each call's launches; profiles one chunk of each."""
+    from repro_torch.core.graph import tensors_of
+
+    torch.cuda.empty_cache()
+    t_cell = time.perf_counter()
+    fresh, states = init(), {False: init(), True: init()}
+
+    def reset(state):
+        for a, b in zip(tensors_of(state), tensors_of(fresh), strict=True):
+            a.copy_(b)
+
+    steps = sum(n for *_, n in calls)
+    servers = list({id(c[0]): c[0] for c in calls}.values())
+    graphs = lambda: [g for sv in servers
+                      for g in sv.jit_serve_many.graphs.values()]
+    reset(states[True])
+    prime = serve_chunks(torch, True, params, states[True], calls)
+    captured = graphs()
+    runs = {False: [], True: []}
+    for i, jit in enumerate((False, True, True, False)):
+        reset(states[jit])
+        runs[jit].append(serve_chunks(torch, jit, params, states[jit],
+                                      calls))
+        if i == 1:
+            for name, (a, b) in enumerate(zip(
+                    tensors_of(runs[False][0]["state"]),
+                    tensors_of(runs[True][0]["state"]))):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{tag}: state tensor {name} "
+                                         "differs, compiled vs eager")
+    if len(graphs()) != len(captured):
+        raise AssertionError(f"{tag}: a replay run captured again")
+    (e1, e2), (j1, j2) = runs[False], runs[True]
+    for name, run in (("the capturing run", prime), ("replay 1", j1),
+                      ("replay 2", j2), ("eager 2", e2)):
+        if not same_run(torch, e1, run):
+            raise AssertionError(f"{tag}: {name} differs from eager in "
+                                 "counters or outputs")
+    for run in (prime, j1, j2, e1):
+        for (_, _, n), got in zip(calls, run["launches"]):
+            if got != {probe: n, "embedding_bag": n}:
+                raise AssertionError(f"{tag}: launches {got} for a "
+                                     f"{n}-step chunk")
+    ms = {jit: [r["wall_ms"] / steps for r in runs[jit]]
+          for jit in (False, True)}
+    print(f"[compiled {tag}] {len(captured)} graphs captured (chunks of "
+          + "/".join(str(g.launches[probe]) for g in captured)
+          + " steps, each whole chunk with its flushes one graph): capture "
+          + "/".join(f"{g.capture_s:.2f}" for g in captured) + " s, graph "
+          "pools " + "/".join(f"{g.pool_bytes / 1e6:.1f}" for g in captured)
+          + f" MB; the capturing run {prime['wall_ms'] / steps:.2f} ms a "
+          f"step over {steps} steps")
+    print(f"[compiled {tag}] host wall ms a step (eager/compiled/compiled/"
+          f"eager, {steps} steps each): {ms[False][0]:.3f} / "
+          f"{ms[True][0]:.3f} / {ms[True][1]:.3f} / {ms[False][1]:.3f}; "
+          f"bit-identical: counters, sources, ages, embeddings, every state "
+          f"tensor; launches per replay {captured[0].launches}")
+    busy = {}
+    for jit in (False, True):
+        reset(states[jit])
+        server, inputs, n = calls[0]
+        run = server.jit_serve_many if jit else server.serve_many
+        got = phase_profile(
+            torch, f"profile compiled {tag} {'compiled' if jit else 'eager'}",
+            n, lambda: run(params, states[jit], *inputs, flush_every=1)[1])
+        if got is not None:
+            busy[jit] = sum(got[0].values()) / 1e3 / n
+    if len(busy) == 2:
+        print(f"[compiled {tag}] device kernel time a step eager "
+              f"{busy[False]:.3f} ms, compiled {busy[True]:.3f} ms; "
+              f"unprofiled idle share eager "
+              f"{1 - busy[False] / statistics.median(ms[False]):.3f}, "
+              f"compiled {1 - busy[True] / statistics.median(ms[True]):.3f}")
+    print(f"[compiled {tag}] cell done in {time.perf_counter() - t_cell:.1f}s")
+
+
+def compiled_lm(torch):
+    """The LM example's step eager (``serve_step`` + ``flush``) against
+    compiled (its own ``serve_steps``: ``jit_serve_step`` +
+    ``jit_flush``) at full width, eager/compiled/compiled/eager, each run
+    from a fresh deployment whose first compiled step captures."""
+    from repro_torch.core import server as srv
+    from repro_torch.examples import serve_lm_tower as ex
+    from repro_torch.models import transformer as tfm
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = lm_config()
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             dev)
+    kw = dict(seq=LM_SEQ, batch=64, minutes=LM_MINUTES, users=LM_USERS,
+              failure_rate=0.02, device=dev, backend="cuda")
+
+    def eager_steps():
+        server, state, batches = ex.deployment(cfg, **kw)
+        for keys, tokens, now, fails in batches:
+            res = server.serve_step(params, state, keys, tokens, now, fails)
+            state = server.flush(res.state, now)
+            yield res, srv.fetch_counters(res.stats), state
+
+    runs = {False: [], True: []}
+    for jit in (False, True, True, False):
+        gen = ex.serve_steps(cfg, params, **kw) if jit else eager_steps()
+        out = {"ms": [], "res": [], "stats": []}
+        for _ in range(LM_COMPILED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, stats, state = next(gen)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["res"].append(res)
+            out["stats"].append(stats)
+        out["state"] = state
+        runs[jit].append(out)
+        del gen
+    e, j = runs[False][0], runs[True][0]
+    if e["stats"] != j["stats"] or not all(
+            torch.equal(a.source, b.source) and torch.equal(a.age_ms,
+                                                            b.age_ms)
+            for a, b in zip(e["res"], j["res"])):
+        raise AssertionError("LM: compiled steps differ from eager in "
+                             "sources, ages or counters")
+    errs = [close_errors(torch, b.embeddings, a.embeddings)
+            for a, b in zip(e["res"], j["res"])]
+    errs += [close_errors(torch, getattr(j["state"], t).values,
+                          getattr(e["state"], t).values)
+             for t in ("direct", "failover")]
+    worst = (max(x[0] for x in errs), max(x[1] for x in errs))
+    if worst[0] > LM_TOL["max_abs"] or worst[1] > LM_TOL["rel_l2"]:
+        raise AssertionError(f"LM: compiled embeddings off by {worst}")
+    warm = lambda r: statistics.median(r["ms"][1:])
+    print(f"[compiled lm] TinyLlama-1.1B full width, seq {LM_SEQ}, B=64: "
+          f"host wall ms a step, first / warm median, eager/compiled/"
+          f"compiled/eager: " + " | ".join(
+              f"{r['ms'][0]:.1f} / {warm(r):.1f}" for r in (
+                  runs[False][0], runs[True][0], runs[True][1],
+                  runs[False][1]))
+          + f"; sources, ages, counters equal, embeddings and value planes "
+          f"max |err| {worst[0]:.3g} (bit-identical: {worst[0] == 0})")
+
+
+def phase_compiled(torch):
+    """Phase 11: the compiled entry points against eager ``serve_many`` in
+    the single-model, multi-model and overload cells, and the LM
+    example's step."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import server as srv
+    from repro_torch.core.config import CacheConfig, multi_model_tier_configs
+    from repro_torch.core.hashing import Key64
+    from repro_torch.launch import serve as launch
+
+    dev = torch.device("cuda")
+    tcfg, params, tower_fn, features_of = launch.build_tower(
+        "sasrec", backend="cuda", device=dev, smoke=False, seed=0)
+    keys, feats, nows, _ = staged_stream(torch, launch, features_of, dev,
+                                         COMPILED_STEPS)
+
+    def chunk_inputs(lo, n):
+        sl = slice(lo, lo + n)
+        return (Key64(keys.hi[sl], keys.lo[sl]),
+                {k: v[sl] for k, v in feats.items()}, nows[sl])
+
+    spans = list(launch._chunks(COMPILED_STEPS, COMPILED_CHUNK))
+    cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=N_BUCKETS,
+                      ways=WAYS, value_dim=tcfg.user_embed_dim,
+                      miss_budget_frac=0.75, backend="cuda")
+    server = srv.CachedEmbeddingServer(cfg=cfg, tower_fn=tower_fn,
+                                       miss_budget=int(BATCH * 0.75))
+    compiled_cell(
+        torch, "single", params,
+        [(server, chunk_inputs(lo, n), n) for lo, n in spans],
+        lambda: srv.init_server_state(cfg, writebuf_capacity=BATCH * 4,
+                                      device=dev), "cache_probe_dual")
+
+    cfgs = [dataclasses.replace(c, backend="cuda")
+            for c in multi_model_tier_configs(
+                value_dim=tcfg.user_embed_dim, n_buckets=MULTI_BUCKETS)]
+    multi = srv.MultiModelServer(cfgs=tuple(cfgs), tower_fn=tower_fn,
+                                 miss_budget=int(BATCH * 0.75), device=dev)
+    slots = torch.as_tensor(
+        (np.arange(BATCH)[None, :] + np.arange(COMPILED_STEPS)[:, None]) % 8,
+        dtype=torch.int32, device=dev)
+    compiled_cell(
+        torch, "multi", params,
+        [(multi, (slots[lo:lo + n], *chunk_inputs(lo, n)), n)
+         for lo, n in spans],
+        lambda: srv.init_multi_server_state(cfgs, writebuf_capacity=BATCH * 4,
+                                            device=dev),
+        "cache_probe_dual_multi")
+    del keys, feats, nows, slots, server, multi, params
+
+    plan = launch.plan_overload(backend="cuda", device=dev, **OVERLOAD)
+    plan.state = None
+    compiled_cell(
+        torch, "overload", plan.params,
+        [(sv, staged, int(staged[2].shape[0]))
+         for _, sv, staged in launch.overload_chunks(plan, COMPILED_CHUNK)],
+        lambda: srv.init_server_state(plan.spans[1][3].cfg,
+                                      writebuf_capacity=BATCH * 4,
+                                      device=dev), "cache_probe_dual")
+    del plan
+    compiled_lm(torch)
+
+
 def main() -> int:
     try:
         import torch
@@ -2037,6 +2313,8 @@ def main() -> int:
     phase_entry_overload(torch)
     print(f"[time] overload and quickstart entry phase done at "
           f"{time.perf_counter() - t0:.1f}s")
+    phase_compiled(torch)
+    print(f"[time] compiled phase done at {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in sorted(counts):

@@ -353,22 +353,46 @@ def _choose_way(match, empty, expired, ts, rank, lru=False,
 
 
 def _resolve_collisions(winner, bucket, way, n_buckets: int,
-                        ways: int) -> torch.Tensor:
+                        ways: int):
     """Last-writer-wins on residual slot collisions: scatter-max each
-    winner's batch index into its target slot, keep the index that won."""
+    winner's batch index into its target slot, keep the index that won.
+    Returns (winner (B,) bool, owner (B,) int32: the winner whose record
+    each row's target slot receives, -1 where no winner writes it)."""
     B = bucket.shape[0]
     idx = torch.arange(B, dtype=torch.int32, device=bucket.device)
     slot = bucket.long() * ways + way.long()
     best = torch.full((n_buckets * ways,), -1, dtype=torch.int32,
                       device=bucket.device)
-    best.scatter_reduce_(0, slot[winner], idx[winner], "amax",
+    # losers scatter -1, which never beats the fill: no host sync picks
+    # the winners out
+    best.scatter_reduce_(0, slot, torch.where(winner, idx, -1), "amax",
                          include_self=True)
-    return winner & (best[slot] == idx)
+    owner = best[slot]
+    return winner & (owner == idx), owner
 
 
 def _expired(empty, ts, now, ttl_ms) -> torch.Tensor:
     # TS_EMPTY lanes wrap; ~empty masks them
     return ~empty & (ref.wrap_i32(now - ts.long()) > _ttl_cols(ttl_ms))
+
+
+def _plan(state: CacheState, keys: Key64, now_ms, ttl_ms, write_mask,
+          evict_lru, buckets, dedupe_salt):
+    """:func:`plan_insert` plus each row's slot owner (the
+    :func:`_resolve_collisions` contract)."""
+    B = keys.hi.shape[0]
+    now = _now(now_ms, keys.hi.device)
+    bucket, match, empty, ts = _probe(state, keys, buckets)
+    live = (write_mask if write_mask is not None
+            else torch.ones(B, dtype=torch.bool, device=keys.hi.device))
+    winner = _dedupe(keys, live, dedupe_salt)
+    rank = _bucket_rank(bucket, winner, state.n_buckets)
+    recency = torch.maximum(ts, state.last_access_ts[bucket.long()])
+    way = _choose_way(match, empty, _expired(empty, ts, now, ttl_ms), ts,
+                      rank, lru=evict_lru, recency=recency)
+    winner, owner = _resolve_collisions(winner, bucket, way,
+                                        state.n_buckets, state.ways)
+    return winner, bucket, way, owner
 
 
 def plan_insert(state: CacheState, keys: Key64, now_ms, ttl_ms,
@@ -383,33 +407,34 @@ def plan_insert(state: CacheState, keys: Key64, now_ms, ttl_ms,
     identity (:func:`_dedupe`).
     Returns (winner (B,) bool, bucket (B,) int32, way (B,) int32) with
     distinct target slots for the winners."""
-    B = keys.hi.shape[0]
-    now = _now(now_ms, keys.hi.device)
-    bucket, match, empty, ts = _probe(state, keys, buckets)
-    live = (write_mask if write_mask is not None
-            else torch.ones(B, dtype=torch.bool, device=keys.hi.device))
-    winner = _dedupe(keys, live, dedupe_salt)
-    rank = _bucket_rank(bucket, winner, state.n_buckets)
-    recency = torch.maximum(ts, state.last_access_ts[bucket.long()])
-    way = _choose_way(match, empty, _expired(empty, ts, now, ttl_ms), ts,
-                      rank, lru=evict_lru, recency=recency)
-    winner = _resolve_collisions(winner, bucket, way, state.n_buckets,
-                                 state.ways)
-    return winner, bucket, way
+    return _plan(state, keys, now_ms, ttl_ms, write_mask, evict_lru,
+                 buckets, dedupe_salt)[:3]
 
 
 def _scatter_insert(state: CacheState, keys: Key64, values, ts_vec,
-                    winner, bucket, way) -> CacheState:
-    """Apply a resolved insert plan in place: only the winners' rows are
-    written (the reference drops the losers with ``mode="drop"``). A write
-    resets the slot's last_access_ts to the write timestamp."""
-    b = bucket.long()[winner]
-    w = way.long()[winner]
-    state.key_hi[b, w] = keys.hi[winner]
-    state.key_lo[b, w] = keys.lo[winner]
-    state.write_ts[b, w] = ts_vec[winner]
-    state.values[b, w] = values[winner].to(state.values.dtype)
-    state.last_access_ts[b, w] = ts_vec[winner]
+                    owner, bucket, way) -> CacheState:
+    """Apply a resolved insert plan in place: only the winners' records
+    land (the reference drops the losers with ``mode="drop"``). A write
+    resets the slot's last_access_ts to the write timestamp.
+
+    Every row writes its target slot, so no host sync picks the winners
+    out: a row writes the record of the slot's ``owner`` (-1: the slot's
+    own contents), and each slot receives one value whatever the order of
+    the writes."""
+    b, w = bucket.long(), way.long()
+    src = owner.clamp(min=0).long()
+    won = owner >= 0
+
+    def put(plane, rows):
+        new = rows[src].to(plane.dtype)
+        keep = won.view(-1, *([1] * (new.dim() - 1)))
+        plane[b, w] = torch.where(keep, new, plane[b, w])
+
+    put(state.key_hi, keys.hi)
+    put(state.key_lo, keys.lo)
+    put(state.write_ts, ts_vec)
+    put(state.values, values)
+    put(state.last_access_ts, ts_vec)
     return state
 
 
@@ -428,13 +453,11 @@ def insert(state: CacheState, keys: Key64, values: torch.Tensor, now_ms,
     :func:`plan_insert`), IN PLACE. ``write_mask`` disables individual
     writes; ``ts_ms`` carries per-entry compute timestamps (an embedding
     computed at t ages from t however late it is flushed)."""
-    winner, bucket, way = plan_insert(state, keys, now_ms, ttl_ms,
-                                      write_mask, evict_lru=evict_lru,
-                                      buckets=buckets,
-                                      dedupe_salt=dedupe_salt)
+    _, bucket, way, owner = _plan(state, keys, now_ms, ttl_ms, write_mask,
+                                  evict_lru, buckets, dedupe_salt)
     return _scatter_insert(state, keys, values,
                            _ts_vector(values, now_ms, ts_ms),
-                           winner, bucket, way)
+                           owner, bucket, way)
 
 
 def touch(state: CacheState, bucket, way, ts_ms,
@@ -449,9 +472,12 @@ def touch(state: CacheState, bucket, way, ts_ms,
     ok = (way >= 0) & (bucket >= 0) & (bucket < state.n_buckets)
     if live is not None:
         ok = ok & live
-    slot = bucket.long() * state.ways + way.long()
-    state.last_access_ts.view(-1).scatter_reduce_(0, slot[ok], ts_vec[ok],
-                                                  "amax", include_self=True)
+    # skipped rows scatter TS_EMPTY (the int32 minimum, which never beats
+    # a slot's value) into slot 0: no host sync picks the rows out
+    slot = torch.where(ok, bucket.long() * state.ways + way.long(), 0)
+    state.last_access_ts.view(-1).scatter_reduce_(
+        0, slot, torch.where(ok, ts_vec, TS_EMPTY), "amax",
+        include_self=True)
     return state
 
 
@@ -495,11 +521,11 @@ def insert_dual(direct: CacheState, failover: CacheState, keys: Key64,
         recency = torch.maximum(ts, state.last_access_ts[b.long()])
         way = _choose_way(match, empty, _expired(empty, ts, now, ttl), ts,
                           rank, lru=evict_lru, recency=recency)
-        win = _resolve_collisions(winner, b, way, state.n_buckets,
-                                  state.ways)
-        plans.append((state, win, b, way))
-    for state, win, b, way in plans:
-        _scatter_insert(state, keys, values, ts_vec, win, b, way)
+        _, owner = _resolve_collisions(winner, b, way, state.n_buckets,
+                                       state.ways)
+        plans.append((state, owner, b, way))
+    for state, owner, b, way in plans:
+        _scatter_insert(state, keys, values, ts_vec, owner, b, way)
     return direct, failover
 
 

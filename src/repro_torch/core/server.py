@@ -18,14 +18,23 @@ Optional stages as in the reference: in-batch coalescing
 (``coalesce_misses``), SLA admission (``infer_budget_per_step``) and
 access-recency touches (``eviction="lru"``).
 
-Ports of JAX machinery: ``jit`` and donation have no counterpart (PyTorch
-runs eagerly); the caches are never copied because ``serve_step`` does not
-write them and ``flush`` updates them IN PLACE. ``serve_step`` appends to
-the rings in place too, so the state passed in and the one returned share
-their tensors: callers follow the move pattern ``state = res.state``.
-``serve_many``'s ``lax.scan`` becomes a Python loop over a stream staged
-on the device; its counters accumulate on the device and the caller
-fetches them once per call (:func:`fetch_counters`).
+Ports of JAX machinery: the caches are never copied because
+``serve_step`` does not write them and ``flush`` updates them IN PLACE.
+``serve_step`` appends to the rings in place too, so the state passed in
+and the one returned share their tensors: callers follow the move pattern
+``state = res.state``. ``serve_many``'s ``lax.scan`` becomes a Python loop
+over a stream staged on the device; its counters accumulate on the device
+and the caller fetches them once per call (:func:`fetch_counters`).
+
+``jax.jit`` with the state donated becomes ``jit_serve_step``,
+``jit_serve_many`` and ``jit_flush`` (``core/graph.py``): on a CUDA state
+each call of a static key is captured once into a ``torch.cuda.CUDAGraph``
+(``jit_serve_many`` the whole S-step chunk, flushes included, as one
+graph) and replayed; on a CPU state the plain function runs. Their state
+shares every tensor with the one passed in: the admission budget, which
+``ratelimit`` returns fresh, is written back into the state's own tensor.
+The step's body makes no host sync and no host-to-device copy, so it can
+be captured.
 
 :class:`MultiModelServer` fronts the whole model registry with one
 stacked tier: a mixed-model batch is ONE ``cache_probe_dual_multi``
@@ -37,11 +46,13 @@ model's TTL and eviction policy through one shared insert plan. Per-model
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import cache as cache_lib
+from repro_torch.core import graph as graph_lib
 from repro_torch.core import ratelimit as rl_lib
 from repro_torch.core import writebuf as wb_lib
 from repro_torch.core.cache import CacheState
@@ -184,6 +195,48 @@ def take_rows(features, idx):
         return type(features)(take_rows(v, idx) for v in features)
     raise TypeError(f"features must be a tensor or a dict/tuple/list of "
                     f"tensors, got {type(features).__name__}")
+
+
+class _CompiledEntryPoints:
+    """``jit_serve_step``, ``jit_serve_many`` and ``jit_flush`` of both
+    servers: the reference's names, arguments and move pattern
+    (``state = res.state``, ``state = srv.jit_flush(state, now)``). Each
+    wraps one plain function of tensors: the step, the S-step loop or the
+    flush, which then writes every fresh state tensor back into the
+    state passed in (:func:`graph.write_back`)."""
+
+    def _step_out(self, params, state, *args, **kwargs):
+        res = self.serve_step(params, state, *args, **kwargs)
+        graph_lib.write_back(state, res.state)
+        return res.embeddings, res.source, res.age_ms, res.stats
+
+    def _many_out(self, params, state, *args, **kwargs):
+        new_state, acc, ys = self.serve_many(params, state, *args, **kwargs)
+        graph_lib.write_back(state, new_state)
+        return acc, ys
+
+    def _flush_out(self, state, now_ms):
+        graph_lib.write_back(state, self.flush(state, now_ms))
+
+    @functools.cached_property
+    def jit_serve_step(self) -> graph_lib.Compiled:
+        return graph_lib.Compiled(
+            self._step_out, inplace=2,
+            assemble=lambda bound, out: ServeResult(
+                embeddings=out[0], source=out[1], age_ms=out[2],
+                state=bound[1], stats=out[3]))
+
+    @functools.cached_property
+    def jit_serve_many(self) -> graph_lib.Compiled:
+        return graph_lib.Compiled(
+            self._many_out, inplace=2,
+            assemble=lambda bound, out: (bound[1], *out),
+            static_argnames=("flush_every", "collect"))
+
+    @functools.cached_property
+    def jit_flush(self) -> graph_lib.Compiled:
+        return graph_lib.Compiled(self._flush_out, inplace=1,
+                                  assemble=lambda bound, out: bound[0])
 
 
 def _one_hot(slots: torch.Tensor, n_models: int) -> torch.Tensor:
@@ -337,7 +390,7 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
 
 
 @dataclasses.dataclass(frozen=True)
-class CachedEmbeddingServer:
+class CachedEmbeddingServer(_CompiledEntryPoints):
     """Binds a user-tower fn to ERCache semantics.
 
     ``tower_fn(params, features) -> (rows, D)`` takes the batch's features
@@ -353,6 +406,20 @@ class CachedEmbeddingServer:
     @property
     def _admission(self) -> bool:
         return self.cfg.infer_budget_per_step is not None
+
+    @functools.cached_property
+    def _budget_tables(self) -> dict:
+        return {}
+
+    def _budget_table(self, device):
+        """``cfg``'s (rates, bursts, limited) on ``device``, built once
+        per server and device by the first step (which runs eagerly, also
+        under ``jit_*``), so no step copies it to the device again."""
+        table = self._budget_tables.get(device)
+        if table is None:
+            table = rl_lib.budget_table([self.cfg], device)
+            self._budget_tables[device] = table
+        return table
 
     # ----------------------------------------------------------------- serve
     def serve_step(self, params, state: ServerState, keys: Key64,
@@ -396,7 +463,7 @@ class CachedEmbeddingServer:
         admit = fo_strict = None
         new_budget = state.budget
         if self._admission:
-            rates, bursts, limited = rl_lib.budget_table([cfg], dev)
+            rates, bursts, limited = self._budget_table(dev)
             fo_strict = fo.hit & (fo.age_ms <= cfg.failover_ttl_ms)
             demand = unit.sum(dtype=torch.int32)[None]
             refilled = rl_lib.refill(state.budget, rates, bursts)
@@ -516,7 +583,7 @@ def init_multi_server_state(cfgs: Sequence[CacheConfig], dtype=torch.float32,
 
 
 @dataclasses.dataclass(frozen=True)
-class MultiModelServer:
+class MultiModelServer(_CompiledEntryPoints):
     """One serving tier fronting the WHOLE model registry (paper §3.3,
     Table 1): a serve batch is a mixed stream of (model slot, user key)
     pairs, the direct+failover probe of every model is ONE launch

@@ -54,14 +54,35 @@ def _ring_slots(count: torch.Tensor, mask: torch.Tensor, capacity: int):
     order (stable), at slots ``(count + pos) % capacity``. When a batch
     holds more live rows than the ring, only the LAST ``capacity`` are
     kept (two live rows a capacity apart would otherwise race for one
-    slot). Returns (source rows, target slots, number of live rows)."""
+    slot).
+
+    Every position writes its slot, so no host sync picks the kept rows
+    out: a dropped position writes what its slot ends with, the record of
+    the kept position that shares the slot or the slot's own contents, and
+    each slot receives one value whatever the order of the writes. Returns
+    (target slots (B,), source rows (B,), -1 where the slot keeps its
+    contents, number of live rows)."""
     B = mask.shape[0]
     order = torch.sort((~mask).to(torch.int32), stable=True).indices
     n_live = mask.sum(dtype=torch.int32)
     pos = torch.arange(B, dtype=torch.int32, device=mask.device)
-    keep = (pos < n_live) & (pos >= n_live - capacity)
     slot = ((count + pos) % capacity).long()
-    return order[keep], slot[keep], n_live
+    # the kept positions form the window [lo, n_live), at most `capacity`
+    # long: the one congruent to pos (mod capacity) owns pos's slot
+    lo = torch.clamp(n_live - capacity, min=0)
+    owner = lo + (pos - lo) % capacity
+    src = torch.where(owner < n_live,
+                      order[owner.clamp(max=max(B - 1, 0)).long()], -1)
+    return slot, src, n_live
+
+
+def _ring_write(plane: torch.Tensor, slot: torch.Tensor, src: torch.Tensor,
+                rows: torch.Tensor) -> None:
+    """``plane[slot] = rows[src]`` where ``src >= 0``, else the slot's own
+    contents (the :func:`_ring_slots` contract), IN PLACE."""
+    new = rows[src.clamp(min=0)].to(plane.dtype)
+    keep = (src >= 0).view(-1, *([1] * (new.dim() - 1)))
+    plane[slot] = torch.where(keep, new, plane[slot])
 
 
 def append(buf: WriteBuffer, keys: Key64, values: torch.Tensor, ts_ms,
@@ -74,13 +95,14 @@ def append(buf: WriteBuffer, keys: Key64, values: torch.Tensor, ts_ms,
     B = values.shape[0]
     ts_vec = torch.as_tensor(ts_ms, dtype=torch.int32,
                              device=values.device).expand(B)
-    src, slot, n_live = _ring_slots(buf.count, mask, buf.capacity)
-    buf.key_hi[slot] = keys.hi[src]
-    buf.key_lo[slot] = keys.lo[src]
-    buf.ts_ms[slot] = ts_vec[src]
-    buf.values[slot] = values[src].to(buf.values.dtype)
-    buf.model_id[slot] = 0 if model_ids is None else model_ids[src].to(
-        torch.int32)
+    slot, src, n_live = _ring_slots(buf.count, mask, buf.capacity)
+    _ring_write(buf.key_hi, slot, src, keys.hi)
+    _ring_write(buf.key_lo, slot, src, keys.lo)
+    _ring_write(buf.ts_ms, slot, src, ts_vec)
+    _ring_write(buf.values, slot, src, values)
+    _ring_write(buf.model_id, slot, src,
+                torch.zeros_like(keys.hi) if model_ids is None
+                else model_ids)
     buf.count.add_(n_live)
     return buf
 
@@ -141,12 +163,12 @@ def touch_append(buf: TouchBuffer, direct: cache_lib.LookupResult,
         live = live & mask
     bkt_d = torch.where(direct.hit & live, direct.bucket, -1)
     bkt_f = torch.where(failover.hit & live, failover.bucket, -1)
-    src, slot, n_live = _ring_slots(buf.count, live, buf.capacity)
-    buf.bucket_d[slot] = bkt_d[src]
-    buf.way_d[slot] = direct.way[src]
-    buf.bucket_f[slot] = bkt_f[src]
-    buf.way_f[slot] = failover.way[src]
-    buf.ts_ms[slot] = ts_vec[src]
+    slot, src, n_live = _ring_slots(buf.count, live, buf.capacity)
+    _ring_write(buf.bucket_d, slot, src, bkt_d)
+    _ring_write(buf.way_d, slot, src, direct.way)
+    _ring_write(buf.bucket_f, slot, src, bkt_f)
+    _ring_write(buf.way_f, slot, src, failover.way)
+    _ring_write(buf.ts_ms, slot, src, ts_vec)
     buf.count.add_(n_live)
     return buf
 

@@ -3,7 +3,8 @@
 Twin of ``examples/quickstart.py``. Creates a cache, serves a batch through
 the direct -> tower -> failover pipeline, and shows the provenance
 accounting: the paper's Fig. 3 in miniature. Each step is one
-``serve_step`` (and one ``flush``); the hit rate comes from one counter
+``jit_serve_step`` (and one ``jit_flush``): on the card a CUDA graph
+replay, captured at its first call; the hit rate comes from one counter
 fetch.
 
     PYTHONPATH=src python -m repro_torch.examples.quickstart
@@ -54,22 +55,22 @@ def main(device="cuda", backend: str = "cuda") -> None:
         return [names[s] for s in res.source.tolist()]
 
     # t=0: cold cache; towers run (up to the miss budget of 6)
-    res = server.serve_step(params, state, keys, feats, 0)
-    state = server.flush(res.state, 0)             # async write, off path
+    res = server.jit_serve_step(params, state, keys, feats, 0)
+    state = server.jit_flush(res.state, 0)         # async write, off path
     print("t=0    :", sources(res))
 
     # t=+1min: every request hits the direct cache
-    res = server.serve_step(params, state, keys, feats, 60_000)
-    state = server.flush(res.state, 60_000)
+    res = server.jit_serve_step(params, state, keys, feats, 60_000)
+    state = server.jit_flush(res.state, 60_000)
     print("t=+1min:", sources(res))
     stats = srv.fetch_counters(res.stats)          # one transfer
     print("         hit rate:", stats["direct_hits"] / 8)
 
     # t=+10min: direct TTL expired; towers fail, failover cache recovers
     t = 10 * MINUTE_MS
-    res = server.serve_step(params, state, keys, feats, t,
-                            failure_mask=torch.ones(8, dtype=torch.bool,
-                                                    device=device))
+    res = server.jit_serve_step(params, state, keys, feats, t,
+                                failure_mask=torch.ones(8, dtype=torch.bool,
+                                                        device=device))
     print("t=+10m :", sources(res),
           "(all inferences failed; failover TTL=1h recovered them)")
     print("ages   :", [a // 1000 for a in res.age_ms.tolist()], "seconds")

@@ -4,8 +4,9 @@ Twin of ``examples/serve_lm_tower.py``. A LLaMA-family LM (the reduced
 TinyLlama by default) produces pooled user representations (paper ref
 [24], Scaling User Modeling); ERCache fronts it over the Fig. 2-calibrated
 request stream with injected inference failures. Each step is one
-``serve_step`` and one ``flush``, with one counter fetch; the tower's
-features are the bare (B, S) token tensor. Reports the Table 2/3
+``jit_serve_step`` and one ``jit_flush`` (on the card CUDA graph
+replays), with one counter fetch; the tower's features are the bare
+(B, S) token tensor. Reports the Table 2/3
 quantities for this deployment.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm_tower [--minutes 90]
@@ -45,14 +46,12 @@ def tokens_of(ids, seq: int, vocab: int, device) -> torch.Tensor:
     return torch.as_tensor(tokens.astype(np.int32), device=device)
 
 
-def serve_steps(cfg, params, seq: int = SEQ, batch: int = BATCH,
-                minutes: int = 90, users: int = 1200,
-                failure_rate: float = 0.02, device="cuda",
-                backend: str = "cuda"):
-    """The example's deployment, one serve step + flush per item: yields
-    ``(ServeResult, stats, state)`` with the step's stats fetched to the
-    host in one transfer and the state after the flush. ``params`` is the
-    tower (``transformer.init_params`` or ``load_jax_params``)."""
+def deployment(cfg, seq: int = SEQ, batch: int = BATCH, minutes: int = 90,
+               users: int = 1200, failure_rate: float = 0.02,
+               device="cuda", backend: str = "cuda"):
+    """The example's deployment before its first step: ``(server, state,
+    batches)``, ``batches`` yielding each step's ``(keys, tokens, now_ms,
+    failure_mask)`` on the device."""
     device = resolve_device(device)
 
     def tower_fn(p, tokens):
@@ -71,14 +70,33 @@ def serve_steps(cfg, params, seq: int = SEQ, batch: int = BATCH,
     times_ms, uids = generate_stream_fast(stream,
                                           InterArrivalDist(FIG6_KNOTS))
     injector = FailureInjector(base_rate=failure_rate, seed=0)
-    for lo in range(0, len(uids) - batch + 1, batch):
-        ids = uids[lo:lo + batch]
-        now = int(times_ms[lo + batch - 1])
-        res = server.serve_step(
-            params, state, Key64.from_int(ids, device=device),
-            tokens_of(ids, seq, cfg.vocab, device), now,
-            torch.as_tensor(injector.mask(batch, now), device=device))
-        state = server.flush(res.state, now)
+
+    def batches():
+        for lo in range(0, len(uids) - batch + 1, batch):
+            ids = uids[lo:lo + batch]
+            now = int(times_ms[lo + batch - 1])
+            yield (Key64.from_int(ids, device=device),
+                   tokens_of(ids, seq, cfg.vocab, device), now,
+                   torch.as_tensor(injector.mask(batch, now), device=device))
+
+    return server, state, batches()
+
+
+def serve_steps(cfg, params, seq: int = SEQ, batch: int = BATCH,
+                minutes: int = 90, users: int = 1200,
+                failure_rate: float = 0.02, device="cuda",
+                backend: str = "cuda"):
+    """The example's deployment, one ``jit_serve_step`` + ``jit_flush``
+    per item (on the card CUDA graph replays, each captured at its first
+    call): yields ``(ServeResult, stats, state)`` with the step's stats
+    fetched to the host in one transfer and the state after the flush.
+    ``params`` is the tower (``transformer.init_params`` or
+    ``load_jax_params``)."""
+    server, state, batches = deployment(cfg, seq, batch, minutes, users,
+                                        failure_rate, device, backend)
+    for keys, tokens, now, fails in batches:
+        res = server.jit_serve_step(params, state, keys, tokens, now, fails)
+        state = server.jit_flush(res.state, now)
         yield res, srv.fetch_counters(res.stats), state
 
 

@@ -46,7 +46,17 @@ def reset_launch_counts() -> None:
         d[k] = 0
 
 
+def add_launch_counts(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (kernel name -> launches) to the counts. A CUDA graph
+    replay launches the kernels captured in it without calling their
+    wrappers, so the replay adds them here (``core/graph.py``)."""
+    for name, n in delta.items():
+        d, k = _COUNTERS[name]
+        d[k] += n
+
+
 __all__ = ["cache_probe", "cache_probe_tiled", "cache_probe_dual",
            "cache_probe_dual_multi", "cache_probe_perquery",
            "decode_attention", "embedding_bag", "flash_attention",
-           "launch_counts", "reset_launch_counts", "ref"]
+           "launch_counts", "reset_launch_counts", "add_launch_counts",
+           "ref"]

@@ -6,8 +6,10 @@ Twin of the basic, ``--no-cache``, ``--multi`` and ``--overload`` modes of
 drives one ``CachedEmbeddingServer`` fronting a SASRec user tower (or,
 with ``--multi``, one ``MultiModelServer`` fronting the whole per-model
 registry, each request fanned out to one model); the stream is staged on
-the device in (S, B) chunks and each chunk is ONE ``serve_many`` call
-whose counters come back with ONE host transfer. ``--coalesce`` dedupes
+the device in (S, B) chunks and each chunk is ONE ``jit_serve_many`` call
+(on the card one CUDA graph replay, captured at the chunk shape's first
+call) whose counters come back with ONE host transfer; the ``--no-cache``
+baseline runs eagerly, as the reference's. ``--coalesce`` dedupes
 each batch's missed users so the tower runs once per distinct user.
 ``--overload`` replays the stream against a constrained inference budget
 (SLA admission control): a capacity outage with a flash crowd, whose
@@ -141,7 +143,7 @@ def run_serving(arch: str = "sasrec", minutes: int = 60, users: int = 2000,
             keys, feats, nows, fails = _stage_chunk(
                 uids, times_ms, features_of, lo * batch, n_steps, batch,
                 device, injector=injector)
-            state, acc, _ = server.serve_many(
+            state, acc, _ = server.jit_serve_many(
                 params, state, keys, feats, nows, fails, flush_every=1,
                 collect=False)
             counters.merge(ServingCounters.from_stats(
@@ -232,7 +234,7 @@ def run_serving_multi(arch: str = "sasrec", minutes: int = 60,
         slots = torch.as_tensor(
             (np.arange(batch)[None, :] + lo + np.arange(n_steps)[:, None])
             % n_models, dtype=torch.int32, device=device)
-        state, acc, _ = server.serve_many(
+        state, acc, _ = server.jit_serve_many(
             params, state, slots, keys, feats, nows, fails, flush_every=1,
             collect=False)
         c = srv_lib.fetch_counters(acc)      # one transfer per chunk
@@ -397,8 +399,8 @@ def overload_timeline(plan: OverloadPlan, chunk_steps: int = 64,
     state = plan.state
     t0 = time.perf_counter()
     for phase, server, staged in overload_chunks(plan, chunk_steps):
-        state, acc, _ = server.serve_many(plan.params, state, *staged,
-                                          flush_every=1, collect=False)
+        state, acc, _ = server.jit_serve_many(plan.params, state, *staged,
+                                              flush_every=1, collect=False)
         c = srv_lib.fetch_counters(acc)          # one transfer per chunk
         phases[phase].merge(ServingCounters.from_stats(c))
         stale[phase][0] += c["failover_stale_sum_ms"]

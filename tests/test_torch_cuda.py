@@ -697,3 +697,265 @@ def test_lm_decode_cuda_backend_takes_any_cache_length(cuda, dtype):
     512 and not a multiple of it: ``decode_step`` passes one block of S, as
     the reference's decode path takes any S."""
     _decode_cuda_vs_torch(cuda, dtype, 590, 600)
+
+
+# ------------------------------------------- compiled entry points (graphs)
+def _jit_setup(cuda, kind, backend="cuda"):
+    """A SMOKE SASRec server (single-model with admission, coalescing and
+    LRU touches, or the multi-model tier with admission and coalescing on
+    some models) and a fresh state on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import server as S
+    from repro_torch.core.config import CacheConfig, multi_model_tier_configs
+    from repro_torch.models import recsys as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_t = get_config("sasrec", smoke=True)
+    model = R.init_params(torch.Generator(device=cuda).manual_seed(0), cfg_t,
+                          cuda)
+    tower = lambda p, f: R.tower_step(p, f, cfg_t, impl=backend)
+    if kind == "multi":
+        cfgs = [dataclasses.replace(
+            c, backend=backend, coalesce_misses=m % 2 == 0,
+            infer_budget_per_step=2.5 if m < 3 else None)
+            for m, c in enumerate(multi_model_tier_configs(
+                value_dim=cfg_t.embed_dim, n_buckets=32))]
+        srv = S.MultiModelServer(cfgs=tuple(cfgs), miss_budget=24,
+                                 device=cuda, tower_fn=tower)
+        state = lambda: S.init_multi_server_state(cfgs, writebuf_capacity=96,
+                                                  device=cuda)
+    else:
+        cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=32, ways=4,
+                          failover_n_buckets=16, failover_ways=2,
+                          value_dim=cfg_t.embed_dim, cache_ttl_ms=MIN,
+                          backend=backend, coalesce_misses=True,
+                          infer_budget_per_step=3.5, eviction="lru")
+        srv = S.CachedEmbeddingServer(cfg=cfg, miss_budget=24,
+                                      tower_fn=tower)
+        state = lambda: S.init_server_state(cfg, writebuf_capacity=96,
+                                            device=cuda)
+    return srv, model, state, cfg_t
+
+
+def _jit_chunks(cuda, kind, cfg_t, n_chunks, steps):
+    """``n_chunks`` staged (S, B) chunks of one stream: the serve_many
+    inputs after the state."""
+    from repro_torch.core.hashing import Key64
+
+    rng = np.random.default_rng(11)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    out = []
+    for c in range(n_chunks):
+        ids = rng.choice(np.arange(80) * 104729, size=(steps, 48))
+        seq = rng.integers(0, cfg_t.vocab, (steps, 48, cfg_t.seq_len))
+        nows = (np.arange(steps) + c * steps).astype(np.int32) * 20_000
+        fails = rng.uniform(size=(steps, 48)) < 0.1
+        args = (Key64.from_int(ids, device=cuda),
+                {"seq": t(seq.astype(np.int32))}, t(nows), t(fails))
+        if kind == "multi":
+            args = (t(rng.integers(0, 8, (steps, 48)).astype(np.int32)),
+                    *args)
+        out.append(args)
+    return out
+
+
+def _state_leaves(state):
+    from repro_torch.core.graph import tensors_of
+
+    return tensors_of(state)
+
+
+@pytest.mark.parametrize("kind", ["single", "multi"])
+def test_jit_serve_many_replay_equals_eager(cuda, kind):
+    """Three chunks through ``jit_serve_many`` (the first runs eagerly and
+    is captured, the next two replay the graph) equal three eager
+    ``serve_many`` chunks bit for bit: outputs, counters (per-model
+    vectors too), every cache plane, both rings and the budget tokens. A
+    replay that read a stale budget or ring would differ from the second
+    replay on. The counts advance by the captured launches on each
+    replay."""
+    from repro_torch.core import server as S
+    from repro_torch.kernels import ops
+
+    srv, model, init, cfg_t = _jit_setup(cuda, kind)
+    chunks = _jit_chunks(cuda, kind, cfg_t, 3, 5)
+    out = {}
+    for mode in ("eager", "jit"):
+        run = srv.serve_many if mode == "eager" else srv.jit_serve_many
+        state = init()
+        leaves0 = _state_leaves(state)
+        ops.reset_launch_counts()
+        got, counts = [], []
+        for args in chunks:
+            state, acc, ys = run(model, state, *args, flush_every=2)
+            got.append((S.fetch_counters(acc), ys))
+            counts.append(ops.launch_counts())
+        if mode == "jit":
+            assert len(srv.jit_serve_many.graphs) == 1
+            assert all(a is b for a, b in zip(_state_leaves(state), leaves0))
+        out[mode] = (state, got, counts)
+    (st_e, got_e, n_e), (st_j, got_j, n_j) = out["eager"], out["jit"]
+    probe = "cache_probe_dual_multi" if kind == "multi" else "cache_probe_dual"
+    assert [n[probe] for n in n_j] == [5, 10, 15]
+    assert n_j == n_e
+    for (acc_e, ys_e), (acc_j, ys_j) in zip(got_e, got_j):
+        assert acc_e == acc_j
+        for a, b in zip(ys_e, ys_j):
+            assert torch.equal(a, b)
+    for a, b in zip(_state_leaves(st_e), _state_leaves(st_j)):
+        assert torch.equal(a, b)
+
+
+def test_jit_serve_step_and_flush_replay_equal_eager(cuda):
+    """Single steps through ``jit_serve_step`` + ``jit_flush`` with the
+    clock as a host int (staged outside the graph) equal eager
+    ``serve_step`` + ``flush`` bit for bit, step after step; outputs are
+    fresh tensors that the next replay does not overwrite."""
+    from repro_torch.core import server as S
+    from repro_torch.core.hashing import Key64
+
+    srv, model, init, cfg_t = _jit_setup(cuda, "single")
+    keys, feats, nows, fails = _jit_chunks(cuda, "single", cfg_t, 1, 6)[0]
+    out = {}
+    for mode in ("eager", "jit"):
+        step = srv.serve_step if mode == "eager" else srv.jit_serve_step
+        flush = srv.flush if mode == "eager" else srv.jit_flush
+        state, res_all = init(), []
+        for i in range(6):
+            res = step(model, state, Key64(keys.hi[i], keys.lo[i]),
+                       {"seq": feats["seq"][i]}, int(nows[i]), fails[i])
+            state = flush(res.state, int(nows[i]))
+            res_all.append((res.embeddings, res.source, res.age_ms,
+                            S.fetch_counters(res.stats)))
+        out[mode] = (state, res_all)
+    assert len(srv.jit_serve_step.graphs) == 1
+    assert len(srv.jit_flush.graphs) == 1
+    (st_e, res_e), (st_j, res_j) = out["eager"], out["jit"]
+    for a, b in zip(res_e, res_j):
+        assert a[3] == b[3]
+        for x, y in zip(a[:3], b[:3]):
+            assert torch.equal(x, y)
+    for a, b in zip(_state_leaves(st_e), _state_leaves(st_j)):
+        assert torch.equal(a, b)
+
+
+def test_jit_recaptures_for_a_new_state_only(cuda):
+    """A state with other tensors captures anew; the same state and other
+    inputs of the same shapes replay. Each replay adds the captured
+    launches to the counts."""
+    from repro_torch.kernels import ops
+
+    srv, model, init, cfg_t = _jit_setup(cuda, "single")
+    chunks = _jit_chunks(cuda, "single", cfg_t, 3, 4)
+    first = init()
+    srv.jit_serve_many(model, first, *chunks[0])
+    graph = next(iter(srv.jit_serve_many.graphs.values()))
+    assert graph.launches["cache_probe_dual"] == 4
+    assert graph.launches["embedding_bag"] == 4
+    before = ops.launch_counts()
+    srv.jit_serve_many(model, first, *chunks[1])
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == graph.launches
+    assert len(srv.jit_serve_many.graphs) == 1
+    second = init()
+    srv.jit_serve_many(model, second, *chunks[2])
+    assert len(srv.jit_serve_many.graphs) == 2
+    srv.jit_serve_many(model, first, *chunks[2], collect=False)
+    assert len(srv.jit_serve_many.graphs) == 3
+
+
+def test_jit_captures_while_a_dead_server_awaits_collection(cuda):
+    """A server is cyclic garbage once dropped (its entry points refer
+    back to it), so its graphs live until the collector runs, and a graph
+    destroyed inside another capture invalidates that capture. Here the
+    collector runs inside a capture (the tower calls it while the stream
+    captures; automatic collection is off, so the dead server survives
+    until then): the capture must still succeed, because the dead graph
+    is collected before the capture begins, and replay equal to eager."""
+    import dataclasses
+    import gc
+
+    from repro_torch.core import server as S
+
+    dead, model, init, cfg_t = _jit_setup(cuda, "single")
+    chunks = _jit_chunks(cuda, "single", cfg_t, 2, 4)
+
+    def tower(p, f):
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()
+        return dead_tower(p, f)
+
+    gc_was_on = gc.isenabled()
+    gc.disable()
+    try:
+        dead.jit_serve_many(model, init(), *chunks[0])
+        assert len(dead.jit_serve_many.graphs) == 1
+        dead_tower = dead.tower_fn
+        live = dataclasses.replace(dead, tower_fn=tower)
+        del dead
+        state = init()
+        got = live.jit_serve_many(model, state, *chunks[1])
+        for a, b in zip(_state_leaves(state), _state_leaves(init())):
+            a.copy_(b)
+        replay = live.jit_serve_many(model, state, *chunks[1])
+        assert len(live.jit_serve_many.graphs) == 1
+        want = live.serve_many(model, init(), *chunks[1])
+    finally:
+        if gc_was_on:
+            gc.enable()
+    for res in (got, replay):
+        assert S.fetch_counters(res[1]) == S.fetch_counters(want[1])
+        for a, b in zip(res[2], want[2]):
+            assert torch.equal(a, b)
+
+
+_SYNCING_TOWER = """
+import sys
+import torch
+sys.path.insert(0, "src")
+from repro_torch.core import server as S
+from repro_torch.core.config import CacheConfig
+from repro_torch.core.hashing import Key64
+
+dev = torch.device("cuda")
+cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=16, ways=4,
+                  value_dim=8, backend="cuda")
+
+def tower(p, f):
+    scale = float(f.abs().sum().item())   # a host sync inside the step
+    return f @ p / max(scale, 1.0)
+
+srv = S.CachedEmbeddingServer(cfg=cfg, tower_fn=tower, miss_budget=8)
+state = S.init_server_state(cfg, writebuf_capacity=32, device=dev)
+keys = Key64.from_int(torch.arange(24).reshape(3, 8).numpy(), device=dev)
+feats = torch.randn(3, 8, 8, device=dev)
+nows = torch.arange(3, dtype=torch.int32, device=dev) * 1000
+eager = srv.serve_many(torch.eye(8, device=dev), S.init_server_state(
+    cfg, writebuf_capacity=32, device=dev), keys, feats, nows)
+try:
+    srv.jit_serve_many(torch.eye(8, device=dev), state, keys, feats, nows)
+except RuntimeError as e:
+    print("RAISED", type(e).__name__, str(e).splitlines()[0])
+    sys.exit(0)
+print("NOT RAISED")
+sys.exit(1)
+"""
+
+
+def test_jit_serve_many_raises_on_a_host_sync_in_the_step(cuda):
+    """A tower that calls ``.item()`` runs eagerly but cannot be
+    captured: ``jit_serve_many`` raises instead of running the eager loop.
+    In a subprocess, since a failed capture may leave the CUDA context
+    unusable."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    done = subprocess.run([sys.executable, "-c", _SYNCING_TOWER], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stdout + done.stderr
+    assert "RAISED" in done.stdout

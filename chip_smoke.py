@@ -99,6 +99,31 @@ Phases, each fatal on failure:
     share). Then the LM example's step at phase 6's width, eager
     (``serve_step`` + ``flush``) against its own compiled loop
     (``jit_serve_step`` + ``jit_flush``), eager/compiled/compiled/eager.
+12. **towers and combiner**: Wide&Deep, BST and MIND at their published
+    widths (``get_config(arch)``, random weights from seed 0 drawn in
+    place on the card; Wide&Deep's 40 x 2M x 32 tables are 10.24 GB),
+    each behind ``CachedEmbeddingServer`` with ``backend="cuda"`` in
+    phase 2's deployment (2**20 x 8 tiers at D = the tower's
+    ``user_embed_dim``, 256/32/256; B=512, miss budget 384) over phase
+    2's whole stream (119 steps through ``jit_serve_many`` in chunks of
+    64 and 55, as the launcher serves): one dual probe and one bag
+    launch a step (Wide&Deep's 40 field bags are one launch), an eager
+    ``backend="torch"`` replay bit-identical in counters, sources, ages
+    and the key, write_ts and last_access planes, and in embeddings and
+    values for BST and MIND (Wide&Deep: ``WD_TOL``), a timed replay of the
+    captured graphs and a profiled chunk. Then each tower's score
+    (``wide_deep_score``, ``bst_score``) cuda vs torch at B=512,
+    ``retrieval_step`` on BST's and MIND's own 1M-row item tables against
+    a float64 recompute, and ``run_serving(arch=...)`` per tower as a user
+    calls it. The bag kernel is held and timed at Wide&Deep's shape (the
+    (80M, 32) view, 15,360 and 20,480 bags of nnz 4) beside
+    ``F.embedding_bag`` with offsets. Last, the combiner at
+    ``benchmarks/bench_serving_cost.py``'s deployment (30 members x D=64,
+    B=1024; a 2**16 x 8 grouped tier of 4.03 GB): grouped writes, the 30
+    member reads each one ``cache_probe_tiled`` launch, cuda == torch in
+    every read and plane; the tiled probe timed at its 7,680-byte rows;
+    one grouped write against 30 single-table inserts (Fig. 5), device
+    kernel time under the profiler and host wall.
 
 The launchers and the examples serve through the compiled entry points
 (``jit_serve_many``, ``jit_serve_step``, ``jit_flush``), so phases 3, 5,
@@ -132,7 +157,8 @@ probes and the bag, the multi-model serve (phase 4) for the multi-model
 probe, the LM serve (phase 6, its cuda run) for ``flash_attention``, the
 probe shootout for ``cache_probe_perquery`` and the decode steps (phase 8,
 the cuda run) for ``decode_attention``; the counts are reset just before
-each path and read just after. Phases 9 and 10 check their own counts.
+each path and read just after. Phases 9, 10 and 12 check their own
+counts.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and ends
 with ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -185,6 +211,31 @@ def device_ms(fn, n: int = 40, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
+
+
+def kernel_ms(torch, fn, reps: int = 5):
+    """(device kernel ms, host wall ms, device ops) of one ``fn()`` call,
+    averaged over ``reps`` calls: the summed durations of its kernels,
+    memcpys and memsets under torch.profiler, and the synchronized wall.
+    For a call of more launches than the launch queue holds, where
+    :func:`device_ms` would time the host's dispatch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.end - e.time_range.start for e in ev)
+    return busy_us / 1e3 / reps, wall_ms, len(ev) / reps
 
 
 # ------------------------------------------------------------ phase 1
@@ -2275,6 +2326,454 @@ def phase_compiled(torch):
     compiled_lm(torch)
 
 
+# ------------------------------------------------------------ phase 12
+TOWER_ARCHS = ("wide-deep", "bst", "mind")
+# Wide&Deep, cuda vs torch: its field bags sum nnz = 4 float32 rows in
+# another order than the plain ``sum`` (a few ulps of each bag), carried
+# through the float32 MLP; BST and MIND gather nnz = 1 rows (copies) and
+# are held bit for bit.
+WD_TOL = dict(atol=1e-6, rtol=1e-5)
+RETRIEVAL_QUERIES = 64                       # users scored against 1M items
+# benchmarks/bench_serving_cost.py's grouped write: 30 members x D=64 (a
+# 1,920-float group row) at B=1024, here on a 2**16 x 8 grouped tier;
+# member TTLs 1/5/10/30 min in turn, so one read mixes fresh and stale
+GROUP = dict(members=30, dim=64, n_buckets=1 << 16, ways=8, batch=1024)
+
+
+def close_or_equal(torch, arch, a, b, what):
+    """BST and MIND: bit for bit; Wide&Deep: within WD_TOL. Returns the
+    max |a - b|."""
+    if arch != "wide-deep":
+        if not torch.equal(a, b):
+            raise AssertionError(f"{arch}: {what} differ between backends")
+        return 0.0
+    torch.testing.assert_close(a, b, **WD_TOL, msg=f"{arch}: {what}")
+    return float((a - b).abs().max())
+
+
+def wide_deep_bag_shape(torch, tables):
+    """The bag kernel at Wide&Deep's shape, the (F*V, D) = (80M, 32)
+    float32 view of the field tables: ``field_embedding_bag`` (one launch
+    for all 40 fields) against the per-field plain bags at 15,360 bags
+    (the tower on a miss budget of 384 rows) and 20,480 (the score at
+    B=512) with 30% -1 pads, then the kernel timed at 15,360 bags of
+    field-offset ids drawn as the launcher draws them (no pads) beside
+    ``F.embedding_bag`` with offsets on the same ids. The bound counts
+    each distinct row, each id and each output once."""
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.kernels import ref
+    from repro_torch.models import recsys as rec
+
+    dev = tables.device
+    n_fields, vocab, dim = tables.shape
+    flat = tables.view(n_fields * vocab, dim)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    offset = (torch.arange(n_fields, device=dev, dtype=torch.int32)
+              * vocab)[:, None]
+
+    def field_ids(rows, pad):
+        ids = torch.randint(0, vocab, (rows, n_fields, 4), generator=gen,
+                            device=dev, dtype=torch.int32)
+        ids[torch.rand(ids.shape, generator=gen, device=dev) < pad] = -1
+        return ids
+
+    err = 0.0
+    for rows in (384, 512):
+        ids = field_ids(rows, 0.3)
+        n0 = ebk.LAUNCHES["embedding_bag"]
+        got = rec.field_embedding_bag(tables, ids, impl="cuda")
+        if ebk.LAUNCHES["embedding_bag"] != n0 + 1:
+            raise AssertionError("field_embedding_bag is not one launch")
+        want = torch.stack([ref.embedding_bag_ref(tables[f], ids[:, f])
+                            for f in range(n_fields)], dim=1)
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+        if bool(got[(ids < 0).all(dim=-1)].any()):
+            raise AssertionError("a bag of -1 pads is not zeros")
+        err = max(err, float((got - want).abs().max()))
+    batches = [(field_ids(384, 0.0) + offset).view(-1, 4)
+               for _ in range(40)]
+    flat_ids = [b.view(-1).long() for b in batches]
+    n_bags = batches[0].shape[0]
+    offsets = torch.arange(0, 4 * n_bags, 4, device=dev)
+    distinct = statistics.mean(int(torch.unique(b).numel()) for b in batches)
+    bag_bytes = n_bags * 4 * 4 + distinct * dim * 4 + n_bags * dim * 4
+    r = dict(ms=device_ms(lambda i: ebk.embedding_bag(flat, batches[i % 40])),
+             plain_ms=device_ms(lambda i: ref.embedding_bag_ref(
+                 flat, batches[i % 40]), n=10),
+             library_ms=device_ms(lambda i: torch.nn.functional.embedding_bag(
+                 flat_ids[i % 40], flat, offsets, mode="sum")),
+             bound_ms=bag_bytes / HBM_BYTES_PER_S * 1e3)
+    print(f"[kernels] embedding_bag at Wide&Deep's shape ((F*V, D) = "
+          f"({n_fields * vocab}, {dim}) float32 view, nnz 4): "
+          f"field_embedding_bag one launch for {n_fields} fields, within "
+          f"atol=rtol=1e-6 of the per-field plain bags at 15360 and 20480 "
+          f"bags with 30% -1 pads (max |err| {err:.3g}); {n_bags} bags: "
+          f"{r['ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, "
+          f"F.embedding_bag with offsets {r['library_ms'] * 1e3:.2f} us), "
+          f"bound {r['bound_ms'] * 1e3:.3f} us by bytes ({bag_bytes:.0f} B: "
+          f"{distinct:.0f} distinct rows of {dim * 4} B, the ids, the "
+          f"outputs)")
+
+
+def tower_scores(torch, arch, tcfg, params, feats):
+    """The serve-side score (Wide&Deep, BST) cuda vs torch at B=512, and
+    ``retrieval_step`` on the tower's own 1M-row item table (BST, MIND)
+    for RETRIEVAL_QUERIES users, held against a float64 recompute."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as rec
+
+    dev = torch.device("cuda")
+    batch = {k: v[0] for k, v in feats.items()}
+    if arch == "bst":
+        rng = np.random.default_rng(12)
+        batch["target"] = torch.as_tensor(
+            rng.integers(0, tcfg.vocab, BATCH).astype(np.int32), device=dev)
+    score = {"wide-deep": rec.wide_deep_score, "bst": rec.bst_score}.get(arch)
+    if score is not None:
+        ops.reset_launch_counts()
+        got = score(params, batch, tcfg, impl="cuda")
+        n = ops.launch_counts()["embedding_bag"]
+        want = score(params, batch, tcfg, impl="torch")
+        err = close_or_equal(torch, arch, got, want, "scores")
+        if n != (2 if arch == "wide-deep" else 1) or got.shape != (BATCH,):
+            raise AssertionError(f"{arch} score: {n} bag launches, shape "
+                                 f"{tuple(got.shape)}")
+        print(f"[towers {arch}] {score.__name__} at B={BATCH}: {n} bag "
+              f"launch(es), cuda vs torch max |err| {err:.3g}")
+    if arch == "wide-deep":
+        return
+    q = {"seq": batch["seq"][:RETRIEVAL_QUERIES]}
+    user = rec.tower_step(params, q, tcfg, impl="cuda")
+    user_t = rec.tower_step(params, q, tcfg, impl="torch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, ids = rec.retrieval_step(user, params.item_emb, tcfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    scores_t, ids_t = rec.retrieval_step(user_t, params.item_emb, tcfg)
+    if not (torch.equal(scores, scores_t) and torch.equal(ids, ids_t)):
+        raise AssertionError(f"{arch}: retrieval differs between backends")
+    u64 = user.double().view(RETRIEVAL_QUERIES, -1, tcfg.embed_dim)
+    full = torch.einsum("bkd,nd->bkn", u64,
+                        params.item_emb.double()).amax(dim=1)
+    top = torch.topk(full, scores.shape[1], dim=1).values
+    picked = full.gather(1, ids.long())
+    if not (torch.allclose(scores.double(), picked, atol=1e-6, rtol=1e-5)
+            and torch.allclose(scores.double(), top, atol=1e-6,
+                               rtol=1e-5)):
+        raise AssertionError(f"{arch}: retrieval top-k off its float64 "
+                             "recompute")
+    print(f"[towers {arch}] retrieval_step: {RETRIEVAL_QUERIES} users x "
+          f"{params.item_emb.shape[0]} items ({tcfg.interaction}), top-"
+          f"{scores.shape[1]} in {ms:.2f} ms host wall, cuda == torch, "
+          f"scores within 1e-5 of the float64 top-k")
+
+
+def tower_cell(torch, arch):
+    """One tower at its published widths behind the single-model server:
+    119 steps compiled (``jit_serve_many``, chunks of 64 and 55), an eager
+    ``backend="torch"`` replay held against it, a timed replay of the
+    captured graphs and a profiled chunk; then its score and retrieval
+    paths."""
+    import dataclasses
+
+    from repro_torch.core import server as srv
+    from repro_torch.core.config import CacheConfig
+    from repro_torch.core.graph import tensors_of
+    from repro_torch.core.hashing import Key64
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import recsys as rec
+
+    t_cell = time.perf_counter()
+    dev = torch.device("cuda")
+    tcfg, params, tower_fn, features_of = launch.build_tower(
+        arch, backend="cuda", device=dev, smoke=False, seed=0)
+    if arch == "wide-deep":
+        wide_deep_bag_shape(torch, params.tables)
+    keys, feats, nows, _ = staged_stream(torch, launch, features_of, dev,
+                                         COMPILED_STEPS)
+    spans = list(launch._chunks(COMPILED_STEPS, COMPILED_CHUNK))
+
+    def chunk_inputs(lo, n):
+        sl = slice(lo, lo + n)
+        return (Key64(keys.hi[sl], keys.lo[sl]),
+                {k: v[sl] for k, v in feats.items()}, nows[sl])
+
+    cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=N_BUCKETS,
+                      ways=WAYS, value_dim=tcfg.user_embed_dim,
+                      miss_budget_frac=0.75, backend="cuda")
+    plain_cfg = dataclasses.replace(cfg, backend="torch")
+    server = srv.CachedEmbeddingServer(cfg=cfg, tower_fn=tower_fn,
+                                       miss_budget=int(BATCH * 0.75))
+    plain = srv.CachedEmbeddingServer(
+        cfg=plain_cfg, miss_budget=int(BATCH * 0.75),
+        tower_fn=lambda p, f: rec.tower_step(p, f, tcfg, impl="torch"))
+    init = lambda c: srv.init_server_state(c, writebuf_capacity=BATCH * 4,
+                                           device=dev)
+    calls = [(server, chunk_inputs(lo, n), n) for lo, n in spans]
+
+    ops.reset_launch_counts()                    # this path's window
+    cuda = serve_chunks(torch, True, params, init(cfg), calls)
+    n = ops.launch_counts()
+    want = {"cache_probe_dual": COMPILED_STEPS,
+            "embedding_bag": COMPILED_STEPS}
+    if {k: v for k, v in n.items() if v} != want or any(
+            got != {"cache_probe_dual": c, "embedding_bag": c}
+            for (_, _, c), got in zip(calls, cuda["launches"])):
+        raise AssertionError(f"{arch}: launches {n} / per chunk "
+                             f"{cuda['launches']}, want one dual probe and "
+                             "one bag a step")
+    tiers = cuda["state"].direct
+    acc = {k: sum(c[k] for c in cuda["chunks"]) for k in (
+        "requests", "direct_hits", "tower_inferences", "fallbacks")}
+    warm = cuda["chunks"][-1]
+    print(f"[towers {arch}] {tcfg.arch_id} published widths ("
+          f"{sum(p.numel() for p in params.parameters()) / 1e6:.1f}M "
+          f"parameters, {sum(p.nbytes for p in params.parameters()) / 1e9:.2f}"
+          f" GB), 2 tiers of {tuple(tiers.values.shape)} float32 "
+          f"({sum(t.nbytes for t in tiers) / 1e9:.2f} GB each), B={BATCH}, "
+          f"miss_budget {int(BATCH * 0.75)}: {COMPILED_STEPS} steps through "
+          f"jit_serve_many in chunks of "
+          f"{'/'.join(str(c) for *_, c in calls)}, launches {want}, hit rate "
+          f"{acc['direct_hits'] / acc['requests']:.4f} (last chunk "
+          f"{warm['direct_hits'] / warm['requests']:.4f}), tower inferences "
+          f"{acc['tower_inferences']}, fallbacks {acc['fallbacks']}; the "
+          f"capturing run {cuda['wall_ms'] / COMPILED_STEPS:.2f} ms a step")
+    if not warm["direct_hits"] > 0:
+        raise AssertionError(f"{arch}: last chunk has no direct hits")
+    if not all(bool(torch.isfinite(ys[0]).all()) for ys in cuda["ys"]):
+        raise AssertionError(f"{arch}: non-finite embeddings")
+
+    plain_run = serve_chunks(torch, False, params, init(plain_cfg),
+                             [(plain, inputs, c) for _, inputs, c in calls])
+    if cuda["chunks"] != plain_run["chunks"]:
+        raise AssertionError(f"{arch}: counters differ between backends")
+    err = 0.0
+    for ya, yb in zip(cuda["ys"], plain_run["ys"]):
+        if not (torch.equal(ya[1], yb[1]) and torch.equal(ya[2], yb[2])):
+            raise AssertionError(f"{arch}: sources/ages differ between "
+                                 "backends")
+        err = max(err, close_or_equal(torch, arch, ya[0], yb[0],
+                                      "embeddings"))
+    for tier in ("direct", "failover"):
+        ta = getattr(cuda["state"], tier)
+        tb = getattr(plain_run["state"], tier)
+        for name in ("key_hi", "key_lo", "write_ts", "last_access_ts"):
+            if not torch.equal(getattr(ta, name), getattr(tb, name)):
+                raise AssertionError(f"{arch}: {tier}.{name} differs "
+                                     "between backends")
+        err = max(err, close_or_equal(torch, arch, ta.values, tb.values,
+                                      f"{tier}.values"))
+    print(f"[towers {arch}] eager torch-backend replay (TF32 off) "
+          f"{plain_run['wall_ms'] / COMPILED_STEPS:.2f} ms a step: counters, "
+          f"sources, ages and the key, write_ts and last_access planes of "
+          f"both tiers bit-identical; embeddings and value planes "
+          + ("bit-identical" if arch != "wide-deep" else
+             f"within atol {WD_TOL['atol']:g} rtol {WD_TOL['rtol']:g} "
+             f"(max |err| {err:.3g})"))
+    del plain_run, plain
+    torch.cuda.empty_cache()
+
+    fresh = init(cfg)
+
+    def reset(state):
+        for a, b in zip(tensors_of(state), tensors_of(fresh), strict=True):
+            a.copy_(b)
+
+    state = cuda["state"]
+    graphs = len(server.jit_serve_many.graphs)
+    reset(state)
+    replay = serve_chunks(torch, True, params, state, calls)
+    if not same_run(torch, cuda, replay) or len(
+            server.jit_serve_many.graphs) != graphs:
+        raise AssertionError(f"{arch}: a replay differs from the capturing "
+                             "run or captured again")
+    ms = replay["wall_ms"] / COMPILED_STEPS
+    reset(state)
+    _, inputs, c = calls[0]
+    prof = phase_profile(
+        torch, f"profile towers {arch} compiled", c,
+        lambda: server.jit_serve_many(params, state, *inputs,
+                                      flush_every=1)[1])
+    busy = (f"{sum(prof[0].values()) / 1e3 / c:.3f} ms device kernel time "
+            f"a step, unprofiled idle share "
+            f"{1 - sum(prof[0].values()) / 1e3 / c / ms:.3f}"
+            if prof is not None else "device time not measured")
+    print(f"[towers {arch}] compiled replay of the {graphs} captured graphs: "
+          f"{ms:.3f} ms host wall a step over {COMPILED_STEPS} steps, "
+          f"bit-identical to the capturing run; {busy}")
+    tower_scores(torch, arch, tcfg, params, feats)
+    print(f"[towers {arch}] cell done in {time.perf_counter() - t_cell:.1f}s")
+
+
+def combiner_cell(torch):
+    """The combiner on the card at bench_serving_cost.py's deployment:
+    grouped writes, then every member's read through the tiled probe (one
+    launch each), cuda == torch in every plane and every read; the tiled
+    probe timed at the 7,680-byte group rows; one grouped write timed
+    against 30 single-table inserts (Fig. 5's consolidation)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.core import cache as C
+    from repro_torch.core import combiner as G
+    from repro_torch.core.hashing import Key64, bucket_index
+    from repro_torch.kernels import cache_probe as pk
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    nm, dim, nb, ways, b = (GROUP[k] for k in (
+        "members", "dim", "n_buckets", "ways", "batch"))
+    ttls = [(1, 5, 10, 30)[i % 4] * MIN for i in range(nm)]
+    spec = G.GroupSpec(tuple(G.GroupMember(f"m{i}", dim, ttls[i])
+                             for i in range(nm)))
+    states = [G.init_grouped(spec, nb, ways, device=dev) for _ in range(2)]
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    pool = np.arange(400_000, dtype=np.int64) * 7919 + 1
+    rounds, written = [], []
+    # device-resident clocks, as the serve path stages them: a host int
+    # would be copied to the card, and wait for it, at every call
+    clock = lambda ms: torch.tensor(ms, dtype=torch.int32, device=dev)
+    for r, now in enumerate((0, 3 * MIN, 6 * MIN, 9 * MIN)):
+        now = clock(now)
+        written.append(rng.choice(pool, b))
+        keys = Key64.from_int(written[-1], device=dev)
+        values = {m.name: torch.randn(b, dim, generator=gen, device=dev)
+                  for i, m in enumerate(spec.members) if (i + r) % 7}
+        mask = {n: torch.rand(b, generator=gen, device=dev) < 0.9
+                for n in values}
+        rounds.append((keys, values, mask, now))
+    for st in states:
+        for keys, values, mask, now in rounds:
+            G.insert_group(spec, st, keys, values, now, member_mask=mask)
+    for (name, x), y in zip(zip(states[0].base._fields, states[0].base),
+                            states[1].base):
+        if not torch.equal(x, y):
+            raise AssertionError(f"combiner: base.{name} differs between "
+                                 "two runs of the same writes")
+    occupied = int((states[0].present != 0).sum())
+    # users written in any of the 4 rounds, and 64 never written
+    q = Key64.from_int(np.concatenate([
+        rng.choice(np.concatenate(written), b - 64),
+        rng.integers(10 ** 12, 10 ** 13, 64)]), device=dev)
+    now = clock(10 * MIN)
+    ops.reset_launch_counts()
+    got = [G.lookup_member(spec, states[0], m.name, q, now)
+           for m in spec.members]
+    n = ops.launch_counts()
+    want = [G.lookup_member(spec, states[1], m.name, q, now, backend="torch")
+            for m in spec.members]
+    if n["cache_probe_tiled"] != nm or sum(n.values()) != nm:
+        raise AssertionError(f"combiner: launches {n} for {nm} member reads")
+    for m, a, w in zip(spec.members, got, want):
+        for field, x, y in zip(("hit", "values", "age_ms"), a[:3], w[:3]):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"combiner: {m.name}.{field} differs "
+                                     "between backends")
+    hits = [int(r.hit.sum()) for r in got]
+    if not (0 < sum(hits) < nm * b and len(set(hits)) > 1):
+        raise AssertionError(f"combiner: member hits {hits}")
+    row = spec.total_dim * 4
+    print(f"[combiner] {nm} members x D={dim} ({row}-byte group rows), "
+          f"grouped tier {nb}x{ways} "
+          f"({sum(t.nbytes for t in states[0].base) / 1e9:.2f} GB), "
+          f"B={b}: 4 grouped writes (member failures, a member missing a "
+          f"round), {occupied} slots present; {nm} member reads, "
+          f"{n['cache_probe_tiled']} cache_probe_tiled launches, cuda == "
+          f"torch in every read (hit, values, age) and both states equal; "
+          f"hits per member {min(hits)}..{max(hits)} of {b}")
+
+    base = states[0].base
+    tabs = (base.key_hi, base.key_lo, base.write_ts, base.values)
+    bk = bucket_index(q, nb)
+    hit_rows = int(ref.cache_probe_ref(*tabs, q.hi, q.lo, bk, now,
+                                       30 * MIN)[0].sum())
+    tiled_bytes = b * 12 + b * 12 * ways + hit_rows * row + b * (9 + row)
+    t_ms = device_ms(lambda i: pk.cache_probe_tiled(*tabs, q.hi, q.lo, bk,
+                                                    now, 30 * MIN))
+    p_ms = device_ms(lambda i: ref.cache_probe_ref(*tabs, q.hi, q.lo, bk,
+                                                   now, 30 * MIN), n=10)
+    print(f"[kernels] cache_probe_tiled at D={spec.total_dim} ({row}-byte "
+          f"rows, B={b}, {hit_rows} hits at a 30 min TTL): "
+          f"{t_ms * 1e3:.2f} us (plain {p_ms * 1e3:.2f} us), bound "
+          f"{tiled_bytes / HBM_BYTES_PER_S * 1e6:.3f} us by bytes "
+          f"({tiled_bytes} B)")
+    del states[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    singles = [C.init_cache(nb, ways, dim, device=dev) for _ in range(nm)]
+    keys, values, _, now = rounds[0]
+    full = {m.name: values.get(m.name, values["m1"]) for m in spec.members}
+
+    def grouped():
+        G.insert_group(spec, states[0], keys, full, now)
+
+    def thirty():
+        for m, st in zip(spec.members, singles):
+            C.insert(st, keys, full[m.name], now, m.ttl_ms)
+
+    t = {name: kernel_ms(torch, fn) for name, fn in (("group", grouped),
+                                                     ("single", thirty))}
+    print(f"[combiner] one grouped write of {b} users x {nm} members: "
+          f"{t['group'][0]:.3f} ms of device kernels ({t['group'][2]:.0f} "
+          f"ops), {t['group'][1]:.3f} ms host wall; {nm} single-table "
+          f"inserts (2**16 x 8 x {dim} each) of the same users: "
+          f"{t['single'][0]:.3f} ms of device kernels ({t['single'][2]:.0f} "
+          f"ops), {t['single'][1]:.3f} ms host wall "
+          f"({t['single'][0] / t['group'][0]:.1f}x device, "
+          f"{t['single'][1] / t['group'][1]:.1f}x host); write requests "
+          f"{nm} -> 1 (write_amplification "
+          f"{G.write_amplification(nm, 1):.0f}x)")
+    del singles, states, rounds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def towers_entry(torch):
+    """``run_serving(arch=...)`` once per new tower, as a user calls it
+    (the SMOKE tower the launcher serves by default)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+
+    for arch in TOWER_ARCHS:
+        ops.reset_launch_counts()
+        d = launch.run_serving(arch=arch, minutes=8, users=400,
+                               backend="cuda",
+                               log=lambda s: print(f"[towers entry] {s}"))
+        n = ops.launch_counts()
+        if (n["cache_probe_dual"] != d["batches"]
+                or n["embedding_bag"] != d["batches"]
+                or d["requests"] <= 0 or d["hit_rate"] <= 0):
+            raise AssertionError(f"{arch} entry point: {d['batches']} "
+                                 f"batches, hit rate {d['hit_rate']}, "
+                                 f"launches {n}")
+
+
+def phase_towers(torch):
+    """Phase 12: Wide&Deep, BST and MIND at their published widths behind
+    the server, their scores and retrieval, the entry point per arch, and
+    the combiner."""
+    import gc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in TOWER_ARCHS:
+        # a cell's server, graphs, tiers and tables die with it (a server
+        # is a reference cycle: the collector frees its graphs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tower_cell(torch, arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    towers_entry(torch)
+    combiner_cell(torch)
+
+
 def main() -> int:
     try:
         import torch
@@ -2315,6 +2814,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s")
     phase_compiled(torch)
     print(f"[time] compiled phase done at {time.perf_counter() - t0:.1f}s")
+    phase_towers(torch)
+    print(f"[time] towers and combiner phase done at "
+          f"{time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in sorted(counts):

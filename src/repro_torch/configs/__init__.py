@@ -1,8 +1,8 @@
 """Architecture registry: ``get_config(arch_id, smoke=False)`` + shapes.
 
 Holds the archs ported so far: the dense LMs (TinyLlama-1.1B, Yi-6B,
-Llama-3-8B) and SASRec. The MoE LMs (Granite, Arctic), Wide&Deep, BST and
-MIND join with their towers.
+Llama-3-8B) and the four recsys towers (Wide&Deep, SASRec, BST, MIND).
+The MoE LMs (Granite, Arctic) join with their layers.
 """
 from __future__ import annotations
 
@@ -17,7 +17,10 @@ _MODULES: Dict[str, str] = {
     "yi-6b": "yi_6b",
     "llama3-8b": "llama3_8b",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "wide-deep": "wide_deep",
     "sasrec": "sasrec",
+    "bst": "bst",
+    "mind": "mind",
 }
 
 

@@ -411,30 +411,32 @@ def plan_insert(state: CacheState, keys: Key64, now_ms, ttl_ms,
                  buckets, dedupe_salt)[:3]
 
 
-def _scatter_insert(state: CacheState, keys: Key64, values, ts_vec,
-                    owner, bucket, way) -> CacheState:
-    """Apply a resolved insert plan in place: only the winners' records
-    land (the reference drops the losers with ``mode="drop"``). A write
-    resets the slot's last_access_ts to the write timestamp.
+def put_owned(plane: torch.Tensor, rows: torch.Tensor, owner, bucket,
+              way) -> None:
+    """Write ``rows`` into ``plane`` (n_buckets, ways, ...) at each row's
+    planned ``(bucket, way)``, IN PLACE, as a resolved insert plan does:
+    only the winners' records land (the reference drops the losers with
+    ``mode="drop"``).
 
     Every row writes its target slot, so no host sync picks the winners
     out: a row writes the record of the slot's ``owner`` (-1: the slot's
     own contents), and each slot receives one value whatever the order of
     the writes."""
     b, w = bucket.long(), way.long()
-    src = owner.clamp(min=0).long()
-    won = owner >= 0
+    new = rows[owner.clamp(min=0).long()].to(plane.dtype)
+    keep = (owner >= 0).view(-1, *([1] * (new.dim() - 1)))
+    plane[b, w] = torch.where(keep, new, plane[b, w])
 
-    def put(plane, rows):
-        new = rows[src].to(plane.dtype)
-        keep = won.view(-1, *([1] * (new.dim() - 1)))
-        plane[b, w] = torch.where(keep, new, plane[b, w])
 
-    put(state.key_hi, keys.hi)
-    put(state.key_lo, keys.lo)
-    put(state.write_ts, ts_vec)
-    put(state.values, values)
-    put(state.last_access_ts, ts_vec)
+def _scatter_insert(state: CacheState, keys: Key64, values, ts_vec,
+                    owner, bucket, way) -> CacheState:
+    """Apply a resolved insert plan in place (:func:`put_owned` on every
+    plane). A write resets the slot's last_access_ts to the write
+    timestamp."""
+    for plane, rows in ((state.key_hi, keys.hi), (state.key_lo, keys.lo),
+                        (state.write_ts, ts_vec), (state.values, values),
+                        (state.last_access_ts, ts_vec)):
+        put_owned(plane, rows, owner, bucket, way)
     return state
 
 

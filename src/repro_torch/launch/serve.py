@@ -3,9 +3,10 @@ card.
 
 Twin of the basic, ``--no-cache``, ``--multi`` and ``--overload`` modes of
 ``repro/launch/serve.py``: the Fig. 2-calibrated access-pattern generator
-drives one ``CachedEmbeddingServer`` fronting a SASRec user tower (or,
-with ``--multi``, one ``MultiModelServer`` fronting the whole per-model
-registry, each request fanned out to one model); the stream is staged on
+drives one ``CachedEmbeddingServer`` fronting a recsys user tower
+(``--arch``: Wide&Deep, SASRec, BST or MIND; or, with ``--multi``, one
+``MultiModelServer`` fronting the whole per-model registry, each request
+fanned out to one model); the stream is staged on
 the device in (S, B) chunks and each chunk is ONE ``jit_serve_many`` call
 (on the card one CUDA graph replay, captured at the chunk shape's first
 call) whose counters come back with ONE host transfer; the ``--no-cache``
@@ -19,8 +20,9 @@ phase by phase. The ``--restart``, ``--shards``, ``--regions`` and
 
 Usage::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec \\
-        --minutes 120 --users 5000 --ttl-min 5 [--no-cache] [--coalesce]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch sasrec|wide-deep|bst|mind --minutes 120 --users 5000 \\
+        --ttl-min 5 [--no-cache] [--coalesce]
     PYTHONPATH=src python -m repro_torch.launch.serve --multi \\
         --minutes 30 --users 1000 [--multi-buckets 4096] [--coalesce]
     PYTHONPATH=src python -m repro_torch.launch.serve --overload \\
@@ -53,18 +55,25 @@ from repro_torch.models import recsys as rec_lib
 
 def build_tower(arch: str, backend: str = "cuda", device="cuda",
                 smoke: bool = True, seed: int = 0):
-    """A tower (the SMOKE config by default, as the reference launcher
-    serves; ``smoke=False`` for the published widths) with random weights
-    from ``seed``, plus a feature synthesizer for serving. The tower's
-    item gather runs ``backend``'s embedding bag ("cuda": the kernel)."""
+    """A recsys tower (``wide-deep``, ``sasrec``, ``bst`` or ``mind``; the
+    SMOKE config by default, as the reference launcher serves;
+    ``smoke=False`` for the published widths) with random weights from
+    ``seed``, plus a feature synthesizer for serving. The tower's gathers
+    run ``backend``'s embedding bag ("cuda": the kernel)."""
     cfg = get_config(arch, smoke=smoke)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = rec_lib.init_params(gen, cfg, device)
 
     def features_of(user_ids: np.ndarray, now_ms: int):
-        """Synthetic behaviour sequences (numpy, staged by the caller)."""
+        """Synthetic features (numpy, staged by the caller), the
+        reference's draws: Wide&Deep's multi-hot field ids (B, F, nnz),
+        the other towers' behaviour sequences (B, S)."""
         rng = np.random.default_rng(now_ms % (2 ** 31))
+        if cfg.arch_id.startswith("wide-deep"):
+            ids = rng.integers(0, cfg.vocab, (user_ids.size, cfg.n_sparse,
+                                              cfg.nnz_per_field))
+            return {"sparse_ids": ids.astype(np.int32)}
         seq = rng.integers(0, cfg.vocab, (user_ids.size, cfg.seq_len))
         return {"seq": seq.astype(np.int32)}
 
@@ -499,7 +508,9 @@ def run_serving_overload(arch: str = "sasrec", minutes: int = 60,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="sasrec")
+    ap.add_argument("--arch", default="sasrec",
+                    help="the recsys user tower behind the cache: "
+                         "wide-deep, sasrec, bst or mind")
     ap.add_argument("--minutes", type=int, default=60)
     ap.add_argument("--users", type=int, default=2000)
     ap.add_argument("--ttl-min", type=float, default=None,

@@ -66,6 +66,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
 
 
+# -------------------------------------------------------------------- init
+def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
+               dtype=torch.float32) -> torch.Tensor:
+    """N(0, 1/fan_in) weights, ``fan_in = shape[in_axis]``, drawn on the
+    generator's device."""
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    return out.normal_(0.0, shape[in_axis] ** -0.5, generator=generator)
+
+
 # --------------------------------------------------------------- attention
 def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     """(B, S, Hkv, hd) -> (B, S, Hkv*n_rep, hd)."""

@@ -1,18 +1,21 @@
-"""RecSys towers, the ERCache-native family: SASRec so far.
+"""RecSys towers, the ERCache-native family: Wide&Deep, SASRec, BST, MIND.
 
-Twin of ``repro/models/recsys.py`` (its SASRec tower; Wide&Deep, BST and
-MIND join with their slice). The hot path is the sparse embedding lookup:
-on the card the tower's item gather runs the hand-written
-``embedding_bag`` kernel (``kernels/embedding_bag.py``), the
-"TPU-target implementation" the reference names for it.
+Twin of ``repro/models/recsys.py``: the towers, the serve-side scores and
+``retrieval_step`` on one device (the row-sharded tables and the mesh
+branches join with the scale-out slice; the losses with training). The
+hot path is the sparse embedding lookup: on the card every gather runs
+the hand-written ``embedding_bag`` kernel (``kernels/embedding_bag.py``),
+the "TPU-target implementation" the reference names for it, and
+Wide&Deep's F field bags are ONE launch (:func:`field_embedding_bag`).
 
 The ERCache tower contract is kept as a plain function:
     ``tower_step(params, inputs, cfg, impl) -> (B, cfg.user_embed_dim)``
-where ``params`` is the tower's ``nn.Module``.
+where ``params`` is the tower's ``nn.Module`` (parameters frozen: these
+are serving towers).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,6 +27,16 @@ from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 
 IMPLS = ("torch", "cuda")
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _param(*shape, dtype=torch.float32, device=None) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def _params(shapes, device) -> nn.ParameterList:
+    return nn.ParameterList(_param(*s, device=device) for s in shapes)
 
 
 # ---------------------------------------------------------------- embedding
@@ -51,21 +64,114 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mode: str = "sum",
     return out.reshape(*lead, table.shape[1])
 
 
+def field_embedding_bag(tables: torch.Tensor, ids: torch.Tensor,
+                        mode: str = "sum", impl: str = "cuda"
+                        ) -> torch.Tensor:
+    """tables (F, V, D); ids (B, F, nnz), -1 = padding -> (B, F, D): the
+    per-field bags as ONE bag over the (F*V, D) view of the tables.
+
+    Field f's ids are offset by f*V where they are >= 0 (pads stay -1),
+    so each bag reads rows of its own field only and its sum is that
+    field's. The view needs contiguous tables (never copied: a
+    Wide&Deep table stack is 10 GB at the published widths)."""
+    n_fields, vocab, dim = tables.shape
+    if n_fields * vocab > _INT32_MAX:
+        raise ValueError(f"{n_fields} x {vocab} rows overflow int32 ids")
+    if not tables.is_contiguous():
+        raise ValueError("field_embedding_bag needs contiguous tables")
+    ids = ids.to(torch.int32)
+    offset = torch.arange(n_fields, dtype=torch.int32,
+                          device=ids.device)[:, None] * vocab
+    ids = torch.where(ids >= 0, ids + offset, ids)
+    return embedding_bag(tables.view(n_fields * vocab, dim), ids, mode,
+                         impl)
+
+
+# ============================================================== wide & deep
+class WideDeep(nn.Module):
+    """Wide&Deep: F multi-hot field bags -> flatten -> float32 ReLU MLP
+    (the deep tower, whose top layer is the user representation); the
+    score adds a linear head and the wide part (one scalar per id)."""
+
+    TREE_KEYS = frozenset({"tables", "wide", "mlp_w", "mlp_b", "head"})
+
+    def __init__(self, n_sparse: int, vocab: int, d: int,
+                 mlp: Sequence[int], dtype=torch.float32, device=None):
+        super().__init__()
+        self.tables = _param(n_sparse, vocab, d, dtype=dtype, device=device)
+        self.wide = _param(n_sparse, vocab, dtype=dtype, device=device)
+        dims = [n_sparse * d, *mlp]
+        self.mlp_w = _params(zip(dims[:-1], dims[1:]), device)
+        self.mlp_b = _params(((n,) for n in dims[1:]), device)
+        self.head = _param(dims[-1], 1, device=device)
+
+    @classmethod
+    def from_config(cls, cfg: RecsysConfig, device) -> "WideDeep":
+        return cls(cfg.n_sparse, cfg.vocab, cfg.embed_dim, cfg.mlp,
+                   dtype=getattr(torch, cfg.dtype), device=device)
+
+    @classmethod
+    def from_tree(cls, tree: Dict, device) -> "WideDeep":
+        n_sparse, vocab, d = np.shape(tree["tables"])
+        dtype = (torch.bfloat16 if str(np.asarray(tree["tables"]).dtype)
+                 == "bfloat16" else torch.float32)
+        return cls(n_sparse, vocab, d,
+                   [np.shape(w)[1] for w in tree["mlp_w"]], dtype=dtype,
+                   device=device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        self.tables.normal_(0.0, 0.01, generator=gen)
+        self.wide.normal_(0.0, 0.01, generator=gen)
+        for w in [*self.mlp_w, self.head]:
+            w.copy_(L.dense_init(gen, tuple(w.shape)))
+        for b in self.mlp_b:
+            b.zero_()
+
+    def tower(self, inputs, cfg: RecsysConfig, impl: str = "cuda"):
+        """sparse_ids (B, F, nnz) -> deep-tower top (B, mlp[-1])."""
+        bags = field_embedding_bag(self.tables, inputs["sparse_ids"],
+                                   impl=impl)                # (B, F, D)
+        x = bags.reshape(bags.shape[0], -1).to(torch.float32)
+        for w, b in zip(self.mlp_w, self.mlp_b):
+            x = F.relu(x @ w + b)
+        return x
+
+    def score(self, inputs, cfg: RecsysConfig, impl: str = "cuda"):
+        """(B,) logit: the deep head plus the wide part, whose per-field
+        scalar bags are one more one-launch field bag."""
+        deep = self.tower(inputs, cfg, impl) @ self.head
+        wide_rows = field_embedding_bag(self.wide[..., None],
+                                        inputs["sparse_ids"],
+                                        impl=impl)[..., 0]    # (B, F)
+        return deep[:, 0] + wide_rows.sum(dim=1).to(torch.float32)
+
+
 # ==================================================================== sasrec
 class SASRecBlock(nn.Module):
-    """Pre-LN block: single-matrix MHA + pointwise FFN."""
+    """Pre-LN block: single-matrix MHA (causal or not) + pointwise FFN of
+    width ``d_ff`` (default ``d``)."""
 
-    def __init__(self, d: int, d_ff: Optional[int] = None, device=None):
+    def __init__(self, d: int, d_ff: Optional[int] = None,
+                 causal: bool = True, device=None):
         super().__init__()
         d_ff = d_ff or d
-        p = lambda *s: nn.Parameter(torch.empty(s, device=device),
-                                    requires_grad=False)
+        self.causal = causal
+        p = lambda *s: _param(*s, device=device)
         self.wq, self.wk, self.wv, self.wo = p(d, d), p(d, d), p(d, d), \
             p(d, d)
         self.w1, self.b1, self.w2, self.b2 = p(d, d_ff), p(d_ff), \
             p(d_ff, d), p(d)
         self.ln1_w, self.ln1_b, self.ln2_w, self.ln2_b = p(d), p(d), p(d), \
             p(d)
+
+    def init_(self, gen: torch.Generator) -> None:
+        for name in ("wq", "wk", "wv", "wo", "w1", "w2"):
+            w = getattr(self, name)
+            w.copy_(L.dense_init(gen, tuple(w.shape)))
+        for name in ("b1", "b2", "ln1_b", "ln2_b"):
+            getattr(self, name).zero_()
+        self.ln1_w.fill_(1.0)
+        self.ln2_w.fill_(1.0)
 
     def forward(self, x: torch.Tensor, n_heads: int) -> torch.Tensor:
         B, S, D = x.shape
@@ -74,7 +180,7 @@ class SASRecBlock(nn.Module):
         q = (h @ self.wq).reshape(B, S, n_heads, hd)
         k = (h @ self.wk).reshape(B, S, n_heads, hd)
         v = (h @ self.wv).reshape(B, S, n_heads, hd)
-        o = L.attention(q, k, v, causal=True, impl="naive")
+        o = L.attention(q, k, v, causal=self.causal, impl="naive")
         x = x + o.reshape(B, S, D) @ self.wo
         h2 = L.layer_norm(x, self.ln2_w, self.ln2_b)
         return x + F.relu(h2 @ self.w1 + self.b1) @ self.w2 + self.b2
@@ -82,19 +188,38 @@ class SASRecBlock(nn.Module):
 
 class SASRec(nn.Module):
     """SASRec user tower: item + position embeddings, causal self-attention
-    blocks, final layer norm; the last position is the user embedding.
-    Parameters are frozen (serving)."""
+    blocks, final layer norm; the last position is the user embedding."""
+
+    TREE_KEYS = frozenset({"item_emb", "pos_emb", "blocks", "ln_w", "ln_b"})
 
     def __init__(self, vocab: int, seq_len: int, d: int, n_blocks: int,
                  device=None):
         super().__init__()
-        p = lambda *s: nn.Parameter(torch.empty(s, device=device),
-                                    requires_grad=False)
-        self.item_emb = p(vocab, d)
-        self.pos_emb = p(seq_len, d)
+        self.item_emb = _param(vocab, d, device=device)
+        self.pos_emb = _param(seq_len, d, device=device)
         self.blocks = nn.ModuleList(SASRecBlock(d, device=device)
                                     for _ in range(n_blocks))
-        self.ln_w, self.ln_b = p(d), p(d)
+        self.ln_w, self.ln_b = _param(d, device=device), _param(
+            d, device=device)
+
+    @classmethod
+    def from_config(cls, cfg: RecsysConfig, device) -> "SASRec":
+        return cls(cfg.vocab, cfg.seq_len, cfg.embed_dim, cfg.n_blocks,
+                   device=device)
+
+    @classmethod
+    def from_tree(cls, tree: Dict, device) -> "SASRec":
+        vocab, d = np.shape(tree["item_emb"])
+        return cls(vocab, np.shape(tree["pos_emb"])[0], d,
+                   len(tree["blocks"]), device=device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        self.item_emb.normal_(0.0, 0.01, generator=gen)
+        self.pos_emb.normal_(0.0, 0.01, generator=gen)
+        for blk in self.blocks:
+            blk.init_(gen)
+        self.ln_w.fill_(1.0)
+        self.ln_b.zero_()
 
     def forward(self, seq: torch.Tensor, cfg: RecsysConfig,
                 impl: str = "cuda") -> torch.Tensor:
@@ -107,69 +232,239 @@ class SASRec(nn.Module):
         x = L.layer_norm(x, self.ln_w, self.ln_b)
         return x[:, -1]
 
+    def tower(self, inputs, cfg: RecsysConfig, impl: str = "cuda"):
+        return self(inputs["seq"], cfg, impl=impl)
 
-def _sasrec_module(cfg: RecsysConfig, device) -> SASRec:
-    return SASRec(cfg.vocab, cfg.seq_len, cfg.embed_dim, cfg.n_blocks,
-                  device=device)
+
+# ======================================================================= bst
+class BST(nn.Module):
+    """Behavior Sequence Transformer: [behaviours ; target] through
+    non-causal blocks (FFN width 4*D). The user tower mean-pools the
+    behaviour positions with a padded target; the score runs a leaky-ReLU
+    MLP over the flattened sequence."""
+
+    TREE_KEYS = frozenset({"item_emb", "pos_emb", "blocks", "mlp_w", "mlp_b",
+                           "head"})
+
+    def __init__(self, vocab: int, seq_len: int, d: int, n_blocks: int,
+                 mlp: Sequence[int], device=None):
+        super().__init__()
+        self.item_emb = _param(vocab, d, device=device)
+        self.pos_emb = _param(seq_len + 1, d, device=device)
+        self.blocks = nn.ModuleList(
+            SASRecBlock(d, 4 * d, causal=False, device=device)
+            for _ in range(n_blocks))
+        dims = [(seq_len + 1) * d, *mlp]
+        self.mlp_w = _params(zip(dims[:-1], dims[1:]), device)
+        self.mlp_b = _params(((n,) for n in dims[1:]), device)
+        self.head = _param(dims[-1], 1, device=device)
+
+    @classmethod
+    def from_config(cls, cfg: RecsysConfig, device) -> "BST":
+        return cls(cfg.vocab, cfg.seq_len, cfg.embed_dim, cfg.n_blocks,
+                   cfg.mlp, device=device)
+
+    @classmethod
+    def from_tree(cls, tree: Dict, device) -> "BST":
+        vocab, d = np.shape(tree["item_emb"])
+        return cls(vocab, np.shape(tree["pos_emb"])[0] - 1, d,
+                   len(tree["blocks"]),
+                   [np.shape(w)[1] for w in tree["mlp_w"]], device=device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        self.item_emb.normal_(0.0, 0.01, generator=gen)
+        self.pos_emb.normal_(0.0, 0.01, generator=gen)
+        for blk in self.blocks:
+            blk.init_(gen)
+        for w in [*self.mlp_w, self.head]:
+            w.copy_(L.dense_init(gen, tuple(w.shape)))
+        for b in self.mlp_b:
+            b.zero_()
+
+    def encode(self, seq: torch.Tensor, target: torch.Tensor,
+               cfg: RecsysConfig, impl: str = "cuda") -> torch.Tensor:
+        """Transformer over [behaviours ; target] -> (B, S+1, D)."""
+        full = torch.cat([seq, target[:, None].to(seq.dtype)], dim=1)
+        x = embedding_bag(self.item_emb, full[..., None], impl=impl)
+        x = x + self.pos_emb[None]
+        x = torch.where((full >= 0)[..., None], x, 0.0)
+        for blk in self.blocks:
+            x = blk(x, cfg.n_heads)
+        return x
+
+    def tower(self, inputs, cfg: RecsysConfig, impl: str = "cuda"):
+        """Mean over all ``seq_len`` behaviour positions (pads included,
+        as in the reference); the padded target is item 0, not -1, so it
+        is gathered and attended to (target-independent: cacheable)."""
+        seq = inputs["seq"]
+        pad_target = torch.zeros(seq.shape[0], dtype=seq.dtype,
+                                 device=seq.device)
+        return self.encode(seq, pad_target, cfg, impl)[:, :-1].mean(dim=1)
+
+    def score(self, inputs, cfg: RecsysConfig, impl: str = "cuda"):
+        x = self.encode(inputs["seq"], inputs["target"], cfg, impl)
+        flat = x.reshape(x.shape[0], -1)
+        for w, b in zip(self.mlp_w, self.mlp_b):
+            flat = F.leaky_relu(flat @ w + b)
+        return (flat @ self.head)[:, 0]
+
+
+# ====================================================================== mind
+def _squash(z: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    n2 = (z * z).sum(dim=dim, keepdim=True)
+    return z * (n2 / (1.0 + n2)) / torch.sqrt(n2 + 1e-9)
+
+
+class MIND(nn.Module):
+    """Multi-Interest Network with Dynamic routing: K interest capsules
+    routed from the behaviour sequence; the cached value is the flattened
+    (B, K*D) interests."""
+
+    TREE_KEYS = frozenset({"item_emb", "S", "b_init"})
+
+    def __init__(self, vocab: int, d: int, n_interests: int, device=None):
+        super().__init__()
+        self.item_emb = _param(vocab, d, device=device)
+        self.S = _param(d, d, device=device)      # shared bilinear map
+        self.b_init = _param(n_interests, device=device)
+
+    @classmethod
+    def from_config(cls, cfg: RecsysConfig, device) -> "MIND":
+        return cls(cfg.vocab, cfg.embed_dim, cfg.n_interests, device=device)
+
+    @classmethod
+    def from_tree(cls, tree: Dict, device) -> "MIND":
+        vocab, d = np.shape(tree["item_emb"])
+        return cls(vocab, d, np.shape(tree["b_init"])[0], device=device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        self.item_emb.normal_(0.0, 0.01, generator=gen)
+        self.S.copy_(L.dense_init(gen, tuple(self.S.shape)))
+        self.b_init.normal_(0.0, 0.1, generator=gen)
+
+    def interests(self, seq: torch.Tensor, cfg: RecsysConfig,
+                  impl: str = "cuda") -> torch.Tensor:
+        """Dynamic-routing capsules: seq (B, S) -> interests (B, K, D).
+        The routing softmax runs over the K capsules and the padding
+        mask applies after it."""
+        B, S = seq.shape
+        e = embedding_bag(self.item_emb, seq[..., None], impl=impl)
+        mask = seq >= 0
+        e = torch.where(mask[..., None], e, 0.0)
+        low = torch.einsum("bsd,de->bse", e, self.S)        # mapped caps
+        logits = self.b_init[None, :, None].expand(B, cfg.n_interests, S)
+        for _ in range(cfg.capsule_iters):
+            c = torch.softmax(logits, dim=1)                  # over K
+            c = torch.where(mask[:, None, :], c, 0.0)
+            u = _squash(torch.einsum("bks,bse->bke", c, low))
+            logits = logits + torch.einsum("bke,bse->bks", u, low)
+        return u
+
+    def tower(self, inputs, cfg: RecsysConfig, impl: str = "cuda"):
+        ints = self.interests(inputs["seq"], cfg, impl)
+        return ints.reshape(ints.shape[0], -1)
+
+
+# ================================================================= retrieval
+def retrieval_step(user_repr: torch.Tensor, candidates: torch.Tensor,
+                   cfg: RecsysConfig, k_top: int = 100):
+    """(B, D') queries vs the (N, D') candidate matrix -> (scores, ids),
+    the top ``k_top`` by float32 dot product (one batched product, no
+    loop). MIND queries are (B, K*D): a candidate's score is its max over
+    the K interests. Serving only: no gradient. Ties may be ordered
+    differently from ``jax.lax.top_k``."""
+    with torch.no_grad():
+        cand = candidates.to(torch.float32)
+        if cfg.interaction == "multi-interest":
+            q = user_repr.reshape(user_repr.shape[0], cfg.n_interests,
+                                  cfg.embed_dim).to(torch.float32)
+            scores = torch.einsum("bkd,nd->bkn", q, cand).amax(dim=1)
+        else:
+            scores = user_repr.to(torch.float32) @ cand.T
+        top = torch.topk(scores, k_top, dim=-1)
+    return top.values, top.indices.to(torch.int32)
+
+
+# ================================================================== registry
+TOWERS = {"wide-deep": WideDeep, "sasrec": SASRec, "bst": BST,
+          "mind": MIND}
+
+
+def get_arch_fns(arch_id: str):
+    """The tower class of ``arch_id`` (SMOKE ids included)."""
+    base = arch_id.replace("-smoke", "")
+    if base not in TOWERS:
+        raise ValueError(f"arch {arch_id!r} is not a recsys tower; towers: "
+                         f"{list(TOWERS)}")
+    return TOWERS[base]
 
 
 def init_params(generator: torch.Generator, cfg: RecsysConfig,
-                device="cuda") -> SASRec:
-    """Random SASRec weights with the reference's shapes and scales
-    (``recsys.py:init_sasrec``): embeddings N(0, 0.01^2), projections
-    N(0, 1/fan_in), biases 0, norms (1, 0). Drawn on the generator's
-    device, then moved to ``device``."""
-    if not cfg.arch_id.startswith("sasrec"):
-        raise ValueError(f"arch {cfg.arch_id!r} is not ported yet")
+                device="cuda") -> nn.Module:
+    """Random weights with the reference's shapes and scales
+    (``recsys.py:init_*``): embeddings N(0, 0.01^2) in ``cfg.dtype``,
+    projections N(0, 1/fan_in), biases 0, norms (1, 0), MIND's routing
+    init N(0, 0.1^2). Every tensor is drawn in place on ``device`` (a
+    10 GB table stack is never staged), so the generator must live on
+    ``device``."""
     from repro_torch.core.cache import resolve_device
 
     device = resolve_device(device)
-    model = _sasrec_module(cfg, device)
-    gdev = generator.device
-
-    def normal(shape, scale):
-        return (torch.randn(shape, generator=generator, device=gdev)
-                * scale).to(device)
-
+    model = get_arch_fns(cfg.arch_id).from_config(cfg, device)
     with torch.no_grad():
-        model.item_emb.copy_(normal(model.item_emb.shape, 0.01))
-        model.pos_emb.copy_(normal(model.pos_emb.shape, 0.01))
-        for blk in model.blocks:
-            for name in ("wq", "wk", "wv", "wo", "w1", "w2"):
-                w = getattr(blk, name)
-                w.copy_(normal(w.shape, w.shape[0] ** -0.5))
-            for name in ("b1", "b2", "ln1_b", "ln2_b"):
-                getattr(blk, name).zero_()
-            blk.ln1_w.fill_(1.0)
-            blk.ln2_w.fill_(1.0)
-        model.ln_w.fill_(1.0)
-        model.ln_b.zero_()
+        model.init_(generator)
     return model
 
 
-def load_jax_params(np_tree: Dict, device="cuda") -> SASRec:
-    """The JAX package's SASRec parameter pytree (as numpy arrays) as the
-    port's module, so both packages compute the same tower."""
-    from repro_torch.core.cache import resolve_device
-
-    device = resolve_device(device)
-    vocab, d = np.shape(np_tree["item_emb"])
-    model = SASRec(vocab, np.shape(np_tree["pos_emb"])[0], d,
-                   len(np_tree["blocks"]), device=device)
+def _copy_tree(module: nn.Module, tree: Dict, device) -> None:
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    for name, val in tree.items():
+        dst = getattr(module, name)
+        if isinstance(val, (list, tuple)):
+            for sub, v in zip(dst, val, strict=True):
+                if isinstance(v, dict):
+                    _copy_tree(sub, v, device)
+                else:
+                    sub.copy_(t(v))
+        else:
+            dst.copy_(t(val))
+
+
+def load_jax_params(np_tree: Dict, device="cuda") -> nn.Module:
+    """The JAX package's parameter pytree of any tower (as numpy arrays)
+    as the port's module, so both packages compute the same tower. The
+    tree's keys name the tower; keys that are no tower's raise."""
+    from repro_torch.core.cache import resolve_device
+
+    device = resolve_device(device)
+    keys = set(np_tree)
+    found = [c for c in TOWERS.values() if c.TREE_KEYS == keys]
+    if not found:
+        raise ValueError(f"keys {sorted(keys)} name no recsys tower")
+    model = found[0].from_tree(np_tree, device)
     with torch.no_grad():
-        model.item_emb.copy_(t(np_tree["item_emb"]))
-        model.pos_emb.copy_(t(np_tree["pos_emb"]))
-        model.ln_w.copy_(t(np_tree["ln_w"]))
-        model.ln_b.copy_(t(np_tree["ln_b"]))
-        for blk, bp in zip(model.blocks, np_tree["blocks"]):
-            for name, arr in bp.items():
-                getattr(blk, name).copy_(t(arr))
+        _copy_tree(model, np_tree, device)
     return model
 
 
-def tower_step(params: SASRec, inputs: Dict[str, torch.Tensor],
+def tower_step(params: nn.Module, inputs: Dict[str, torch.Tensor],
                cfg: RecsysConfig, impl: str = "cuda") -> torch.Tensor:
-    """The ERCache tower contract: ``inputs["seq"]`` (B, S) -> (B, D)."""
+    """The ERCache tower contract: ``inputs`` (``"sparse_ids"`` (B, F,
+    nnz) for Wide&Deep, ``"seq"`` (B, S) otherwise) -> (B,
+    cfg.user_embed_dim)."""
     with torch.no_grad():
-        return params(inputs["seq"], cfg, impl=impl)
+        return params.tower(inputs, cfg, impl)
+
+
+def wide_deep_score(params: WideDeep, inputs, cfg: RecsysConfig,
+                    impl: str = "cuda") -> torch.Tensor:
+    """Wide&Deep's serving score (B,): deep head plus the wide part."""
+    with torch.no_grad():
+        return params.score(inputs, cfg, impl)
+
+
+def bst_score(params: BST, inputs, cfg: RecsysConfig,
+              impl: str = "cuda") -> torch.Tensor:
+    """BST's serving score (B,) of ``inputs["target"]`` (-1 masked)."""
+    with torch.no_grad():
+        return params.score(inputs, cfg, impl)

@@ -959,3 +959,182 @@ def test_jit_serve_many_raises_on_a_host_sync_in_the_step(cuda):
                           capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stdout + done.stderr
     assert "RAISED" in done.stdout
+
+
+# ------------------------------------------- Wide&Deep, BST, MIND, combiner
+# Wide&Deep against its plain version: its field bags sum nnz = 4 float32
+# rows in another order than the plain ``sum`` (a few ulps of each bag),
+# carried through the float32 MLP. BST and MIND gather nnz = 1 rows
+# (copies), so they are held bit for bit.
+WD_TOL = dict(atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dim,dtype", [(32, torch.float32),
+                                       (1, torch.float32),
+                                       (32, torch.bfloat16)])
+def test_field_embedding_bag_matches_plain(cuda, dim, dtype):
+    """All F fields in ONE launch over the (F*V, D) view, -1 pads kept
+    (a bag of pads is zeros); D = 1 is Wide&Deep's wide part."""
+    from repro_torch.models import recsys as R
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tables = torch.randn(40, 5000, dim, generator=gen, device=cuda).to(dtype)
+    ids = torch.randint(0, 5000, (384, 40, 4), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    ids[torch.rand(ids.shape, generator=gen, device=cuda) < 0.3] = -1
+    ids[3, 7] = -1
+    n0 = ebk.LAUNCHES["embedding_bag"]
+    got = R.field_embedding_bag(tables, ids, impl="cuda")
+    assert ebk.LAUNCHES["embedding_bag"] == n0 + 1
+    want = R.field_embedding_bag(tables, ids, impl="torch")
+    assert got.shape == (384, 40, dim)
+    assert_bag_close(got, want, 4)
+    assert not got[3, 7].any()
+    per_field = torch.stack([ref.embedding_bag_ref(tables[f], ids[:, f])
+                             for f in range(40)], dim=1)
+    assert_bag_close(got, per_field, 4)
+
+
+def _tower(cuda, arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import recsys as R
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), vocab=5000)
+    model = R.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                          device=cuda)
+    rng = np.random.default_rng(2)
+    if arch == "wide-deep":
+        ids = rng.integers(0, cfg.vocab, (200, cfg.n_sparse,
+                                          cfg.nnz_per_field))
+        ids[rng.uniform(size=ids.shape) < 0.3] = -1
+        feats = {"sparse_ids": ids}
+    else:
+        seq = rng.integers(0, cfg.vocab, (200, cfg.seq_len))
+        seq[:, :3][rng.uniform(size=(200, 3)) < 0.5] = -1
+        feats = {"seq": seq, "target": rng.integers(0, cfg.vocab, 200)}
+    feats = {k: torch.as_tensor(v.astype(np.int32), device=cuda)
+             for k, v in feats.items()}
+    return cfg, model, feats
+
+
+@pytest.mark.parametrize("arch", ["wide-deep", "bst", "mind"])
+def test_tower_cuda_backend_matches_torch_backend(cuda, arch):
+    """One bag launch a tower call (Wide&Deep's fields included); BST and
+    MIND bit-identical to the plain path, Wide&Deep within WD_TOL; the
+    scores likewise (Wide&Deep's wide part one more launch)."""
+    from repro_torch.models import recsys as R
+
+    cfg, model, feats = _tower(cuda, arch)
+    n0 = ebk.LAUNCHES["embedding_bag"]
+    got = R.tower_step(model, feats, cfg, impl="cuda")
+    assert ebk.LAUNCHES["embedding_bag"] == n0 + 1
+    want = R.tower_step(model, feats, cfg, impl="torch")
+    assert got.shape == (200, cfg.user_embed_dim)
+    if arch == "wide-deep":
+        torch.testing.assert_close(got, want, **WD_TOL)
+    else:
+        assert torch.equal(got, want)
+    score = {"wide-deep": R.wide_deep_score, "bst": R.bst_score}.get(arch)
+    if score is not None:
+        n0 = ebk.LAUNCHES["embedding_bag"]
+        got = score(model, feats, cfg, impl="cuda")
+        assert ebk.LAUNCHES["embedding_bag"] == n0 + (
+            2 if arch == "wide-deep" else 1)
+        want = score(model, feats, cfg, impl="torch")
+        if arch == "wide-deep":
+            torch.testing.assert_close(got, want, **WD_TOL)
+        else:
+            assert torch.equal(got, want)
+    else:
+        q = R.tower_step(model, feats, cfg, impl="cuda")
+        s, i = R.retrieval_step(q, model.item_emb, cfg, k_top=10)
+        assert s.shape == (200, 10) and bool((s[:, :-1] >= s[:, 1:]).all())
+
+
+def test_jit_serve_many_wide_deep_replay_equals_eager(cuda):
+    """Wide&Deep behind the server: three chunks through
+    ``jit_serve_many`` (capture, then two replays) equal eager
+    ``serve_many`` bit for bit, one dual probe and one field bag a step."""
+    from repro_torch.core import server as S
+    from repro_torch.core.config import CacheConfig
+    from repro_torch.core.graph import tensors_of
+    from repro_torch.core.hashing import Key64
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as R
+
+    cfg_t, model, _ = _tower(cuda, "wide-deep")
+    cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=64, ways=4,
+                      value_dim=cfg_t.user_embed_dim, cache_ttl_ms=MIN,
+                      backend="cuda")
+    srv = S.CachedEmbeddingServer(
+        cfg=cfg, miss_budget=24,
+        tower_fn=lambda p, f: R.tower_step(p, f, cfg_t, impl="cuda"))
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    chunks = []
+    for c in range(3):
+        ids = rng.choice(np.arange(90) * 104729, size=(5, 48))
+        sparse = rng.integers(0, cfg_t.vocab, (5, 48, cfg_t.n_sparse,
+                                               cfg_t.nnz_per_field))
+        chunks.append((Key64.from_int(ids, device=cuda),
+                       {"sparse_ids": t(sparse.astype(np.int32))},
+                       t(((np.arange(5) + 5 * c) * 20_000).astype(np.int32)),
+                       t(rng.uniform(size=(5, 48)) < 0.1)))
+    out = {}
+    for mode in ("eager", "jit"):
+        run = srv.serve_many if mode == "eager" else srv.jit_serve_many
+        state = S.init_server_state(cfg, writebuf_capacity=96, device=cuda)
+        ops.reset_launch_counts()
+        got = []
+        for args in chunks:
+            state, acc, ys = run(model, state, *args, flush_every=1)
+            got.append((S.fetch_counters(acc), ys))
+        out[mode] = (state, got, ops.launch_counts())
+    (st_e, got_e, n_e), (st_j, got_j, n_j) = out["eager"], out["jit"]
+    assert n_j == n_e
+    assert n_j["cache_probe_dual"] == 15 and n_j["embedding_bag"] == 15
+    for (acc_e, ys_e), (acc_j, ys_j) in zip(got_e, got_j):
+        assert acc_e == acc_j
+        for a, b in zip(ys_e, ys_j):
+            assert torch.equal(a, b)
+    for a, b in zip(tensors_of(st_e), tensors_of(st_j)):
+        assert torch.equal(a, b)
+    assert got_j[-1][0]["direct_hits"] > 0
+
+
+def test_combiner_cuda_matches_torch(cuda):
+    """30 members x D = 64 (1,920-float group rows): grouped writes with
+    member failures, then every member's read through the tiled probe
+    kernel (one launch each) equals the plain read bit for bit."""
+    from repro_torch.core import combiner as G
+    from repro_torch.core.hashing import Key64
+
+    spec = G.GroupSpec(tuple(G.GroupMember(f"m{i}", 64, (i % 6 + 1) * MIN)
+                             for i in range(30)))
+    state = G.init_grouped(spec, 256, 8, device=cuda)
+    rng = np.random.default_rng(6)
+    pool = np.arange(3000) * 7919 + 1
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for r, now in enumerate((0, 2 * MIN, 4 * MIN)):
+        keys = Key64.from_int(rng.choice(pool, 1024), device=cuda)
+        values = {m.name: torch.randn(1024, 64, generator=gen, device=cuda)
+                  for m in spec.members if not (r == 1 and m.name == "m7")}
+        mask = {n: torch.rand(1024, generator=gen, device=cuda) < 0.9
+                for n in values}
+        state = G.insert_group(spec, state, keys, values, now,
+                               member_mask=mask)
+    q = Key64.from_int(rng.choice(np.arange(4000) * 7919 + 1, 1024),
+                       device=cuda)
+    n0 = pk.LAUNCHES["tiled"]
+    hits = 0
+    for m in spec.members:
+        got = G.lookup_member(spec, state, m.name, q, 5 * MIN)
+        want = G.lookup_member(spec, state, m.name, q, 5 * MIN,
+                               backend="torch")
+        for a, b in zip(got[:3], want[:3]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        hits += int(got.hit.sum())
+    assert pk.LAUNCHES["tiled"] == n0 + 30
+    assert 0 < hits < 30 * 1024

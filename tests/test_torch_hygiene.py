@@ -14,6 +14,7 @@ from repro.core import metrics as j_metrics  # noqa: E402
 from repro.data import access_patterns as j_ap  # noqa: E402
 from repro.ft import failure as j_failure  # noqa: E402
 from repro_torch.core import cache as TC  # noqa: E402
+from repro_torch.core import combiner as TG  # noqa: E402
 from repro_torch.core import metrics as t_metrics  # noqa: E402
 from repro_torch.core import server as TS  # noqa: E402
 from repro_torch.core.config import (CacheConfig,  # noqa: E402
@@ -130,7 +131,8 @@ def _skip_with_card():
                                    "multi_model_server",
                                    "run_serving_multi", "lm_init_params",
                                    "serve_lm_tower_run", "init_kv_cache",
-                                   "decode_attention"])
+                                   "decode_attention", "init_grouped",
+                                   "init_params_wide_deep"])
 def test_default_device_entry_points_raise_without_card(entry):
     _skip_with_card()
     cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=16)
@@ -155,6 +157,10 @@ def test_default_device_entry_points_raise_without_card(entry):
         "serve_lm_tower_run": lambda: t_lm_example.run(minutes=1, users=10),
         "init_kv_cache": lambda: TT.init_kv_cache(
             t_launch.get_config("tinyllama-1.1b", smoke=True), 2, 16),
+        "init_grouped": lambda: TG.init_grouped(
+            TG.GroupSpec((TG.GroupMember("ctr", 4, 1000),)), 16, 4),
+        "init_params_wide_deep": lambda: TR.init_params(
+            torch.Generator(), t_launch.get_config("wide-deep", smoke=True)),
         "decode_attention": lambda: TDA.decode_attention(
             torch.zeros((1, 4, 8), device="cuda"),
             torch.zeros((1, 16, 2, 8), device="cuda"),
@@ -200,6 +206,11 @@ def test_cuda_backend_with_cpu_tensors_raises(rng):
     with pytest.raises(ValueError):
         msrv.serve_step(None, mstate, slots, keys, {"x": torch.zeros(5, 8)},
                         0)
+    # the combiner's member read probes with the one-table kernel
+    spec = TG.GroupSpec((TG.GroupMember("ctr", 8, 1000),))
+    grouped = TG.init_grouped(spec, 16, 4, device="cpu")
+    with pytest.raises(ValueError):
+        TG.lookup_member(spec, grouped, "ctr", keys, 0)
     assert tpk.LAUNCHES == n0
     # the LM tower: backend "cuda" never takes the plain attention on the
     # CPU

@@ -246,15 +246,16 @@ def test_no_cache_baseline_matches_jax(rng):
     assert_exact(ts, js)
 
 
-@pytest.mark.parametrize("opts", [dict(), dict(coalesce=True,
-                                               eviction="lru"),
-                                  dict(use_cache=False)],
-                         ids=["basic", "coalesce-lru", "no-cache"])
-def test_run_serving_counters_match_jax(opts):
-    """The launcher end to end (SMOKE SASRec, 5% failures): every counter
-    equals the JAX launcher's on the same stream (the towers' random
-    weights differ, and no counter depends on them)."""
-    common = dict(arch="sasrec", minutes=6, users=300, batch=64,
+@pytest.mark.parametrize("arch,opts", [
+    ("sasrec", dict()), ("sasrec", dict(coalesce=True, eviction="lru")),
+    ("sasrec", dict(use_cache=False)), ("wide-deep", dict()),
+    ("bst", dict()), ("mind", dict())],
+    ids=["basic", "coalesce-lru", "no-cache", "wide-deep", "bst", "mind"])
+def test_run_serving_counters_match_jax(arch, opts):
+    """The launcher end to end (each SMOKE tower, 5% failures): every
+    counter equals the JAX launcher's on the same stream (the towers'
+    random weights differ, and no counter depends on them)."""
+    common = dict(arch=arch, minutes=6, users=300, batch=64,
                   failure_rate=0.05, chunk_steps=4, log=lambda *_: None,
                   **opts)
     want = j_launch.run_serving(backend="jnp", **common)

@@ -124,6 +124,37 @@ Phases, each fatal on failure:
     every read and plane; the tiled probe timed at its 7,680-byte rows;
     one grouped write against 30 single-table inserts (Fig. 5), device
     kernel time under the profiler and host wall.
+13. **chaos**: ``launch.serve.chaos_timeline`` (the ``--chaos`` launcher)
+    for ``incident``, ``cascade`` and ``rolling`` at SASRec's published
+    widths on 4 models of 2**18 x 8 direct and failover tiers (3.4 GB),
+    B=512, 20,000 users, 240 steps of 250 ms, 2 retries, through
+    ``jit_serve_many`` (one graph a chunk length, chunks cut at the fault
+    edges), against an eager ``backend="torch"`` replay: every window row,
+    every chunk's counters (per-model vectors included) and every state
+    tensor (both stacked tiers, both rings, the budget tokens)
+    bit-identical, one dual-multi probe and one bag a step, conservation
+    in every window; cascade's fault windows move deferred, failover
+    serves, blackout drops and retries, its quiet window none. Then
+    cascade's graphs replayed over pre-staged chunks (compiled / eager /
+    compiled host ms a step) and a quiet and a fault chunk profiled; a
+    benign schedule against ``chaos=None``, both compiled; the
+    single-model server in phase 2's deployment under cascade and under a
+    flush stall alone (which must drop ring records), compiled cuda
+    against eager torch; and ``main(["--chaos", p, "--users", "1000"])``
+    per preset at the settings ``benchmarks/bench_chaos.py`` serves, held
+    to its SLA and recovery gates and printed beside
+    ``BENCH_chaos.json``.
+14. **regions**: ``launch.serve.regional_timeline`` (``--regions 4
+    --drain``) at SASRec's published widths, 4 regions of 2**18 x 8
+    tiers, B=512, phase 2's stream thinned to its diurnal envelope (78
+    steps in chunks of 16, locality 0.98), through ``jit_serve_many``
+    against an eager torch replay: the report (counters, re-homes,
+    excursions, region load, the hit-rate curve), every chunk's counters
+    and every state tensor (the home table included) bit-identical; the
+    drained region serves 0 requests in its window; one dual-multi probe
+    a step; a timed replay, an eager cuda run and a profiled drain chunk;
+    then ``main(["--regions", "4", "--drain"])`` as a user calls it (and
+    with ``--chunk-steps 8``, whose 31 steps hold a drain window).
 
 The launchers and the examples serve through the compiled entry points
 (``jit_serve_many``, ``jit_serve_step``, ``jit_flush``), so phases 3, 5,
@@ -157,7 +188,7 @@ probes and the bag, the multi-model serve (phase 4) for the multi-model
 probe, the LM serve (phase 6, its cuda run) for ``flash_attention``, the
 probe shootout for ``cache_probe_perquery`` and the decode steps (phase 8,
 the cuda run) for ``decode_attention``; the counts are reset just before
-each path and read just after. Phases 9, 10 and 12 check their own
+each path and read just after. Phases 9, 10 and 12–14 check their own
 counts.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and ends
@@ -2774,6 +2805,539 @@ def phase_towers(torch):
     combiner_cell(torch)
 
 
+# ------------------------------------------------------------ phase 13
+# the chaos engine at SASRec's published widths on the launcher's
+# deployment: 4 models of 2**18 x 8 direct and failover tiers, B=512,
+# 20,000 users, 240 steps of 250 ms, 2 retries
+CHAOS = dict(arch="sasrec", n_models=4, n_buckets=MULTI_BUCKETS,
+             batch=BATCH, users=20_000, steps=240, step_ms=250,
+             max_retries=2, smoke=False, seed=0)
+CHAOS_SLA = {"incident": 0.99, "cascade": 0.95, "rolling": 0.99}
+CHAOS_RECOVERY_MAX_WINDOWS = 2               # benchmarks/bench_chaos.py
+CHAOS_FAULT_KEYS = ("deferred", "failover_serves", "blackout_write_drops",
+                    "retries", "write_ring_drops")
+
+
+def same_tensors(torch, a, b, what):
+    from repro_torch.core.graph import tensors_of
+
+    for i, (x, y) in enumerate(zip(tensors_of(a), tensors_of(b),
+                                   strict=True)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: state tensor {i} "
+                                 f"{tuple(x.shape)} differs")
+
+
+def graph_line(server, probe):
+    """Capture count, capture seconds and pool MB of a server's
+    ``jit_serve_many`` graphs; raises unless each replays one probe and
+    one bag a step."""
+    graphs = list(server.jit_serve_many.graphs.values())
+    for g in graphs:
+        n = g.launches.get(probe, 0)
+        if not n or g.launches != {probe: n, "embedding_bag": n}:
+            raise AssertionError(f"a graph replays {g.launches}: want one "
+                                 f"{probe} and one bag a step")
+    return (f"{len(graphs)} graphs (chunks of "
+            + "/".join(str(g.launches[probe]) for g in graphs)
+            + " steps): capture " + "/".join(f"{g.capture_s:.2f}"
+                                            for g in graphs)
+            + " s, pools " + "/".join(f"{g.pool_bytes / 1e6:.1f}"
+                                      for g in graphs) + " MB")
+
+
+def timed_calls(torch, run, params, state, calls):
+    """Serve staged ``calls`` [(inputs, steps)] through ``run``, fetching
+    each chunk's counters. Returns (counters, host ms a step per call)."""
+    from repro_torch.core import server as srv
+
+    out, ms = [], []
+    for inputs, n in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, acc, _ = run(params, state, *inputs, flush_every=1,
+                        collect=False)
+        out.append(srv.fetch_counters(acc))
+        ms.append((time.perf_counter() - t0) * 1e3 / n)
+    return out, ms
+
+
+def chaos_scenario(torch, launch, scenario):
+    """One preset compiled (cuda, ``jit_serve_many``, the launcher's
+    path) against an eager torch-backend replay: every window row, every
+    chunk's counters and every state tensor bit-identical; one dual-multi
+    probe and one bag a step; conservation in every window. Returns the
+    cuda plan, its report and chunk counters."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    runs = {}
+    for backend, jit in (("cuda", True), ("torch", False)):
+        plan = launch.plan_chaos(scenario=scenario, backend=backend,
+                                 device=dev, **CHAOS)
+        ops.reset_launch_counts()                # this path's window
+        rep, state, chunks = launch.chaos_timeline(
+            plan, jit=jit, log=lambda s, b=backend: print(
+                f"[chaos {scenario} {b}] {s}"))
+        runs[backend] = (plan, rep, state, chunks, ops.launch_counts())
+    (plan, rep, st, chunks, n), (plan_t, rep_t, st_t, chunks_t, n_t) = (
+        runs["cuda"], runs["torch"])
+    steps = CHAOS["steps"]
+    if {k: v for k, v in n.items() if v} != {
+            "cache_probe_dual_multi": steps, "embedding_bag": steps}:
+        raise AssertionError(f"{scenario}: launches {n} for {steps} steps")
+    if sum(n_t.values()):
+        raise AssertionError(f"the torch backend launched kernels: {n_t}")
+    graphs = graph_line(plan.server, "cache_probe_dual_multi")
+    strip = lambda r: {k: v for k, v in r.items() if k not in (
+        "wall_s", "host_ms_per_step", "backend")}
+    if strip(rep) != strip(rep_t) or chunks != chunks_t:
+        raise AssertionError(f"{scenario}: the report or a chunk's counters "
+                             "differ, compiled cuda vs eager torch")
+    same_tensors(torch, st, st_t, f"{scenario} compiled cuda vs eager torch")
+    if not (rep["conservation_ok"]
+            and all(w["conservation_ok"] for w in rep["windows"])):
+        raise AssertionError(f"{scenario}: conservation violated")
+    print(f"[chaos {scenario}] compiled cuda (capturing run "
+          f"{rep['host_ms_per_step']:.2f} ms a step, staging included) and "
+          f"eager torch ({rep_t['host_ms_per_step']:.2f} ms a step) "
+          f"bit-identical: {len(rep['windows'])} window rows, "
+          f"{len(chunks)} chunks' counters incl. per-model vectors, all "
+          f"planes of both stacked tiers, both rings, the budget tokens; "
+          f"launches {n}; {graphs}; conservation in every window")
+    del runs, st_t, plan_t
+    return plan, rep, chunks
+
+
+def chaos_fault_checks(rep):
+    """Cascade: every fault counter moves inside the fault windows and
+    none in the quiet pre-fault window."""
+    faulty = [w for w in rep["windows"]
+              if w["label"] not in ("quiet", "recovery")]
+    quiet = rep["windows"][0]
+    tot = {k: sum(w[k] for w in faulty) for k in CHAOS_FAULT_KEYS}
+    print(f"[chaos cascade] fault windows {[w['label'] for w in faulty]}: "
+          + ", ".join(f"{k} {v}" for k, v in tot.items())
+          + f"; quiet window: " + ", ".join(
+              f"{k} {quiet[k]}" for k in CHAOS_FAULT_KEYS))
+    if quiet["label"] != "quiet" or any(quiet[k] for k in CHAOS_FAULT_KEYS):
+        raise AssertionError(f"cascade's quiet window moved: {quiet}")
+    # the flush stall coincides with model 0's outage and 0.9 failures:
+    # what the other models append in it stays inside the 2048-record
+    # ring, so the preset drops nothing (the stall-only schedule of
+    # chaos_single does)
+    missing = [k for k in CHAOS_FAULT_KEYS[:4] if not tot[k] > 0]
+    if missing:
+        raise AssertionError(f"cascade's fault windows show no {missing}")
+
+
+def chaos_profile(torch, launch, plan, rep, chunks):
+    """The cascade's captured graphs replayed from a reset state over
+    pre-staged chunks (host ms a step, bit-identical to the capturing
+    run), the same chunks eager on the cuda backend, then one quiet and
+    one fault chunk profiled continuing a replay."""
+    from repro_torch.core import server as srv
+    from repro_torch.core.graph import tensors_of
+
+    staged = list(launch.chaos_chunks(plan))
+    calls = [(inputs, n) for _, (_, n), inputs in staged]
+    fresh = srv.init_multi_server_state(list(plan.server.cfgs),
+                                        writebuf_capacity=BATCH * 4,
+                                        device=plan.device)
+
+    def reset():
+        for a, b in zip(tensors_of(plan.state), tensors_of(fresh),
+                        strict=True):
+            a.copy_(b)
+
+    n_graphs = len(plan.server.jit_serve_many.graphs)
+    ms = {}
+    for mode in ("compiled", "eager", "compiled"):
+        reset()
+        run = (plan.server.jit_serve_many if mode == "compiled"
+               else plan.server.serve_many)
+        got, per_call = timed_calls(torch, run, plan.params, plan.state,
+                                    calls)
+        if got != chunks:
+            raise AssertionError(f"cascade {mode} run differs from the "
+                                 "capturing run")
+        ms.setdefault(mode, []).append(per_call)
+    if len(plan.server.jit_serve_many.graphs) != n_graphs:
+        raise AssertionError("cascade: a replay captured again")
+    step = lambda per: sum(m * n for m, (_, n) in zip(per, calls)) / sum(
+        n for _, n in calls)
+    print(f"[chaos cascade] host wall ms a step over {CHAOS['steps']} "
+          f"staged steps, compiled / eager / compiled: "
+          f"{step(ms['compiled'][0]):.3f} / {step(ms['eager'][0]):.3f} / "
+          f"{step(ms['compiled'][1]):.3f}; bit-identical counters")
+    reset()
+    quiet_i = 1                                   # warm, the 2nd quiet chunk
+    fault_i = next(i for i, (wi, _, _) in enumerate(staged)
+                   if plan.spans[wi][2] not in ("quiet", "recovery"))
+    for i, (inputs, n) in enumerate(calls[:fault_i + 1]):
+        if i not in (quiet_i, fault_i):
+            plan.server.jit_serve_many(plan.params, plan.state, *inputs,
+                                       flush_every=1, collect=False)
+            continue
+        label = plan.spans[staged[i][0]][2]
+        got = phase_profile(
+            torch, f"profile chaos cascade {label} compiled", n,
+            lambda: plan.server.jit_serve_many(
+                plan.params, plan.state, *inputs, flush_every=1,
+                collect=False)[1])
+        if got is not None:
+            busy = sum(got[0].values()) / 1e3 / n
+            wall = statistics.median([m[i] for m in ms["compiled"]])
+            print(f"[chaos cascade] {label} chunk of {n} steps: device "
+                  f"kernel time {busy:.3f} ms a step, unprofiled compiled "
+                  f"replay {wall:.3f} ms a step, idle share "
+                  f"{1 - busy / wall:.3f}")
+    del fresh
+
+
+def chaos_single(torch):
+    """The single-model server in phase 2's deployment (2**20 x 8 tiers,
+    B=512, miss budget 384, phase 2's 119 steps, admission at B tokens a
+    step) under the cascade preset and under a flush stall alone over the
+    same span: compiled cuda (``jit_serve_many``, chunks cut at the fault
+    edges) against eager torch, bit-identical in counters, outputs and
+    every state tensor."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import server as srv
+    from repro_torch.core.config import CacheConfig
+    from repro_torch.core.hashing import Key64
+    from repro_torch.ft import chaos
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import recsys as rec
+
+    dev = torch.device("cuda")
+    tcfg, params, tower_fn, features_of = launch.build_tower(
+        "sasrec", backend="cuda", device=dev, smoke=False, seed=0)
+    keys, feats, nows, _ = staged_stream(torch, launch, features_of, dev,
+                                         COMPILED_STEPS)
+    nows_np = nows.cpu().numpy().astype(np.int64)
+    horizon = int(nows_np[-1]) + 1
+    cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=N_BUCKETS,
+                      ways=WAYS, value_dim=tcfg.user_embed_dim,
+                      miss_budget_frac=0.75, backend="cuda",
+                      infer_budget_per_step=float(BATCH),
+                      failover_ttl_relax=None)
+    plain_cfg = dataclasses.replace(cfg, backend="torch")
+    servers = {
+        "cuda": srv.CachedEmbeddingServer(cfg=cfg, tower_fn=tower_fn,
+                                          miss_budget=int(BATCH * 0.75)),
+        "torch": srv.CachedEmbeddingServer(
+            cfg=plain_cfg, miss_budget=int(BATCH * 0.75),
+            tower_fn=lambda p, f: rec.tower_step(p, f, tcfg, impl="torch"))}
+    cascade = chaos.preset_faults("cascade", horizon, n_models=1,
+                                  n_buckets=N_BUCKETS)
+    lo, hi = cascade[0].t0_ms, cascade[0].t1_ms
+    for name, faults in (("cascade", cascade),
+                         ("stall", [chaos.FlushStall(lo, hi)])):
+        sched = chaos.compile_schedule(
+            faults, nows_np, BATCH, n_models=1, n_buckets=N_BUCKETS,
+            retry=chaos.RetryPolicy(max_retries=2), seed=1, device=dev)
+        snow = chaos.skewed_now(sched, nows_np)
+        spans = launch._window_steps(chaos.fault_windows(faults, horizon),
+                                     nows_np, 24)
+        calls = []
+        for w_lo, w_hi, _ in spans:
+            for a, n in launch._chunks(w_hi - w_lo, COMPILED_CHUNK):
+                sl = slice(w_lo + a, w_lo + a + n)
+                calls.append((Key64(keys.hi[sl], keys.lo[sl]),
+                              {k: v[sl] for k, v in feats.items()},
+                              snow[sl], None,
+                              chaos.slice_schedule(sched, sl.start,
+                                                   sl.stop)))
+        runs = {}
+        for backend in ("cuda", "torch"):
+            server = servers[backend]
+            state = srv.init_server_state(server.cfg,
+                                          writebuf_capacity=BATCH * 4,
+                                          device=dev)
+            run = server.jit_serve_many if backend == "cuda" else \
+                server.serve_many
+            ops.reset_launch_counts()
+            out = []
+            for inputs in calls:
+                state, acc, ys = run(params, state, *inputs, flush_every=1)
+                out.append((srv.fetch_counters(acc), ys))
+            runs[backend] = (out, state, ops.launch_counts())
+        (out, st, n), (out_t, st_t, _) = runs["cuda"], runs["torch"]
+        if {k: v for k, v in n.items() if v} != {
+                "cache_probe_dual": COMPILED_STEPS,
+                "embedding_bag": COMPILED_STEPS}:
+            raise AssertionError(f"single {name}: launches {n}")
+        for (c, ys), (c_t, ys_t) in zip(out, out_t):
+            if c != c_t or not all(torch.equal(x, y)
+                                   for x, y in zip(ys, ys_t)):
+                raise AssertionError(f"single {name}: counters or outputs "
+                                     "differ, compiled cuda vs eager torch")
+        same_tensors(torch, st, st_t, f"single {name}")
+        tot = {k: sum(c[k] for c, _ in out) for k in CHAOS_FAULT_KEYS}
+        if name == "stall" and not tot["write_ring_drops"] > 0:
+            raise AssertionError("the flush stall dropped no ring record")
+        print(f"[chaos single {name}] SASRec full width, {N_BUCKETS}x{WAYS} "
+              f"tiers, B={BATCH}, {COMPILED_STEPS} steps in chunks of "
+              f"{'/'.join(str(int(c[2].shape[0])) for c in calls)}: "
+              f"compiled cuda == eager torch in counters, sources, ages, "
+              f"embeddings, every state tensor; "
+              + ", ".join(f"{k} {v}" for k, v in tot.items())
+              + f"; {graph_line(servers['cuda'], 'cache_probe_dual')}")
+        del runs, st, st_t
+        servers["cuda"].jit_serve_many.graphs.clear()
+
+
+def chaos_benign(torch, launch):
+    """A benign schedule through ``jit_serve_many`` against ``chaos=None``
+    through ``jit_serve_many`` on the chaos deployment: counters (the
+    shared keys), outputs and every state tensor bit-identical."""
+    import numpy as np
+
+    from repro_torch.core import server as srv
+    from repro_torch.ft import chaos
+
+    dev = torch.device("cuda")
+    plan = launch.plan_chaos(scenario="incident", backend="cuda",
+                             device=dev, **CHAOS)
+    steps, cfgs = CHAOS["steps"], list(plan.server.cfgs)
+    benign = chaos.benign_schedule(steps, BATCH, n_models=CHAOS["n_models"],
+                                   device=dev)
+    states = [plan.state, srv.init_multi_server_state(
+        cfgs, writebuf_capacity=BATCH * 4, device=dev)]
+    for lo, n in launch._chunks(steps, COMPILED_CHUNK):
+        keys, feats, nows = launch._stage_steps(
+            plan.ids[lo:lo + n], plan.nows[lo:lo + n], plan.features_of, dev)
+        args = (plan.slots[lo:lo + n], keys, feats, nows, None)
+        out = []
+        for state, ch in zip(states, (None, chaos.slice_schedule(
+                benign, lo, lo + n))):
+            _, acc, ys = plan.server.jit_serve_many(
+                plan.params, state, *args, ch, flush_every=1)
+            out.append((srv.fetch_counters(acc), ys))
+        (a, ya), (b, yb) = out
+        if any(b[k] != v for k, v in a.items()) or not all(
+                torch.equal(x, y) for x, y in zip(ya, yb)):
+            raise AssertionError("a benign schedule differs from chaos=None")
+        if any(b[k] for k in ("retries", "blackout_write_drops",
+                              "write_ring_drops", "touch_ring_drops")):
+            raise AssertionError(f"a benign schedule moved the ledger: {b}")
+    same_tensors(torch, states[0], states[1], "benign vs chaos=None")
+    print(f"[chaos benign] {steps} steps through jit_serve_many in chunks of "
+          f"{COMPILED_CHUNK}: a benign schedule bit-identical to chaos=None "
+          f"(counters, embeddings, sources, ages, every state tensor); "
+          f"{len(plan.server.jit_serve_many.graphs)} graphs")
+
+
+def chaos_entry(torch):
+    """``launch.serve.main(["--chaos", p, "--users", "1000"])`` per preset
+    as a user calls it, at the settings benchmarks/bench_chaos.py serves
+    (``run_serving_chaos``'s defaults: SMOKE SASRec, 4 models of 2**10
+    buckets, B=256, 1,000 users, 240 steps; the CLI's ``--users`` defaults
+    to 2,000, a stream whose incident SLA is 0.975 in both packages), held
+    to the bench's gates, beside BENCH_chaos.json (a JAX CPU run of an
+    earlier commit). The stream is numpy's Zipf draw, which may differ
+    between numpy versions: its digest is printed."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+
+    bench = json.loads((ROOT / "BENCH_chaos.json").read_text())["scenarios"]
+    keys = ("sla_served_rate", "fallbacks", "failover_serves", "retries",
+            "retry_successes", "blackout_write_drops", "write_ring_drops")
+    draw = np.random.default_rng(0).zipf(1.2, size=(240, 256))
+    print(f"[chaos entry] numpy {np.__version__}: the stream's Zipf draw "
+          f"digest {hashlib.sha1(draw.tobytes()).hexdigest()[:12]}")
+    for p in CHAOS_SLA:
+        ops.reset_launch_counts()
+        rep = launch.main(["--chaos", p, "--users", "1000"])
+        n = ops.launch_counts()
+        rec = rep["recovery"]["recovered_after_windows"]
+        if (rep["sla_served_rate"] < CHAOS_SLA[p] or rec is None
+                or rec > CHAOS_RECOVERY_MAX_WINDOWS
+                or not rep["conservation_ok"]
+                or n["cache_probe_dual_multi"] != rep["steps"]):
+            raise AssertionError(f"--chaos {p}: sla {rep['sla_served_rate']}"
+                                 f" (floor {CHAOS_SLA[p]}), recovered after "
+                                 f"{rec}, conservation "
+                                 f"{rep['conservation_ok']}, launches {n}")
+        ref = bench[p]
+        print(f"[chaos entry {p}] gates held (SLA >= {CHAOS_SLA[p]}, "
+              f"recovery <= {CHAOS_RECOVERY_MAX_WINDOWS} windows, "
+              f"conservation); port vs BENCH_chaos.json: " + ", ".join(
+                  f"{k} {rep[k]} vs {ref[k]}" for k in keys)
+              + f", recovered_after {rec} vs "
+              f"{ref['recovery']['recovered_after_windows']}, p99 "
+              f"{rep['hedging']['p99_ms']} vs {ref['hedging']['p99_ms']} ms")
+
+
+def phase_chaos(torch):
+    """Phase 13: the chaos engine on the card."""
+    import gc
+
+    from repro_torch.launch import serve as launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for scenario in ("incident", "cascade", "rolling"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        plan, rep, chunks = chaos_scenario(torch, launch, scenario)
+        if scenario == "cascade":
+            chaos_fault_checks(rep)
+            chaos_profile(torch, launch, plan, rep, chunks)
+        del plan
+        print(f"[chaos {scenario}] done in {time.perf_counter() - t:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    chaos_benign(torch, launch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chaos_single(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chaos_entry(torch)
+
+
+# ------------------------------------------------------------ phase 14
+# the regional drain at SASRec's published widths: 4 regions of 2**18 x 8
+# direct and failover tiers, B=512, phase 2's 20,000-user 10-minute
+# stream thinned to a diurnal envelope (78 steps), the drain window at
+# chunks of 16 (pre 16 steps, drain 32, post 30)
+REGIONS = dict(arch="sasrec", n_regions=4, minutes=10, users=20_000,
+               batch=BATCH, drain=True, locality=0.98,
+               n_buckets=MULTI_BUCKETS, chunk_steps=16, smoke=False, seed=0)
+
+
+def phase_regions(torch):
+    """Phase 14: ``regional_timeline`` compiled (cuda, ``jit_serve_many``)
+    against an eager torch-backend replay, bit-identical in the report
+    (counters, re-homes, excursions, region load, the hit-rate curve),
+    every chunk's counters and every state tensor (the home table, both
+    stacked tiers, both rings, the tokens); the drained region serves 0
+    requests in its window; one dual-multi probe a step. Then a timed
+    replay, an eager cuda run and a profiled chunk, and ``main(["--regions",
+    "4", "--drain"])`` as a user calls it."""
+    import gc
+
+    from repro_torch.core.graph import tensors_of
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    runs = {}
+    for backend, jit in (("cuda", True), ("torch", False)):
+        plan = launch.plan_regional(backend=backend, device=dev, **REGIONS)
+        ops.reset_launch_counts()
+        d, state, chunks = launch.regional_timeline(
+            plan, jit=jit, log=lambda s, b=backend: print(
+                f"[regions {b}] {s}"))
+        runs[backend] = (plan, d, state, chunks, ops.launch_counts())
+    (plan, d, st, chunks, n), (_, d_t, st_t, chunks_t, n_t) = (
+        runs["cuda"], runs["torch"])
+    steps = d["batches"]
+    if {k: v for k, v in n.items() if v} != {
+            "cache_probe_dual_multi": steps, "embedding_bag": steps}:
+        raise AssertionError(f"regions: launches {n} for {steps} steps")
+    if sum(n_t.values()):
+        raise AssertionError(f"the torch backend launched kernels: {n_t}")
+    strip = lambda r: {k: v for k, v in r.items() if k not in (
+        "wall_s", "req_per_s", "step_ms")}
+    if strip(d) != strip(d_t) or chunks != chunks_t:
+        raise AssertionError("regions: the report or a chunk's counters "
+                             "differ, compiled cuda vs eager torch")
+    same_tensors(torch, st, st_t, "regions compiled cuda vs eager torch")
+    phases = [p for p in ("pre", "drain", "post")
+              if d[f"hit_rate_{p}"] is not None]
+    if (d["drained_load_during_drain"] != 0 or phases != ["pre", "drain",
+                                                         "post"]
+            or d["region_load"][d["drain_region"]] <= 0):
+        raise AssertionError(f"regions: drained load "
+                             f"{d['drained_load_during_drain']}, phases "
+                             f"{phases}, region load {d['region_load']}")
+    print(f"[regions] SASRec full width, 4 regions of {MULTI_BUCKETS}x{WAYS}"
+          f" tiers ({sum(t.nbytes for t in st.inner.direct) / 1e9:.2f} GB "
+          f"direct), B={BATCH}, {steps} steps in chunks of "
+          f"{REGIONS['chunk_steps']}, drain batches {d['drain_batches']}: "
+          f"hit rate pre/drain/post {d['hit_rate_pre']}/"
+          f"{d['hit_rate_drain']}/{d['hit_rate_post']}, dip_pp "
+          f"{d['dip_pp']}, rehomed {d['rehomed']}, excursions "
+          f"{d['excursions']}, region load {d['region_load']}, drained "
+          f"region's in-window load {d['drained_load_during_drain']}; "
+          f"compiled cuda == eager torch in the report, every chunk's "
+          f"counters and every state tensor (home table included); "
+          f"launches {n}; {graph_line(plan.server, 'cache_probe_dual_multi')}")
+    del runs, st_t
+
+    staged = list(launch.regional_chunks(plan))
+    calls = [(inputs, int(inputs[0].shape[0])) for _, _, inputs in staged]
+    fresh = plan.server.init_state(writebuf_capacity=BATCH * 4)
+
+    def reset():
+        for a, b in zip(tensors_of(plan.state), tensors_of(fresh),
+                        strict=True):
+            a.copy_(b)
+
+    ms = {}
+    for mode in ("compiled", "eager", "compiled"):
+        reset()
+        run = (plan.server.jit_serve_many if mode == "compiled"
+               else plan.server.serve_many)
+        got, per = timed_calls(torch, run, plan.params, plan.state, calls)
+        if got != chunks:
+            raise AssertionError(f"regions {mode} run differs")
+        ms.setdefault(mode, []).append(per)
+    step = lambda per: sum(m * c for m, (_, c) in zip(per, calls)) / steps
+    print(f"[regions] host wall ms a step over {steps} staged steps, "
+          f"compiled / eager / compiled: {step(ms['compiled'][0]):.3f} / "
+          f"{step(ms['eager'][0]):.3f} / {step(ms['compiled'][1]):.3f}")
+    reset()
+    i_prof = next(i for i, (_, ph, _) in enumerate(staged) if ph == "drain")
+    for i, (inputs, c) in enumerate(calls[:i_prof + 1]):
+        drive = lambda inputs=inputs: plan.server.jit_serve_many(
+            plan.params, plan.state, *inputs, flush_every=1,
+            collect=False)[1]
+        if i < i_prof:
+            drive()
+            continue
+        got = phase_profile(torch, "profile regions drain compiled", c,
+                            drive)
+        if got is not None:
+            busy = sum(got[0].values()) / 1e3 / c
+            wall = statistics.median([m[i] for m in ms["compiled"]])
+            print(f"[regions] drain chunk of {c} steps: device kernel time "
+                  f"{busy:.3f} ms a step, unprofiled compiled replay "
+                  f"{wall:.3f} ms a step, idle share {1 - busy / wall:.3f}")
+    del plan, fresh, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    for argv in (["--regions", "4", "--drain"],
+                 ["--regions", "4", "--drain", "--chunk-steps", "8"]):
+        ops.reset_launch_counts()
+        d = launch.main(argv)
+        n = ops.launch_counts()
+        if (d["drained_load_during_drain"] != 0
+                or n["cache_probe_dual_multi"] != d["batches"]
+                or d["requests"] <= 0):
+            raise AssertionError(f"{argv}: {d['batches']} batches, drained "
+                                 f"load {d['drained_load_during_drain']}, "
+                                 f"launches {n}")
+        print(f"[regions entry] main({argv}): {d['batches']} steps, drain "
+              f"batches {d['drain_batches']}, pre/drain/post "
+              f"{d['hit_rate_pre']}/{d['hit_rate_drain']}/"
+              f"{d['hit_rate_post']}, drained load "
+              f"{d['drained_load_during_drain']}, launches {n}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2817,6 +3381,10 @@ def main() -> int:
     phase_towers(torch)
     print(f"[time] towers and combiner phase done at "
           f"{time.perf_counter() - t0:.1f}s")
+    phase_chaos(torch)
+    print(f"[time] chaos phase done at {time.perf_counter() - t0:.1f}s")
+    phase_regions(torch)
+    print(f"[time] regions phase done at {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in sorted(counts):

@@ -1,17 +1,69 @@
-"""Per-model inference admission: a vectorized token bucket on the device.
+"""Token-bucket rate limiting: regional QPS thresholds and per-model
+inference admission (paper §3.7 and §4.4).
 
-Twin of the device part of ``repro/core/ratelimit.py`` (``InferBudget``
-and its refill -> grant -> spend primitives, DESIGN.md §8); the host-side
-regional ``TokenBucket`` / ``RegionalRateLimiter`` join with the regions
-slice. Everything here is elementwise float32, so the token state is
-bit-exact with the reference. Functions return new tensors, as the
-reference does.
+Twin of ``repro/core/ratelimit.py``:
+
+* :class:`TokenBucket` / :class:`RegionalRateLimiter`: the paper's
+  regional QPS filter, a deterministic host-side bucket per region on
+  the simulated clock (plain Python, as in the reference).
+* :class:`InferBudget` and its refill -> grant -> spend primitives: the
+  same partial-admission math vectorized over the model registry on the
+  device (DESIGN.md §8). Everything there is elementwise float32, so the
+  token state is bit-exact with the reference. Functions return new
+  tensors, as the reference does.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+
+@dataclasses.dataclass
+class TokenBucket:
+    rate_per_s: float           # sustained regional threshold
+    burst: float                # bucket capacity
+    tokens: float = 0.0
+    last_ms: int = 0
+    admitted: int = 0
+    rejected: int = 0
+
+    def __post_init__(self) -> None:
+        if self.tokens == 0.0:
+            self.tokens = self.burst
+
+    def admit(self, now_ms: int, n: int = 1) -> int:
+        """Try to admit ``n`` requests at ``now_ms``; returns how many were
+        admitted (a batch may be trimmed: the spike's excess is shed)."""
+        dt = max(now_ms - self.last_ms, 0) / 1e3
+        self.tokens = min(self.burst, self.tokens + dt * self.rate_per_s)
+        self.last_ms = max(self.last_ms, now_ms)
+        ok = int(min(n, self.tokens))
+        self.tokens -= ok
+        self.admitted += ok
+        self.rejected += n - ok
+        return ok
+
+
+@dataclasses.dataclass
+class RegionalRateLimiter:
+    """One bucket per region; thresholds provisioned per region."""
+
+    buckets: dict
+
+    @staticmethod
+    def uniform(regions, rate_per_s: float, burst_s: float = 1.0
+                ) -> "RegionalRateLimiter":
+        return RegionalRateLimiter(buckets={
+            r: TokenBucket(rate_per_s=rate_per_s, burst=rate_per_s * burst_s)
+            for r in regions})
+
+    def admit(self, region, now_ms: int, n: int = 1) -> int:
+        return self.buckets[region].admit(now_ms, n)
+
+    def stats(self):
+        return {r: (b.admitted, b.rejected) for r, b in self.buckets.items()}
 
 
 class InferBudget(NamedTuple):

@@ -40,8 +40,14 @@ be captured.
 stacked tier: a mixed-model batch is ONE ``cache_probe_dual_multi``
 launch, each query at its own model's TTLs, and the flush applies each
 model's TTL and eviction policy through one shared insert plan. Per-model
-(M,) counters ride beside the global ones. The reference's ``chaos=`` and
-``mesh=`` arguments join with the chaos and sharding slices.
+(M,) counters ride beside the global ones.
+
+Both servers take the reference's ``chaos=`` argument: one step's row of a
+compiled fault schedule (``ft/chaos.py``; a bucket blackout, an outage,
+failures and bounded retries inside the admission budget), and
+``serve_many`` takes the whole (S, ...) schedule, whose flush stalls
+predicate each folded flush on the device and whose ring overflows are
+counted. The reference's ``mesh=`` argument waits for the sharding slice.
 """
 from __future__ import annotations
 
@@ -118,12 +124,20 @@ _ACC_PM_I32 = ("per_model_requests", "per_model_direct_hits",
                "per_model_admitted", "per_model_deferred",
                "per_model_failover_serves")
 _ACC_PM_F32 = ("per_model_failover_stale_sum_ms",)
+# Chaos-only keys, the degradation ledger's retry and drop accounting:
+# carried only when a fault schedule rides along, so the accumulator of a
+# chaos-free call is unchanged.
+_ACC_CHAOS_STEP = ("computed_serves", "retries", "retry_successes",
+                   "blackout_write_drops")
+_ACC_CHAOS_SCAN = ("write_ring_drops", "touch_ring_drops")
 
 
-def _zero_acc(device, n_models: Optional[int] = None) -> dict:
+def _zero_acc(device, n_models: Optional[int] = None,
+              chaos: bool = False) -> dict:
     """Zeroed device counters; ``steps`` counts serve steps (one grouped
     async write each, the combined_writes analogue). ``n_models`` adds
-    the multi-model tier's (M,) per-model counters."""
+    the multi-model tier's (M,) per-model counters, ``chaos`` the
+    degradation ledger's keys."""
     acc = {k: torch.zeros((), dtype=torch.int32, device=device)
            for k in _ACC_I32 + ("steps",)}
     acc.update({k: torch.zeros((), dtype=torch.float32, device=device)
@@ -133,6 +147,9 @@ def _zero_acc(device, n_models: Optional[int] = None) -> dict:
                                    device=device) for k in _ACC_PM_I32})
         acc.update({k: torch.zeros((n_models,), dtype=torch.float32,
                                    device=device) for k in _ACC_PM_F32})
+    if chaos:
+        acc.update({k: torch.zeros((), dtype=torch.int32, device=device)
+                    for k in _ACC_CHAOS_STEP + _ACC_CHAOS_SCAN})
     return acc
 
 
@@ -162,19 +179,42 @@ def fetch_counters(acc: dict) -> dict:
     return out
 
 
+def _ring_excess(ring) -> torch.Tensor:
+    """How far a ring's appends since its last flush passed its capacity:
+    the records its last-capacity-wins contract has discarded."""
+    return torch.clamp(ring.count - ring.capacity, min=0)
+
+
 def _serve_many_loop(step_fn, flush_fn, state, n_steps: int, acc: dict, *,
-                     flush_every: int, collect: bool):
+                     flush_every: int, collect: bool,
+                     flush_off: Optional[torch.Tensor] = None):
     """Run ``step_fn(state, i)`` over the S staged steps, accumulating the
     counters on the device and flushing every ``flush_every`` steps
     (0 = only at the end) with ``flush_fn(state, i)``; a tail flush
-    always runs."""
+    always runs.
+
+    ``flush_off`` (S,) bool, a chaos schedule's flush stalls, predicates
+    each folded flush on the device (``flush_fn(state, i, enabled)``: no
+    host sync, so a graph captures any stall pattern) and adds the ring
+    drops each step's appends caused, taken before its flush, to
+    ``write_ring_drops`` / ``touch_ring_drops``. The tail flush runs
+    whatever the schedule, so recovery always drains."""
     outs = []
     for i in range(n_steps):
+        if flush_off is not None:
+            wb0 = _ring_excess(state.writebuf)
+            tb0 = _ring_excess(state.touchbuf)
         res = step_fn(state, i)
         acc = _acc_add(acc, res.stats)
         state = res.state
+        if flush_off is not None:
+            acc["write_ring_drops"] = (acc["write_ring_drops"]
+                                       + _ring_excess(state.writebuf) - wb0)
+            acc["touch_ring_drops"] = (acc["touch_ring_drops"]
+                                       + _ring_excess(state.touchbuf) - tb0)
         if flush_every >= 1 and (i + 1) % flush_every == 0:
-            state = flush_fn(state, i)
+            state = (flush_fn(state, i) if flush_off is None
+                     else flush_fn(state, i, ~flush_off[i]))
         if collect:
             outs.append((res.embeddings, res.source, res.age_ms))
     state = flush_fn(state, n_steps - 1)
@@ -195,6 +235,11 @@ def take_rows(features, idx):
         return type(features)(take_rows(v, idx) for v in features)
     raise TypeError(f"features must be a tensor or a dict/tuple/list of "
                     f"tensors, got {type(features).__name__}")
+
+
+def _row(chaos, i: int):
+    """Step ``i``'s row of a chaos schedule (None passes through)."""
+    return None if chaos is None else type(chaos)(*(x[i] for x in chaos))
 
 
 class _CompiledEntryPoints:
@@ -265,7 +310,8 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
                 admit: Optional[torch.Tensor] = None,
                 fo_strict_hit: Optional[torch.Tensor] = None,
                 infer: Optional[torch.Tensor] = None,
-                src_row: Optional[torch.Tensor] = None):
+                src_row: Optional[torch.Tensor] = None,
+                write_drop: Optional[torch.Tensor] = None):
     """Steps (2)-(4): miss-budget compaction + tower, failover assistance /
     model fallback, provenance + counters, write-ring append.
 
@@ -275,7 +321,10 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
     ``fo_strict_hit`` the strict-TTL subset of the (relaxed) failover
     probe; ``infer`` the rows that RUN the tower (coalescing
     representatives; None: ``admit``) and ``src_row`` the row whose tower
-    output serves each admitted row (None: the identity).
+    output serves each admitted row (None: the identity). ``write_drop``
+    (B,) bool (a chaos blackout) marks rows whose insert would land in a
+    dark bucket range: their computed embeddings still serve this batch
+    but never enter the write ring (``blackout_write_drops``).
     Returns (embeddings, source, age, writebuf, stats).
     """
     B = keys.hi.shape[0]
@@ -334,7 +383,8 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
     # (4) async cache update: computed rows into the write ring
     sel_keys = Key64(hi=keys.hi[sel], lo=keys.lo[sel])
     new_wb = wb_lib.append(
-        writebuf, sel_keys, towered, now_ms, mask=sel_ok,
+        writebuf, sel_keys, towered, now_ms,
+        mask=sel_ok if write_drop is None else sel_ok & ~write_drop[sel],
         model_ids=None if model_slots is None else model_slots[sel])
 
     def count(flag):
@@ -364,6 +414,8 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
         "served_age_count": age_served,
         "computed_serves": count(computed),
     }
+    if write_drop is not None:
+        stats["blackout_write_drops"] = count(sel_ok & write_drop[sel])
     if model_slots is not None:
         # Per-model sums as one-hot reductions, not scatter-adds: CUDA
         # scatter-adds of floats use atomics in a run-dependent order, and
@@ -387,6 +439,82 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
             "per_model_failover_stale_sum_ms": pm_stale_sum,
         })
     return emb, source, age, new_wb, stats
+
+
+# ------------------------------------------------------- chaos serve hooks
+# The serve-step side of the chaos engine. The schedule row is duck-typed
+# (fields ``fail`` (B,) bool, ``retry_fail`` (R, B) bool, ``outage`` (M,)
+# bool, ``blackout_lo``/``blackout_hi`` 0-d int32; ``ft/chaos.py``
+# compiles one), so core never imports ft. ``flush_off`` is read by the
+# S-step loop and ``skew_ms`` by the launcher's clock, not here.
+
+def _chaos_blackout(direct, ch):
+    """Mask a bucket-range blackout onto the direct probe: hits whose
+    bucket lies in ``[blackout_lo, blackout_hi)`` become COLD misses
+    (values zeroed, age and way -1, so touch, coalescing and admission
+    all see a miss), and the returned (B,) mask marks every row whose
+    insert would land in the range (the tail drops those appends). A
+    probe hashes to the bucket it inserts to, so one mask covers both
+    directions; the failover read path stays up. An empty range (lo ==
+    hi) masks nothing."""
+    bl = (direct.bucket >= ch.blackout_lo) & (direct.bucket < ch.blackout_hi)
+    masked = direct._replace(
+        hit=direct.hit & ~bl,
+        values=torch.where(bl[:, None], torch.zeros_like(direct.values),
+                           direct.values),
+        age_ms=torch.where(bl, -1, direct.age_ms),
+        way=torch.where(bl, -1, direct.way))
+    return masked, bl
+
+
+def _chaos_retries(ch, infer, failure_mask, budget, limited,
+                   slots=None, n_models: Optional[int] = None):
+    """Bounded retry-with-backoff for this step's FAILED tower attempts,
+    inside the admission budget: attempt r is granted from the tokens
+    left after the earlier grants (per model on the multi-model tier)
+    and succeeds unless the schedule's ``retry_fail[r]`` row fails it
+    (sampled at the backoff-shifted time, outages forcing failure). A
+    recovered row's failure bit is cleared: the tower output for it is
+    already computed. Unlimited models grant retries freely.
+
+    Returns (failure mask, spent budget, retries, successes); the loop is
+    a static unroll over the policy's max_retries. Per-model demands and
+    charges are one-hot sums (:func:`_per_model_count`), as in the tail."""
+    still = infer & failure_mask
+    n_att = torch.zeros((), dtype=torch.int32, device=infer.device)
+    n_succ = torch.zeros_like(n_att)
+    oh = None if slots is None else _one_hot(slots, n_models)
+    for r in range(ch.retry_fail.shape[0]):
+        if slots is None:
+            s_i = still.to(torch.int32)
+            rank = torch.cumsum(s_i, 0) - s_i                 # exclusive
+            grant = rl_lib.grant_from(budget, limited,
+                                      s_i.sum(dtype=torch.int32)[None])
+            att = still & (rank < grant[0])
+            spent = att.sum(dtype=torch.int32)[None]
+        else:
+            rank = _per_model_miss_rank(slots, still, n_models)
+            grant = rl_lib.grant_from(budget, limited,
+                                      _per_model_count(oh, still))
+            att = still & (rank < grant[slots.long()])
+            spent = _per_model_count(oh, att)
+        budget = rl_lib.spend(budget, limited, spent)
+        succ = att & ~ch.retry_fail[r]
+        n_att = n_att + att.sum(dtype=torch.int32)
+        n_succ = n_succ + succ.sum(dtype=torch.int32)
+        still = still & ~succ
+    recovered = (infer & failure_mask) & ~still
+    return failure_mask & ~recovered, budget, n_att, n_succ
+
+
+def _chaos_stats(stats: dict, chaos, retried) -> None:
+    """The ``retries`` / ``retry_successes`` keys of a chaos step (zeros
+    when the policy allows no retry)."""
+    if chaos is None:
+        return
+    zero = torch.zeros((), dtype=torch.int32, device=stats["requests"].device)
+    stats["retries"], stats["retry_successes"] = (
+        (zero, zero) if retried is None else retried)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -424,17 +552,28 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
     # ----------------------------------------------------------------- serve
     def serve_step(self, params, state: ServerState, keys: Key64,
                    features, now_ms,
-                   failure_mask: Optional[torch.Tensor] = None
-                   ) -> ServeResult:
+                   failure_mask: Optional[torch.Tensor] = None,
+                   chaos=None) -> ServeResult:
         """One serve batch. Reads the cache tables as they were before the
         step (it never writes them); appends to the write and touch rings
-        IN PLACE. ``now_ms`` may be an int or a 0-d device tensor."""
+        IN PLACE. ``now_ms`` may be an int or a 0-d device tensor.
+
+        ``chaos`` (None: no faults) is one step's row of a compiled
+        fault schedule (``outage`` is (1,) here). Fault
+        schedules require admission control: outages and retries are
+        accounted in the token bucket."""
         B = keys.hi.shape[0]
         cfg = self.cfg
         dev = keys.hi.device
         now = torch.as_tensor(now_ms, dtype=torch.int32, device=dev)
         if failure_mask is None:
             failure_mask = torch.zeros(B, dtype=torch.bool, device=dev)
+        if chaos is not None:
+            if not self._admission:
+                raise ValueError(
+                    "chaos fault schedules require admission control: set "
+                    "CacheConfig.infer_budget_per_step")
+            failure_mask = failure_mask | chaos.fail
 
         # (1) direct + failover probe: ONE launch. With admission control
         # the failover validates at the RELAXED TTL and the strict hit set
@@ -442,6 +581,11 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
         direct, fo = cache_lib.lookup_dual(
             state.direct, state.failover, keys, now, cfg.cache_ttl_ms,
             cfg.resolved_failover_relax_ttl_ms(), backend=cfg.backend)
+
+        # (1a) bucket-range blackout, before every downstream stage
+        write_drop = None
+        if chaos is not None:
+            direct, write_drop = _chaos_blackout(direct, chaos)
 
         # (1b) hit coordinates for the deferred last-access bump
         new_tb = state.touchbuf
@@ -467,7 +611,9 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
             fo_strict = fo.hit & (fo.age_ms <= cfg.failover_ttl_ms)
             demand = unit.sum(dtype=torch.int32)[None]
             refilled = rl_lib.refill(state.budget, rates, bursts)
-            grant = rl_lib.grant_from(refilled, limited, demand)
+            grant = rl_lib.grant_from(
+                refilled, limited, demand,
+                blocked=None if chaos is None else chaos.outage)
             u_i = unit.to(torch.int32)
             rank = torch.cumsum(u_i, 0) - u_i                 # exclusive
             infer = unit & (rank < torch.clamp(grant[0],
@@ -481,12 +627,21 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
         elif cfg.coalesce_misses:
             infer = rep          # window clipping happens in the tail
 
+        # (1e) bounded retry/backoff of the failed inferences from the
+        # remaining tokens
+        retried = None
+        if chaos is not None and chaos.retry_fail.shape[0] > 0:
+            failure_mask, new_budget, *retried = _chaos_retries(
+                chaos, infer, failure_mask, new_budget,
+                self._budget_table(dev)[2])
+
         # (2)-(4): shared serve tail
         emb, source, age, new_wb, stats = _serve_tail(
             self.tower_fn, self.miss_budget, self.fallback_value, params,
             features, keys, now, failure_mask, direct, fo, state.writebuf,
             admit=admit, fo_strict_hit=fo_strict, infer=infer,
-            src_row=src_row)
+            src_row=src_row, write_drop=write_drop)
+        _chaos_stats(stats, chaos, retried)
         return ServeResult(
             embeddings=emb, source=source, age_ms=age,
             state=ServerState(direct=state.direct, failover=state.failover,
@@ -496,8 +651,9 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
 
     # ------------------------------------------------------------ serve_many
     def serve_many(self, params, state: ServerState, keys: Key64, features,
-                   now_ms, failure_mask: Optional[torch.Tensor] = None, *,
-                   flush_every: int = 1, collect: bool = True):
+                   now_ms, failure_mask: Optional[torch.Tensor] = None,
+                   chaos=None, *, flush_every: int = 1,
+                   collect: bool = True):
         """Run S serve steps over a stream staged on the device.
 
         ``keys`` is an (S, B) Key64, ``features`` a pytree of (S, B, ...)
@@ -506,6 +662,10 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
         at the end); a tail flush always runs, so the returned rings are
         empty. Counters accumulate on the device: fetch them with ONE
         :func:`fetch_counters` per call.
+
+        ``chaos`` is a compiled ``ft.chaos.ChaosSchedule`` of S rows (None:
+        the chaos-free loop, the same ops); the counters then carry the
+        degradation ledger's keys too.
 
         Returns ``(state, counters, outputs)``, ``outputs`` being
         ``(embeddings (S, B, D), source, age_ms)`` or None with
@@ -520,29 +680,35 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
         def step(st, i):
             return self.serve_step(params, st, Key64(keys.hi[i], keys.lo[i]),
                                    take_rows(features, i),
-                                   now_ms[i], failure_mask[i])
+                                   now_ms[i], failure_mask[i],
+                                   _row(chaos, i))
 
-        return _serve_many_loop(step, lambda st, i: self.flush(st, now_ms[i]),
-                                state, now_ms.shape[0], _zero_acc(dev),
-                                flush_every=int(flush_every),
-                                collect=collect)
+        return _serve_many_loop(
+            step, lambda st, i, on=None: self.flush(st, now_ms[i], on),
+            state, now_ms.shape[0], _zero_acc(dev, chaos=chaos is not None),
+            flush_every=int(flush_every), collect=collect,
+            flush_off=None if chaos is None else chaos.flush_off)
 
     # ----------------------------------------------------------------- flush
-    def flush(self, state: ServerState, now_ms) -> ServerState:
+    def flush(self, state: ServerState, now_ms,
+              enabled: Optional[torch.Tensor] = None) -> ServerState:
         """Apply the write ring to the cache tier(s), IN PLACE, bumping the
         recency planes from the touch ring first. ``failover_write="dual"``
         flushes both caches with one shared plan; ``"off"`` only the
-        direct cache."""
+        direct cache. ``enabled`` (0-d bool; None: True) predicates the
+        whole flush on the device: False leaves every plane and both rings
+        as they were."""
         tb = state.touchbuf if self.cfg.resolved_touch() else None
         lru = self.cfg.eviction == "lru"
         if self.cfg.failover_write == "off":
             wb_lib.flush(state.writebuf, state.direct, now_ms,
-                         self.cfg.cache_ttl_ms, evict_lru=lru, touchbuf=tb)
+                         self.cfg.cache_ttl_ms, evict_lru=lru, touchbuf=tb,
+                         enabled=enabled)
         else:
             wb_lib.flush_dual(state.writebuf, state.direct, state.failover,
                               now_ms, self.cfg.cache_ttl_ms,
                               self.cfg.failover_ttl_ms, evict_lru=lru,
-                              touchbuf=tb)
+                              touchbuf=tb, enabled=enabled)
         return state
 
 
@@ -646,14 +812,16 @@ class MultiModelServer(_CompiledEntryPoints):
     # ----------------------------------------------------------------- serve
     def serve_step(self, params, state: MultiServerState, slots,
                    keys: Key64, features, now_ms,
-                   failure_mask: Optional[torch.Tensor] = None
-                   ) -> ServeResult:
+                   failure_mask: Optional[torch.Tensor] = None,
+                   chaos=None) -> ServeResult:
         """Serve a MIXED-model batch: ``slots`` (B,) int32 in [0, M)
         assigns each request its model. Steps mirror
         :meth:`CachedEmbeddingServer.serve_step`; step (1) covers every
         model in ONE probe launch and the stats gain per-model (M,)
         breakdowns. Never writes the tables; appends to the rings IN
-        PLACE."""
+        PLACE. ``chaos`` is one fault-schedule row (``outage`` (M,),
+        ``blackout_lo/hi`` in POOLED buckets); it requires admission
+        control on some model."""
         B = keys.hi.shape[0]
         dev = keys.hi.device
         M = self.n_models
@@ -663,11 +831,22 @@ class MultiModelServer(_CompiledEntryPoints):
         s = slots.long()
         if failure_mask is None:
             failure_mask = torch.zeros(B, dtype=torch.bool, device=dev)
+        if chaos is not None:
+            if not self._any_admission:
+                raise ValueError(
+                    "chaos fault schedules require admission control: set "
+                    "infer_budget_per_step on some model")
+            failure_mask = failure_mask | chaos.fail
 
         # (1) direct + failover probe of ALL models: ONE launch
         direct, fo = cache_lib.lookup_dual_multi(
             state.direct, state.failover, self._probe_policy, slots, keys,
             now, backend=self.backend)
+
+        # (1a) pooled-bucket-range blackout, before every downstream stage
+        write_drop = None
+        if chaos is not None:
+            direct, write_drop = _chaos_blackout(direct, chaos)
 
         # (1b) POOLED hit coordinates for the deferred last-access bump,
         # gated by each query's model's touch policy
@@ -705,7 +884,9 @@ class MultiModelServer(_CompiledEntryPoints):
             demand = _per_model_count(oh, unit)
             refilled = rl_lib.refill(state.budget, pol.infer_budget,
                                      self._budget_bursts)
-            grant = rl_lib.grant_from(refilled, pol.budget_limited, demand)
+            grant = rl_lib.grant_from(
+                refilled, pol.budget_limited, demand,
+                blocked=None if chaos is None else chaos.outage)
             rank = _per_model_miss_rank(slots, unit, M)
             admit0 = unit & (rank < grant[s])
             a_i = admit0.to(torch.int32)
@@ -720,12 +901,21 @@ class MultiModelServer(_CompiledEntryPoints):
         elif self._any_coalesce:
             infer = unit         # window clipping happens in the tail
 
+        # (1e) bounded retry/backoff from the remaining per-model tokens
+        retried = None
+        if chaos is not None and chaos.retry_fail.shape[0] > 0:
+            failure_mask, new_budget, *retried = _chaos_retries(
+                chaos, infer, failure_mask, new_budget, pol.budget_limited,
+                slots=slots, n_models=M)
+
         # (2)-(4): shared serve tail, model-tagged ring records
         emb, source, age, new_wb, stats = _serve_tail(
             self.tower_fn, self.miss_budget, self.fallback_value, params,
             features, keys, now, failure_mask, direct, fo, state.writebuf,
             model_slots=slots, n_models=M, admit=admit,
-            fo_strict_hit=fo_strict, infer=infer, src_row=src_row)
+            fo_strict_hit=fo_strict, infer=infer, src_row=src_row,
+            write_drop=write_drop)
+        _chaos_stats(stats, chaos, retried)
         return ServeResult(
             embeddings=emb, source=source, age_ms=age,
             state=MultiServerState(direct=state.direct,
@@ -737,12 +927,14 @@ class MultiModelServer(_CompiledEntryPoints):
     # ------------------------------------------------------------ serve_many
     def serve_many(self, params, state: MultiServerState, slots,
                    keys: Key64, features, now_ms,
-                   failure_mask: Optional[torch.Tensor] = None, *,
-                   flush_every: int = 1, collect: bool = True):
+                   failure_mask: Optional[torch.Tensor] = None,
+                   chaos=None, *, flush_every: int = 1,
+                   collect: bool = True):
         """S mixed-model serve steps over a stream staged on the device:
         the contract of :meth:`CachedEmbeddingServer.serve_many` with an
         extra (S, B) ``slots`` stream; the counters include the per-model
-        (M,) breakdowns."""
+        (M,) breakdowns. ``chaos`` is a compiled S-row fault schedule
+        (None: the chaos-free loop)."""
         dev = keys.hi.device
         now_ms = torch.as_tensor(now_ms, dtype=torch.int32, device=dev)
         slots = torch.as_tensor(slots, dtype=torch.int32, device=dev)
@@ -754,30 +946,45 @@ class MultiModelServer(_CompiledEntryPoints):
             return self.serve_step(params, st, slots[i],
                                    Key64(keys.hi[i], keys.lo[i]),
                                    take_rows(features, i),
-                                   now_ms[i], failure_mask[i])
+                                   now_ms[i], failure_mask[i],
+                                   _row(chaos, i))
 
-        return _serve_many_loop(step, lambda st, i: self.flush(st, now_ms[i]),
-                                state, now_ms.shape[0],
-                                _zero_acc(dev, self.n_models),
-                                flush_every=int(flush_every),
-                                collect=collect)
+        return _serve_many_loop(
+            step, lambda st, i, on=None: self.flush(st, now_ms[i], on),
+            state, now_ms.shape[0],
+            _zero_acc(dev, self.n_models, chaos=chaos is not None),
+            flush_every=int(flush_every), collect=collect,
+            flush_off=None if chaos is None else chaos.flush_off)
 
     # ----------------------------------------------------------------- flush
-    def flush(self, state: MultiServerState, now_ms) -> MultiServerState:
+    def flush(self, state: MultiServerState, now_ms,
+              enabled: Optional[torch.Tensor] = None) -> MultiServerState:
         """Apply the mixed-model write ring to both stacked tiers, IN
         PLACE, with ONE shared insert plan, each record under its model's
-        TTL and eviction policy, after the touch ring's recency bumps."""
+        TTL and eviction policy, after the touch ring's recency bumps.
+        ``enabled`` as in :meth:`CachedEmbeddingServer.flush`."""
         wb_lib.flush_dual_multi(
             state.writebuf, state.direct, state.failover, self.policy,
-            now_ms, touchbuf=state.touchbuf if self._any_touch else None)
+            now_ms, touchbuf=state.touchbuf if self._any_touch else None,
+            enabled=enabled)
         return state
 
 
 def cache_image(state: ServerState) -> dict:
     """The durable subset of a server state (what a warm-restart snapshot
-    stores): both cache tables plus the admission token bucket."""
+    stores): both cache tables plus the admission token bucket. Works on
+    :class:`ServerState` and :class:`MultiServerState` alike."""
     return {"direct": state.direct, "failover": state.failover,
             "budget": state.budget}
+
+
+def with_cache_image(state, image: dict):
+    """Graft a durable image onto a freshly initialized state of the SAME
+    shape; the rings keep their empty allocation (a snapshot drains them
+    first, so empty rings are the faithful restore)."""
+    return state._replace(direct=image["direct"],
+                          failover=image["failover"],
+                          budget=image["budget"])
 
 
 def serve_step_no_cache(tower_fn: Callable, params, keys: Key64, features,

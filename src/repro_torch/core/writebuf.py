@@ -181,70 +181,96 @@ def _touch_live(buf: TouchBuffer) -> torch.Tensor:
     return idx < torch.clamp(buf.count, max=buf.capacity)
 
 
+# A flush may be predicated on a 0-d device bool ``enabled`` (the chaos
+# engine's FlushStall), so a captured graph can skip it without a host
+# sync: ``enabled`` is ANDed into every write mask and each ring's count
+# is kept where it is False. A False predicate writes every slot with its
+# own contents, which leaves every plane and both rings bit-identical.
+def _gate(mask: torch.Tensor, enabled: Optional[torch.Tensor]):
+    return mask if enabled is None else mask & enabled
+
+
+def _reset(count: torch.Tensor, enabled: Optional[torch.Tensor]) -> None:
+    if enabled is None:
+        count.zero_()
+    else:
+        count.copy_(torch.where(enabled, 0, count))
+
+
 def _apply_touches(buf: TouchBuffer, state: cache_lib.CacheState,
-                   bucket: torch.Tensor, way: torch.Tensor
+                   bucket: torch.Tensor, way: torch.Tensor,
+                   enabled: Optional[torch.Tensor] = None
                    ) -> cache_lib.CacheState:
     """Scatter-max one cache's buffered bumps (records with bucket -1
     never hit that cache and are skipped)."""
     return cache_lib.touch(state, bucket, way, buf.ts_ms,
-                           live=_touch_live(buf) & (bucket >= 0))
+                           live=_gate(_touch_live(buf) & (bucket >= 0),
+                                      enabled))
 
 
 def _apply_touches_dual(buf: Optional[TouchBuffer],
                         direct: cache_lib.CacheState,
-                        failover: cache_lib.CacheState):
+                        failover: cache_lib.CacheState,
+                        enabled: Optional[torch.Tensor] = None):
     """Scatter-max the buffered bumps into both recency planes and reset
     the ring (no-op without a touch buffer)."""
     if buf is None:
         return direct, failover, None
-    _apply_touches(buf, direct, buf.bucket_d, buf.way_d)
-    _apply_touches(buf, failover, buf.bucket_f, buf.way_f)
-    buf.count.zero_()
+    _apply_touches(buf, direct, buf.bucket_d, buf.way_d, enabled)
+    _apply_touches(buf, failover, buf.bucket_f, buf.way_f, enabled)
+    _reset(buf.count, enabled)
     return direct, failover, buf
 
 
 def flush(buf: WriteBuffer, state: cache_lib.CacheState, now_ms, ttl_ms,
-          evict_lru: bool = False, touchbuf: Optional[TouchBuffer] = None
+          evict_lru: bool = False, touchbuf: Optional[TouchBuffer] = None,
+          enabled: Optional[torch.Tensor] = None
           ) -> Tuple[cache_lib.CacheState, WriteBuffer,
                      Optional[TouchBuffer]]:
     """Apply all buffered records to one cache, IN PLACE, in append order
     (so last-writer-wins follows the true write stream), after
     scatter-maxing ``touchbuf``'s DIRECT-cache bumps; reset the ring(s).
-    ``evict_lru`` selects the victim order (paper §3.3)."""
+    ``evict_lru`` selects the victim order (paper §3.3); ``enabled`` (0-d
+    bool, None: True) predicates the whole flush."""
     if touchbuf is not None:
-        _apply_touches(touchbuf, state, touchbuf.bucket_d, touchbuf.way_d)
-        touchbuf.count.zero_()
+        _apply_touches(touchbuf, state, touchbuf.bucket_d, touchbuf.way_d,
+                       enabled)
+        _reset(touchbuf.count, enabled)
     keys, values, ts, live, _ = _ring_order(buf)
-    cache_lib.insert(state, keys, values, now_ms, ttl_ms, write_mask=live,
-                     ts_ms=ts, evict_lru=evict_lru)
-    buf.count.zero_()
+    cache_lib.insert(state, keys, values, now_ms, ttl_ms,
+                     write_mask=_gate(live, enabled), ts_ms=ts,
+                     evict_lru=evict_lru)
+    _reset(buf.count, enabled)
     return state, buf, touchbuf
 
 
 def flush_dual(buf: WriteBuffer, direct: cache_lib.CacheState,
                failover: cache_lib.CacheState, now_ms,
                direct_ttl_ms, failover_ttl_ms, evict_lru: bool = False,
-               touchbuf: Optional[TouchBuffer] = None
+               touchbuf: Optional[TouchBuffer] = None,
+               enabled: Optional[torch.Tensor] = None
                ) -> Tuple[cache_lib.CacheState, cache_lib.CacheState,
                           WriteBuffer, Optional[TouchBuffer]]:
     """Flush the ring into BOTH caches, IN PLACE, with ONE shared insert
     plan (``cache.insert_dual``): per cache the same as two :func:`flush`
     calls with the respective TTLs. The touch ring's bumps land in both
-    recency planes first."""
+    recency planes first. ``enabled`` as in :func:`flush`."""
     direct, failover, touchbuf = _apply_touches_dual(touchbuf, direct,
-                                                     failover)
+                                                     failover, enabled)
     keys, values, ts, live, _ = _ring_order(buf)
     cache_lib.insert_dual(direct, failover, keys, values, now_ms,
-                          direct_ttl_ms, failover_ttl_ms, write_mask=live,
-                          ts_ms=ts, evict_lru=evict_lru)
-    buf.count.zero_()
+                          direct_ttl_ms, failover_ttl_ms,
+                          write_mask=_gate(live, enabled), ts_ms=ts,
+                          evict_lru=evict_lru)
+    _reset(buf.count, enabled)
     return direct, failover, buf, touchbuf
 
 
 def flush_dual_multi(buf: WriteBuffer, direct: cache_lib.MultiCacheState,
                      failover: cache_lib.MultiCacheState,
                      policy: cache_lib.ModelPolicy, now_ms,
-                     touchbuf: Optional[TouchBuffer] = None
+                     touchbuf: Optional[TouchBuffer] = None,
+                     enabled: Optional[torch.Tensor] = None
                      ) -> Tuple[cache_lib.MultiCacheState,
                                 cache_lib.MultiCacheState, WriteBuffer,
                                 Optional[TouchBuffer]]:
@@ -252,11 +278,14 @@ def flush_dual_multi(buf: WriteBuffer, direct: cache_lib.MultiCacheState,
     shared insert plan (``cache.insert_dual_multi``): each record under
     its model's TTLs and eviction policy, the dedupe salted by model slot.
     The touch ring holds POOLED (M*Nb) coordinates, so its bumps land on
-    the flat views of the stacked recency planes first."""
+    the flat views of the stacked recency planes first. ``enabled`` as in
+    :func:`flush`."""
     if touchbuf is not None:
-        _apply_touches_dual(touchbuf, direct.flat(), failover.flat())
+        _apply_touches_dual(touchbuf, direct.flat(), failover.flat(),
+                            enabled)
     keys, values, ts, live, slots = _ring_order(buf)
     cache_lib.insert_dual_multi(direct, failover, policy, slots, keys,
-                                values, now_ms, write_mask=live, ts_ms=ts)
-    buf.count.zero_()
+                                values, now_ms,
+                                write_mask=_gate(live, enabled), ts_ms=ts)
+    _reset(buf.count, enabled)
     return direct, failover, buf, touchbuf

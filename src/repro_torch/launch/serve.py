@@ -1,7 +1,8 @@
 """Serving launcher: request stream -> ERCache -> tower, end to end, on the
 card.
 
-Twin of the basic, ``--no-cache``, ``--multi`` and ``--overload`` modes of
+Twin of the basic, ``--no-cache``, ``--multi``, ``--overload``,
+``--chaos`` and ``--regions`` modes of
 ``repro/launch/serve.py``: the Fig. 2-calibrated access-pattern generator
 drives one ``CachedEmbeddingServer`` fronting a recsys user tower
 (``--arch``: Wide&Deep, SASRec, BST or MIND; or, with ``--multi``, one
@@ -15,8 +16,12 @@ each batch's missed users so the tower runs once per distinct user.
 ``--overload`` replays the stream against a constrained inference budget
 (SLA admission control): a capacity outage with a flash crowd, whose
 deferred misses degrade through the relaxed-TTL failover tier, reported
-phase by phase. The ``--restart``, ``--shards``, ``--regions`` and
-``--chaos`` modes join with their slices.
+phase by phase. ``--chaos`` compiles a preset multi-fault scenario into
+a schedule staged on the device and replays it against the multi-model
+tier with retry/backoff, reporting the degradation ledger window by
+window. ``--regions N`` stacks N regions over the tier with sticky
+routing on the device; ``--drain`` drains one mid-run (the Fig. 10
+test). The ``--restart`` and ``--shards`` modes join with their slices.
 
 Usage::
 
@@ -28,6 +33,11 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --overload \\
         --minutes 60 --users 2000 [--budget-frac 0.5] \\
         [--failure-rate 0.02 --failure-burst-rate 0.2]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --chaos incident|cascade|rolling [--chaos-models 4] \\
+        [--chaos-steps 240] [--chaos-retries 2] [--hedge-after-ms 25]
+    PYTHONPATH=src python -m repro_torch.launch.serve --regions 4 \\
+        --drain [--locality 0.98] [--minutes 60 --users 2000]
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import regional as rg_lib
 from repro_torch.core import server as srv_lib
 from repro_torch.core.cache import resolve_device
 from repro_torch.core.config import (CacheConfig, HOUR_MS, MINUTE_MS,
@@ -48,8 +59,10 @@ from repro_torch.core.metrics import ServingCounters, power_savings
 from repro_torch.data.access_patterns import (FIG6_KNOTS, InterArrivalDist,
                                               StreamConfig,
                                               generate_stream_fast,
-                                              simulate_hit_rate)
-from repro_torch.ft.failure import FailureInjector
+                                              simulate_hit_rate,
+                                              thin_diurnal)
+from repro_torch.ft import chaos as chaos_lib
+from repro_torch.ft.failure import FailureInjector, StragglerHedger
 from repro_torch.models import recsys as rec_lib
 
 
@@ -102,6 +115,19 @@ def _stage_chunk(uids, times_ms, features_of, lo: int, n_steps: int,
         device=device))
     return (Key64.from_int(ids, device=device), feats,
             torch.as_tensor(np.asarray(nows, np.int32), device=device), fails)
+
+
+def _stage_steps(ids, nows_ms, features_of, device):
+    """Stage an explicit (S, B) id matrix and (S,) clock as tensors on the
+    device (a stream with no underlying renewal stream to index into;
+    cf. :func:`_stage_chunk`)."""
+    ids = np.asarray(ids, np.int64)
+    feats = [features_of(ids[s], int(nows_ms[s]))
+             for s in range(ids.shape[0])]
+    feats = {k: torch.as_tensor(np.stack([f[k] for f in feats]),
+                                device=device) for k in feats[0]}
+    return (Key64.from_int(ids, device=device), feats,
+            torch.as_tensor(np.asarray(nows_ms, np.int32), device=device))
 
 
 def _chunks(n_batches: int, chunk_steps: int):
@@ -506,6 +532,543 @@ def run_serving_overload(arch: str = "sasrec", minutes: int = 60,
     return overload_timeline(plan, chunk_steps, log)[0]
 
 
+# ------------------------------------------------------------------ chaos
+def _window_steps(windows_ms, nows_ms, tail_win: int):
+    """Map the fault-edge windows (ms spans from ``chaos.fault_windows``)
+    onto step ranges of the staged clock, cutting the trailing quiet span
+    into ``tail_win``-step recovery windows. Returns [(lo, hi, label),
+    ...] in steps; empty spans are dropped."""
+    nows = np.asarray(nows_ms, np.int64)
+    spans = []
+    for a, b, label in windows_ms:
+        steps = np.nonzero((nows >= a) & (nows < b))[0]
+        if steps.size:
+            spans.append((int(steps[0]), int(steps[-1]) + 1, label))
+    if spans and spans[-1][2] == "quiet" and len(spans) > 1:
+        lo, hi, _ = spans.pop()
+        for s in range(lo, hi, tail_win):
+            spans.append((s, min(s + tail_win, hi), "recovery"))
+    return spans
+
+
+@dataclasses.dataclass
+class ChaosPlan:
+    """What a chaos scenario serves, built before its clock starts: the
+    tower, the multi-model server and its state, the Zipf stream, the
+    compiled schedule, the skewed clock and the reporting windows."""
+    config: dict                           # the report's settings
+    device: torch.device
+    params: object
+    features_of: object
+    server: srv_lib.MultiModelServer
+    state: srv_lib.MultiServerState        # the initial state
+    faults: list
+    sched: chaos_lib.ChaosSchedule
+    ids: np.ndarray                        # (S, B) user ids
+    nows: np.ndarray                       # (S,) serve clock before skew
+    snow: np.ndarray                       # (S,) the skewed clock served
+    slots: torch.Tensor                    # (S, B) model slots
+    spans: list                            # (lo, hi, label) step windows
+
+
+def plan_chaos(arch: str = "sasrec", scenario: str = "incident",
+               n_models: int = 4, steps: int = 240, users: int = 1000,
+               batch: int = 256, step_ms: int = 250, ttl_min: float = 0.2,
+               failover_ttl_h: float = 2.0, zipf_a: float = 1.2,
+               n_buckets: int = 1 << 10, backend: str = "cuda",
+               fail_rate: float = 0.9, max_retries: int = 2,
+               backoff_ms: int = 500, recovery_win: int = 24,
+               smoke: bool = True, seed: int = 0,
+               device="cuda") -> ChaosPlan:
+    """Set up the scenario of :func:`run_serving_chaos` (same arguments)
+    without serving a step."""
+    device = resolve_device(device)
+    tower_cfg, params, tower_fn, features_of = build_tower(
+        arch, backend=backend, device=device, smoke=smoke, seed=seed)
+    cfgs = [CacheConfig(
+        model_id=m + 1, model_type="ctr",
+        cache_ttl_ms=int(ttl_min * MINUTE_MS),
+        failover_ttl_ms=int(failover_ttl_h * HOUR_MS),
+        n_buckets=n_buckets, ways=8, value_dim=tower_cfg.user_embed_dim,
+        backend=backend, infer_budget_per_step=float(batch),
+        failover_ttl_relax=None) for m in range(n_models)]
+    server = srv_lib.MultiModelServer(cfgs=tuple(cfgs), tower_fn=tower_fn,
+                                      miss_budget=batch, device=device)
+    state = srv_lib.init_multi_server_state(
+        cfgs, writebuf_capacity=batch * 4, device=device)
+
+    rng = np.random.default_rng(seed)
+    ids = rng.zipf(zipf_a, size=(steps, batch)).astype(np.int64) % users
+    nows = (np.arange(steps, dtype=np.int64) + 1) * step_ms
+    slots = ((np.arange(batch)[None, :] + np.arange(steps)[:, None])
+             % n_models).astype(np.int32)
+    horizon_ms = int(nows[-1]) + step_ms
+    pooled = n_models * n_buckets          # the POOLED direct bucket space
+    faults = chaos_lib.preset_faults(scenario, horizon_ms,
+                                     n_models=n_models, n_buckets=pooled,
+                                     fail_rate=fail_rate)
+    sched = chaos_lib.compile_schedule(
+        faults, nows, batch, n_models=n_models, n_buckets=pooled,
+        slots=slots, retry=chaos_lib.RetryPolicy(
+            max_retries=max_retries, backoff_ms=backoff_ms),
+        seed=seed + 1, device=device)
+    snow = chaos_lib.skewed_now(sched, nows).cpu().numpy()
+    spans = _window_steps(chaos_lib.fault_windows(faults, horizon_ms),
+                          nows, recovery_win)
+    config = {"scenario": scenario, "arch": arch, "backend": backend,
+              "n_models": n_models, "steps": steps, "batch": batch,
+              "users": users, "step_ms": step_ms, "zipf_a": zipf_a,
+              "ttl_min": ttl_min, "n_buckets": n_buckets,
+              "fail_rate": fail_rate, "max_retries": max_retries,
+              "backoff_ms": backoff_ms, "horizon_ms": horizon_ms,
+              "seed": seed}
+    return ChaosPlan(config=config, device=device, params=params,
+                     features_of=features_of, server=server, state=state,
+                     faults=faults, sched=sched, ids=ids, nows=nows,
+                     snow=snow,
+                     slots=torch.as_tensor(slots, device=device),
+                     spans=spans)
+
+
+def chaos_chunks(plan: ChaosPlan, chunk_steps: int = 64):
+    """The plan's serve calls in order: (window index, (lo, n), inputs of
+    ``serve_many`` after the state), each window cut into chunks of at
+    most ``chunk_steps`` steps, staged on the device, served on the
+    skewed clock with the schedule's rows."""
+    for wi, (w_lo, w_hi, _) in enumerate(plan.spans):
+        for lo, n in _chunks(w_hi - w_lo, chunk_steps):
+            a = w_lo + lo
+            keys, feats, nows = _stage_steps(plan.ids[a:a + n],
+                                             plan.snow[a:a + n],
+                                             plan.features_of, plan.device)
+            yield wi, (a, n), (plan.slots[a:a + n], keys, feats, nows, None,
+                               chaos_lib.slice_schedule(plan.sched, a,
+                                                        a + n))
+
+
+def chaos_timeline(plan: ChaosPlan, chunk_steps: int = 64,
+                   hedge_after_ms: float = 25.0, checkpoint_every: int = 40,
+                   recovery_tol_pp: float = 2.0, jit: bool = True,
+                   log=print):
+    """Serve ``plan`` end to end through ``jit_serve_many`` (``jit=False``:
+    eager ``serve_many``). Returns the report of
+    :func:`run_serving_chaos`, the final state and every chunk's fetched
+    counters (per-model vectors included)."""
+    cf = plan.config
+    seed = cf["seed"]
+    run = plan.server.jit_serve_many if jit else plan.server.serve_many
+    state = plan.state
+    sums = [dict() for _ in plan.spans]
+    chunks = []
+    t0 = time.perf_counter()
+    for wi, _, inputs in chaos_chunks(plan, chunk_steps):
+        state, acc, _ = run(plan.params, state, *inputs, flush_every=1,
+                            collect=False)
+        c = srv_lib.fetch_counters(acc)          # one transfer per chunk
+        chunks.append(c)
+        for k, v in c.items():
+            if not isinstance(v, list):
+                sums[wi][k] = sums[wi].get(k, 0) + float(v)
+    if plan.device.type == "cuda":
+        torch.cuda.synchronize(plan.device)
+    wall = time.perf_counter() - t0
+
+    windows = []
+    lat_hedged, lat_plain, extra_frac = [], [], []
+    for wi, ((w_lo, w_hi, label), acc_sum) in enumerate(zip(plan.spans,
+                                                            sums)):
+        g = lambda k: acc_sum.get(k, 0.0)
+        req = max(g("requests"), 1.0)
+        # paired latency draws: same seed, the hedged run samples backups
+        n_lat = int(g("tower_inferences") + g("retries"))
+        p99 = p99_plain = None
+        if n_lat:
+            hd = StragglerHedger(hedge_after_ms=hedge_after_ms,
+                                 seed=seed + 100 + wi).latencies(n_lat)
+            pl = StragglerHedger(hedge_after_ms=None,
+                                 seed=seed + 100 + wi).latencies(n_lat)
+            lat_hedged.append(hd["latency_ms"])
+            lat_plain.append(pl["latency_ms"])
+            extra_frac.append((hd["extra_compute_frac"], n_lat))
+            p99 = round(float(np.percentile(hd["latency_ms"], 99)), 2)
+            p99_plain = round(float(np.percentile(pl["latency_ms"], 99)), 2)
+        windows.append({
+            "label": label, "steps": [w_lo, w_hi],
+            "t0_ms": int(plan.nows[w_lo]), "t1_ms": int(plan.nows[w_hi - 1]),
+            "requests": int(g("requests")),
+            "hit_rate": round(g("direct_hits") / req, 4),
+            "sla_served_rate": round(1.0 - g("fallbacks") / req, 4),
+            "deferred": int(g("deferred")),
+            "failover_serves": int(g("failover_serves")),
+            "mean_failover_stale_ms": round(
+                g("failover_stale_sum_ms")
+                / max(g("failover_serves"), 1), 1),
+            "fallbacks": int(g("fallbacks")),
+            "tower_inferences": int(g("tower_inferences")),
+            "tower_failures": int(g("tower_failures")),
+            "computed_serves": int(g("computed_serves")),
+            "retries": int(g("retries")),
+            "retry_successes": int(g("retry_successes")),
+            "blackout_write_drops": int(g("blackout_write_drops")),
+            "write_ring_drops": int(g("write_ring_drops")),
+            "touch_ring_drops": int(g("touch_ring_drops")),
+            "p99_ms": p99, "p99_unhedged_ms": p99_plain,
+            "conservation_ok": int(g("requests")) == int(
+                g("direct_hits") + g("computed_serves")
+                + g("failover_serves") + g("fallbacks")),
+        })
+
+    tot = lambda k: sum(w[k] for w in windows)
+    requests = tot("requests")
+    sla = 1.0 - tot("fallbacks") / max(requests, 1)
+    pre = next((w for w in windows if w["label"] == "quiet"), None)
+    tail = [w for w in windows if w["label"] == "recovery"]
+    recovered_after = None
+    if pre is not None:
+        floor_hit = pre["hit_rate"] - recovery_tol_pp / 100.0
+        for i, w in enumerate(tail):
+            if w["hit_rate"] >= floor_hit:
+                recovered_after = i + 1
+                break
+    lat_h = np.concatenate(lat_hedged) if lat_hedged else np.zeros(1)
+    lat_p = np.concatenate(lat_plain) if lat_plain else np.zeros(1)
+    n_extra = max(sum(n for _, n in extra_frac), 1)
+    out = {k: v for k, v in cf.items() if k != "seed"}
+    out.update({
+        "requests": requests,
+        "sla_served_rate": round(sla, 5),
+        "fallbacks": tot("fallbacks"),
+        "failover_serves": tot("failover_serves"),
+        "retries": tot("retries"),
+        "retry_successes": tot("retry_successes"),
+        "blackout_write_drops": tot("blackout_write_drops"),
+        "write_ring_drops": tot("write_ring_drops"),
+        "touch_ring_drops": tot("touch_ring_drops"),
+        "conservation_ok": all(w["conservation_ok"] for w in windows),
+        "windows": windows,
+        "recovery": {
+            "pre_fault_hit_rate": None if pre is None else pre["hit_rate"],
+            "tol_pp": recovery_tol_pp,
+            "tail_windows": len(tail),
+            "recovered_after_windows": recovered_after,
+            "recovered": recovered_after is not None,
+        },
+        "hedging": {
+            "hedge_after_ms": hedge_after_ms,
+            "p99_ms": round(float(np.percentile(lat_h, 99)), 2),
+            "p99_unhedged_ms": round(float(np.percentile(lat_p, 99)), 2),
+            "extra_compute_frac": round(
+                sum(f * n for f, n in extra_frac) / n_extra, 4),
+        },
+        "wall_s": round(wall, 2),
+        "step_ms": cf["step_ms"],
+        "host_ms_per_step": wall * 1e3 / max(cf["steps"], 1),
+        "device": (torch.cuda.get_device_name(plan.device)
+                   if plan.device.type == "cuda" else "cpu"),
+    })
+    if cf["scenario"] == "rolling":
+        outages = [f for f in plan.faults if isinstance(f, chaos_lib.Outage)]
+        inj = FailureInjector(
+            base_rate=0.0, burst_rate=1.0,
+            burst_windows_ms=tuple((f.t0_ms, f.t1_ms) for f in outages),
+            seed=seed)
+        out["kill_boundaries"] = inj.kill_steps(plan.nows, checkpoint_every)
+    log(f"[serve-chaos {cf['arch']}] scenario={cf['scenario']}"
+        f" models={cf['n_models']} steps={cf['steps']} requests={requests}"
+        f" sla_served={out['sla_served_rate']:.4f}"
+        f" retries={out['retries']}"
+        f" (succ {out['retry_successes']})"
+        f" conservation={'ok' if out['conservation_ok'] else 'VIOLATED'}"
+        f" p99={out['hedging']['p99_ms']}ms"
+        f" (unhedged {out['hedging']['p99_unhedged_ms']}ms,"
+        f" +{out['hedging']['extra_compute_frac']:.1%} compute)"
+        f" backend={cf['backend']} device={out['device']} ({wall:.1f}s)")
+    for w in windows:
+        log(f"  [{w['t0_ms']:>7}-{w['t1_ms']:>7}ms] {w['label']:<32}"
+            f" hit={w['hit_rate']:.3f} sla={w['sla_served_rate']:.4f}"
+            f" defer={w['deferred']} fo={w['failover_serves']}"
+            f" (stale {w['mean_failover_stale_ms']:.0f}ms)"
+            f" defaults={w['fallbacks']} retry={w['retries']}"
+            f"/{w['retry_successes']}"
+            f" drops={w['blackout_write_drops']}"
+            f"+{w['write_ring_drops']}+{w['touch_ring_drops']}")
+    rec = out["recovery"]
+    log(f"  recovery: pre_hit={rec['pre_fault_hit_rate']}"
+        f" recovered_after={rec['recovered_after_windows']}"
+        f"/{rec['tail_windows']} windows (tol {recovery_tol_pp}pp)")
+    return out, state, chunks
+
+
+def run_serving_chaos(arch: str = "sasrec", scenario: str = "incident",
+                      n_models: int = 4, steps: int = 240,
+                      users: int = 1000, batch: int = 256,
+                      step_ms: int = 250, ttl_min: float = 0.2,
+                      failover_ttl_h: float = 2.0, zipf_a: float = 1.2,
+                      n_buckets: int = 1 << 10, backend: str = "cuda",
+                      chunk_steps: int = 64, fail_rate: float = 0.9,
+                      max_retries: int = 2, backoff_ms: int = 500,
+                      hedge_after_ms: float = 25.0,
+                      checkpoint_every: int = 40, recovery_win: int = 24,
+                      recovery_tol_pp: float = 2.0, smoke: bool = True,
+                      seed: int = 0, device="cuda", log=print) -> dict:
+    """The chaos engine end to end: a preset multi-fault scenario
+    (``incident``, ``cascade`` or ``rolling``) compiled into a fault
+    schedule on the device and replayed against the multi-model tier in
+    chunked ``jit_serve_many`` calls, one counter fetch a chunk.
+
+    A Zipf-skewed stream over ``n_models`` (round-robin fan-out) serves on
+    the schedule's SKEWED clock; every model runs admission control
+    (ample budget; ``Outage`` windows force its grant to 0) with bounded
+    retry/backoff for failed inferences. The ledger reports every fault
+    window and the recovery tail: SLA-served rate, failover serves and
+    staleness, defaults, retry and drop accounting, and the conservation
+    identity (requests == direct + computed + failover + defaults). The
+    ``StragglerHedger`` adds per-window p99 inference latency with and
+    without hedging (paired draws) and the extra compute it costs.
+    Recovery is the first ``recovery_win``-step tail window whose hit
+    rate is back within ``recovery_tol_pp`` of the pre-fault window's
+    (``recovered_after_windows``); ``rolling`` also reports the
+    checkpoint boundaries ``FailureInjector.kill_steps`` lands inside the
+    outages. The tower is the SMOKE config by default, as the reference
+    launcher serves; ``smoke=False`` serves the published widths."""
+    plan = plan_chaos(
+        arch=arch, scenario=scenario, n_models=n_models, steps=steps,
+        users=users, batch=batch, step_ms=step_ms, ttl_min=ttl_min,
+        failover_ttl_h=failover_ttl_h, zipf_a=zipf_a, n_buckets=n_buckets,
+        backend=backend, fail_rate=fail_rate, max_retries=max_retries,
+        backoff_ms=backoff_ms, recovery_win=recovery_win, smoke=smoke,
+        seed=seed, device=device)
+    return chaos_timeline(plan, chunk_steps, hedge_after_ms,
+                          checkpoint_every, recovery_tol_pp, log=log)[0]
+
+
+# ---------------------------------------------------------------- regions
+@dataclasses.dataclass
+class RegionalPlan:
+    """What the regional drain serves, built before its clock starts: the
+    tower, the regional server and its state, the diurnal stream, the
+    drain window (chunk-aligned batch range) and its staged schedule."""
+    config: dict                           # the report's settings
+    device: torch.device
+    params: object
+    features_of: object
+    server: rg_lib.RegionalServer
+    state: rg_lib.RegionalState            # the initial state
+    times_ms: np.ndarray
+    uids: np.ndarray
+    n_batches: int
+    drain_lo: int
+    drain_hi: int
+    drained: torch.Tensor                  # (n_batches, R) bool
+    epoch: torch.Tensor                    # (n_batches,) int32
+    ebase: torch.Tensor                    # (n_batches,) int32
+
+
+def plan_regional(arch: str = "sasrec", n_regions: int = 4,
+                  minutes: int = 60, users: int = 2000, batch: int = 256,
+                  ttl_min: float = 5.0, failover_ttl_h: float = 1.0,
+                  locality: float = 0.98, drain: bool = False,
+                  drain_start_frac: float = 0.4,
+                  drain_len_frac: float = 0.25, n_buckets: int = 1 << 12,
+                  backend: str = "cuda", eviction: str = "ttl",
+                  chunk_steps: int = 64, smoke: bool = True, seed: int = 0,
+                  device="cuda") -> RegionalPlan:
+    """Set up the scenario of :func:`run_serving_regional` (same
+    arguments) without serving a step."""
+    device = resolve_device(device)
+    tower_cfg, params, tower_fn, features_of = build_tower(
+        arch, backend=backend, device=device, smoke=smoke, seed=seed)
+    cache_cfg = CacheConfig(
+        model_id=1, model_type="ctr",
+        cache_ttl_ms=int(ttl_min * MINUTE_MS),
+        failover_ttl_ms=int(failover_ttl_h * HOUR_MS),
+        n_buckets=n_buckets, ways=8, value_dim=tower_cfg.user_embed_dim,
+        backend=backend, eviction=eviction)
+    server = rg_lib.RegionalServer(
+        cfgs=(cache_cfg,), n_regions=n_regions, n_users=users,
+        tower_fn=tower_fn, miss_budget=batch, locality=locality, seed=seed,
+        device=device)
+    state = server.init_state(writebuf_capacity=batch * 4)
+
+    times_ms, uids = generate_stream_fast(
+        StreamConfig(n_users=users, horizon_s=minutes * 60.0, seed=seed),
+        InterArrivalDist(FIG6_KNOTS))
+    # one day/night cycle compressed into the horizon, peak mid-run (so
+    # the drain window lands on non-trivial load)
+    horizon_h = max(minutes / 60.0, 1e-9)
+    times_ms, uids = thin_diurnal(times_ms, uids, seed=seed + 1,
+                                  period_h=horizon_h,
+                                  peak_h=horizon_h / 2.0)
+    n_batches = len(uids) // batch
+    align = lambda b: (b // chunk_steps) * chunk_steps
+    drain_lo = align(int(n_batches * drain_start_frac))
+    drain_hi = align(int(n_batches * (drain_start_frac + drain_len_frac)))
+    if drain:
+        # at least one pre chunk and one in-window chunk on short runs
+        # (the window stays chunk-aligned: a chunk is in one phase)
+        drain_lo = max(drain_lo, chunk_steps)
+        drain_hi = max(drain_hi, drain_lo + chunk_steps)
+    drain_region = n_regions - 1
+    events = []
+    if drain and n_regions > 1 and drain_lo < n_batches:
+        events.append((drain_lo, "drain", drain_region))
+        if drain_hi < n_batches:
+            events.append((drain_hi, "undrain", drain_region))
+    drained, epoch = rg_lib.stage_drain_schedule(
+        max(n_batches, 1), n_regions, events, device=device)
+    ebase = rg_lib.event_bases(0, max(n_batches, 1), batch, device=device)
+    config = {"arch": arch, "backend": backend, "n_regions": n_regions,
+              "users": users, "batch": batch, "locality": locality,
+              "drain": bool(drain), "drain_region": drain_region,
+              "chunk_steps": chunk_steps, "seed": seed}
+    return RegionalPlan(config=config, device=device, params=params,
+                        features_of=features_of, server=server, state=state,
+                        times_ms=times_ms, uids=uids, n_batches=n_batches,
+                        drain_lo=drain_lo, drain_hi=drain_hi,
+                        drained=drained, epoch=epoch, ebase=ebase)
+
+
+def regional_chunks(plan: RegionalPlan):
+    """The plan's serve calls in order: (lo batch, phase, inputs of
+    ``serve_many`` after the state) staged on the device; inside the
+    drain window a flash crowd of uniform re-accesses over a hot user
+    pool replaces half the slots."""
+    cf = plan.config
+    batch = cf["batch"]
+    crowd_rng = np.random.default_rng(cf["seed"] + 2)
+    hot = crowd_rng.integers(0, cf["users"], size=max(cf["users"] // 50, 1))
+    for lo, n_steps in _chunks(plan.n_batches, cf["chunk_steps"]):
+        ids = plan.uids[lo * batch:(lo + n_steps) * batch].reshape(
+            n_steps, batch).astype(np.int64)
+        if plan.drain_lo <= lo < plan.drain_hi:
+            mix = crowd_rng.random(ids.shape) < 0.5
+            ids = np.where(
+                mix, hot[crowd_rng.integers(0, hot.size, ids.shape)], ids)
+        keys, feats, nows, _ = _stage_chunk(
+            plan.uids, plan.times_ms, plan.features_of, lo * batch, n_steps,
+            batch, plan.device, override_ids=ids)
+        phase = ("pre" if lo < plan.drain_lo
+                 else "drain" if lo < plan.drain_hi else "post")
+        sl = slice(lo, lo + n_steps)
+        yield lo, phase, (
+            torch.as_tensor(ids.astype(np.int32), device=plan.device),
+            torch.zeros((n_steps, batch), dtype=torch.int32,
+                        device=plan.device),
+            keys, feats, nows, plan.drained[sl], plan.epoch[sl],
+            plan.ebase[sl])
+
+
+def regional_timeline(plan: RegionalPlan, jit: bool = True, log=print):
+    """Serve ``plan`` end to end through ``jit_serve_many`` (``jit=False``:
+    eager ``serve_many``). Returns the report of
+    :func:`run_serving_regional`, the final state and every chunk's
+    fetched counters."""
+    cf = plan.config
+    R = cf["n_regions"]
+    run = plan.server.jit_serve_many if jit else plan.server.serve_many
+    state = plan.state
+    counters = ServingCounters()
+    curve, chunks = [], []
+    region_load = np.zeros(R, np.int64)
+    drained_load = rehomed = excursions = 0
+    t0 = time.perf_counter()
+    for lo, phase, inputs in regional_chunks(plan):
+        state, acc, _ = run(plan.params, state, *inputs, flush_every=1,
+                            collect=False)
+        s = srv_lib.fetch_counters(acc)          # one transfer per chunk
+        chunks.append(s)
+        c = ServingCounters.from_stats(s)
+        counters.merge(c)
+        pr = np.asarray(s["per_model_requests"], np.int64).reshape(
+            R, -1).sum(axis=1)
+        region_load += pr
+        if cf["drain"] and phase == "drain":
+            drained_load += int(pr[cf["drain_region"]])
+        rehomed += s["rehomed"]
+        excursions += s["excursions"]
+        curve.append({"batch_lo": lo, "phase": phase,
+                      "hit_rate": round(c.hit_rate, 4)})
+    if plan.device.type == "cuda":
+        torch.cuda.synchronize(plan.device)
+    wall = time.perf_counter() - t0
+
+    def phase_mean(p):
+        xs = [pt["hit_rate"] for pt in curve if pt["phase"] == p]
+        return round(float(np.mean(xs)), 4) if xs else None
+
+    d = counters.as_dict()
+    d["wall_s"] = round(wall, 2)
+    d["batches"] = plan.n_batches
+    d["step_ms"] = wall * 1e3 / max(plan.n_batches, 1)
+    d["req_per_s"] = round(counters.requests / max(wall, 1e-9), 1)
+    d["device"] = (torch.cuda.get_device_name(plan.device)
+                   if plan.device.type == "cuda" else "cpu")
+    d["n_regions"] = R
+    d["locality"] = cf["locality"]
+    d["drain"] = cf["drain"]
+    d["drain_region"] = cf["drain_region"] if cf["drain"] else None
+    d["drain_batches"] = [plan.drain_lo, plan.drain_hi]
+    d["rehomed"] = rehomed
+    d["excursions"] = excursions
+    d["region_load"] = region_load.tolist()
+    d["drained_load_during_drain"] = drained_load
+    d["hit_rate_pre"] = phase_mean("pre")
+    d["hit_rate_drain"] = phase_mean("drain")
+    d["hit_rate_post"] = phase_mean("post")
+    d["dip_pp"] = (round((d["hit_rate_pre"] - d["hit_rate_drain"]) * 100, 2)
+                   if d["hit_rate_pre"] is not None
+                   and d["hit_rate_drain"] is not None else None)
+    d["hit_rate_curve"] = [pt["hit_rate"] for pt in curve]
+    log(f"[serve-regional {cf['arch']}] regions={R}"
+        f" locality={cf['locality']:g}"
+        f" drain={'batches[%d:%d]' % (plan.drain_lo, plan.drain_hi) if cf['drain'] else 'off'}"
+        f" requests={d['requests']} hit_rate={d['hit_rate']:.3f}"
+        f" pre/drain/post={d['hit_rate_pre']}/{d['hit_rate_drain']}"
+        f"/{d['hit_rate_post']} dip_pp={d['dip_pp']}"
+        f" rehomed={rehomed} excursions={excursions}"
+        f" drained_load={drained_load} backend={cf['backend']}"
+        f" device={d['device']}"
+        f" ({wall:.1f}s, {d['req_per_s']:.0f} req/s)")
+    return d, state, chunks
+
+
+def run_serving_regional(arch: str = "sasrec", n_regions: int = 4,
+                         minutes: int = 60, users: int = 2000,
+                         batch: int = 256, ttl_min: float = 5.0,
+                         failover_ttl_h: float = 1.0,
+                         locality: float = 0.98, drain: bool = False,
+                         drain_start_frac: float = 0.4,
+                         drain_len_frac: float = 0.25,
+                         n_buckets: int = 1 << 12, backend: str = "cuda",
+                         eviction: str = "ttl", chunk_steps: int = 64,
+                         smoke: bool = True, seed: int = 0, device="cuda",
+                         log=print) -> dict:
+    """The regional drain scenario on the device (paper §3.6–3.7,
+    Fig. 10): R regions stacked over the cache tier
+    (``core/regional.py``), sticky routing through the home table on the
+    device, the drain schedule staged beside the stream, chunked
+    ``jit_serve_many`` calls with one counter fetch a chunk.
+
+    The renewal stream is thinned to a day/night envelope compressed into
+    the horizon (``thin_diurnal``); at ``drain_start_frac`` (a batch
+    index aligned to the chunks) region R-1 drains and a flash crowd of
+    uniform re-accesses over a hot user pool mixes into the window; after
+    ``drain_len_frac`` the region undrains. Its users re-home lazily and
+    permanently. The report carries the per-chunk hit-rate curve,
+    pre/drain/post means and the dip, per-region load, and the drained
+    region's in-window load (0: routing never targets a drained region).
+    The tower is the SMOKE config by default; ``smoke=False`` serves the
+    published widths."""
+    plan = plan_regional(
+        arch=arch, n_regions=n_regions, minutes=minutes, users=users,
+        batch=batch, ttl_min=ttl_min, failover_ttl_h=failover_ttl_h,
+        locality=locality, drain=drain, drain_start_frac=drain_start_frac,
+        drain_len_frac=drain_len_frac, n_buckets=n_buckets,
+        backend=backend, eviction=eviction, chunk_steps=chunk_steps,
+        smoke=smoke, seed=seed, device=device)
+    return regional_timeline(plan, log=log)[0]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="sasrec",
@@ -541,6 +1104,36 @@ def main(argv=None):
                     help="--overload: failure probability inside the "
                          "outage window (FailureInjector burst; default: "
                          "same as --failure-rate)")
+    ap.add_argument("--checkpoint-every", type=int, default=40,
+                    help="--chaos rolling: serve steps between checkpoint "
+                         "boundaries (the reported kill points)")
+    ap.add_argument("--chaos", default=None,
+                    choices=list(chaos_lib.PRESETS),
+                    help="chaos engine: compile the named multi-fault "
+                         "scenario into a schedule on the device and replay "
+                         "it against the multi-model tier with "
+                         "retry/backoff, reporting the per-window "
+                         "degradation ledger")
+    ap.add_argument("--chaos-models", type=int, default=4,
+                    help="--chaos: registry size for the fan-out")
+    ap.add_argument("--chaos-steps", type=int, default=240,
+                    help="--chaos: serve steps in the scenario horizon")
+    ap.add_argument("--chaos-retries", type=int, default=2,
+                    help="--chaos: max retry attempts per failed inference")
+    ap.add_argument("--hedge-after-ms", type=float, default=25.0,
+                    help="--chaos: straggler hedge deadline for the "
+                         "p99-with/without-hedging report")
+    ap.add_argument("--regions", type=int, default=None,
+                    help="regional serving on the device: stack N regions "
+                         "as a leading axis over the cache tier, sticky "
+                         "routing through a home table on the device")
+    ap.add_argument("--drain", action="store_true",
+                    help="--regions: drain one region mid-run (the Fig. 10 "
+                         "drain test): its users re-home lazily while a "
+                         "flash crowd coincides with the window")
+    ap.add_argument("--locality", type=float, default=0.98,
+                    help="--regions: probability a request stays in its "
+                         "home region (paper: 'good locality')")
     ap.add_argument("--multi-buckets", type=int, default=1 << 12,
                     help="per-model direct-cache buckets in --multi mode")
     ap.add_argument("--backend", default="cuda", choices=["torch", "cuda"],
@@ -550,6 +1143,43 @@ def main(argv=None):
                          "enables access-recency touches (incompatible "
                          "with --multi: the registry sets it per model)")
     args = ap.parse_args(argv)
+    if args.drain and args.regions is None:
+        ap.error("--drain requires --regions")
+    if args.chaos is not None:
+        if args.overload or args.multi or args.regions is not None:
+            ap.error("--chaos is its own scenario; drop "
+                     "--overload/--multi/--regions")
+        if args.no_cache or args.coalesce:
+            ap.error("--chaos is a cache-tier scenario; drop "
+                     "--no-cache/--coalesce")
+        if args.eviction != "ttl":
+            ap.error("--chaos fixes eviction=ttl (the scenario isolates "
+                     "fault handling, not victim order)")
+        return run_serving_chaos(
+            arch=args.arch, scenario=args.chaos,
+            n_models=args.chaos_models, steps=args.chaos_steps,
+            users=args.users, batch=args.batch,
+            ttl_min=0.2 if args.ttl_min is None else args.ttl_min,
+            backend=args.backend, chunk_steps=args.chunk_steps,
+            max_retries=args.chaos_retries,
+            hedge_after_ms=args.hedge_after_ms,
+            checkpoint_every=args.checkpoint_every)
+    if args.regions is not None:
+        if args.regions < 1:
+            ap.error("--regions must be >= 1")
+        if args.overload or args.multi:
+            ap.error("--regions drives the regional server; drop "
+                     "--overload/--multi")
+        if args.no_cache or args.coalesce:
+            ap.error("--regions is a cache-tier scenario; drop "
+                     "--no-cache/--coalesce")
+        return run_serving_regional(
+            arch=args.arch, n_regions=args.regions, minutes=args.minutes,
+            users=args.users, batch=args.batch,
+            ttl_min=5.0 if args.ttl_min is None else args.ttl_min,
+            locality=args.locality, drain=args.drain,
+            backend=args.backend, eviction=args.eviction,
+            chunk_steps=args.chunk_steps)
     if args.overload:
         if args.multi:
             ap.error("--overload drives the single-model server; the "

@@ -1138,3 +1138,166 @@ def test_combiner_cuda_matches_torch(cuda):
         hits += int(got.hit.sum())
     assert pk.LAUNCHES["tiled"] == n0 + 30
     assert 0 < hits < 30 * 1024
+
+
+# ------------------------------------------------ chaos engine, regions
+def _chaos_schedule(cuda, kind, state, chunks):
+    """A compounding schedule over the chunks' clock (a burst, model 0's
+    outage, a blackout of the lower quarter of the pooled buckets, a
+    flush stall starting mid-chunk, a skew) with two retries."""
+    from repro_torch.ft import chaos as CH
+
+    nows = torch.cat([c[-2] for c in chunks]).cpu().numpy()
+    slots = (torch.cat([c[0] for c in chunks]).cpu().numpy()
+             if kind == "multi" else None)
+    n_models = 8 if kind == "multi" else 1
+    pooled = state.direct.key_hi.shape[0] * (
+        state.direct.key_hi.shape[1] if kind == "multi" else 1)
+    t = lambda s: int(nows[s])
+    faults = [CH.InferFailure(t(3), t(11), rate=0.8),
+              CH.Outage(t(4), t(9), model=0),
+              CH.BucketBlackout(t(2), t(12), lo=0, hi=pooled // 4),
+              CH.FlushStall(t(2), t(8)),
+              CH.ClockSkew(t(9), t(13), skew_ms=40 * MIN)]
+    return CH.compile_schedule(
+        faults, nows, chunks[0][-1].shape[1], n_models=n_models,
+        n_buckets=pooled, slots=slots, retry=CH.RetryPolicy(max_retries=2),
+        seed=2, device=cuda)
+
+
+@pytest.mark.parametrize("kind", ["single", "multi"])
+def test_jit_chaos_replay_equals_eager(cuda, kind):
+    """Three chunks under a compounding schedule through
+    ``jit_serve_many`` (the first captures, the next two replay the same
+    graph with other schedule rows, a stall switching on mid-chunk) equal
+    eager ``serve_many`` bit for bit: outputs, every counter (the ledger's
+    keys included) and every state tensor."""
+    from repro_torch.core import server as S
+    from repro_torch.ft import chaos as CH
+
+    srv, model, init, cfg_t = _jit_setup(cuda, kind)
+    chunks = _jit_chunks(cuda, kind, cfg_t, 3, 5)
+    sched = _chaos_schedule(cuda, kind, init(), chunks)
+    out = {}
+    for mode in ("eager", "jit"):
+        run = srv.serve_many if mode == "eager" else srv.jit_serve_many
+        state, got = init(), []
+        for c, args in enumerate(chunks):
+            ch = CH.slice_schedule(sched, 5 * c, 5 * c + 5)
+            args = (*args[:-2], args[-2] + ch.skew_ms, args[-1], ch)
+            state, acc, ys = run(model, state, *args, flush_every=1)
+            got.append((S.fetch_counters(acc), ys))
+        out[mode] = (state, got)
+    assert len(srv.jit_serve_many.graphs) == 1
+    (st_e, got_e), (st_j, got_j) = out["eager"], out["jit"]
+    for (acc_e, ys_e), (acc_j, ys_j) in zip(got_e, got_j):
+        assert acc_e == acc_j
+        for a, b in zip(ys_e, ys_j):
+            assert torch.equal(a, b)
+    for a, b in zip(_state_leaves(st_e), _state_leaves(st_j)):
+        assert torch.equal(a, b)
+    # the single-model budget (3.5 a step) leaves no token for a retry
+    keys = ("blackout_write_drops", "deferred") + (
+        ("retries",) if kind == "multi" else ())
+    total = {k: sum(g[0][k] for g in got_j) for k in keys}
+    assert all(v > 0 for v in total.values()), total
+
+
+@pytest.mark.parametrize("kind", ["single", "multi"])
+def test_flush_predicated_off_on_the_card(cuda, kind):
+    """With pending ring records, a flush whose ``enabled`` is a False
+    device bool leaves every state tensor bit-identical; True equals the
+    plain flush."""
+    from repro_torch.core.hashing import Key64
+
+    srv, model, init, cfg_t = _jit_setup(cuda, kind)
+    args = _jit_chunks(cuda, kind, cfg_t, 1, 3)[0]
+    state = init()
+    for i in range(3):
+        step = [Key64(a.hi[i], a.lo[i]) if isinstance(a, Key64) else
+                {k: v[i] for k, v in a.items()} if isinstance(a, dict)
+                else a[i] for a in args]
+        state = srv.serve_step(model, state, *step[:-2], int(step[-2]),
+                               step[-1]).state
+        if i < 2:
+            state = srv.flush(state, int(step[-2]))
+    assert int(state.writebuf.count) > 0
+    before = [x.clone() for x in _state_leaves(state)]
+    off = torch.zeros((), dtype=torch.bool, device=cuda)
+    srv.flush(state, 10 ** 6, off)
+    for a, b in zip(_state_leaves(state), before):
+        assert torch.equal(a, b)
+    twin = type(state)(*[type(p)(*[x.clone() for x in p]) for p in state])
+    srv.flush(state, 10 ** 6, ~off)
+    srv.flush(twin, 10 ** 6)
+    for a, b in zip(_state_leaves(state), _state_leaves(twin)):
+        assert torch.equal(a, b)
+
+
+def test_jit_regional_replay_equals_eager(cuda):
+    """``RegionalServer`` (4 regions over the SMOKE SASRec tower) through
+    ``jit_serve_many`` over three chunks with a drain and an undrain
+    inside them equals eager ``serve_many``: outputs, counters (re-homes
+    and excursions included), the home table and every state tensor; one
+    dual-multi probe a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import regional as RG
+    from repro_torch.core import server as S
+    from repro_torch.core.config import CacheConfig
+    from repro_torch.core.hashing import Key64
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_t = get_config("sasrec", smoke=True)
+    model = R.init_params(torch.Generator(device=cuda).manual_seed(0), cfg_t,
+                          cuda)
+    cfgs = tuple(CacheConfig(model_id=m + 1, model_type="ctr", n_buckets=32,
+                             ways=4, value_dim=cfg_t.embed_dim,
+                             cache_ttl_ms=MIN, backend="cuda",
+                             eviction="lru" if m else "ttl")
+                 for m in range(2))
+    srv = RG.RegionalServer(cfgs=cfgs, n_regions=4, n_users=80,
+                            tower_fn=lambda p, f: R.tower_step(
+                                p, f, cfg_t, impl="cuda"),
+                            miss_budget=24, locality=0.9, seed=3,
+                            device=cuda)
+    rng = np.random.default_rng(12)
+    steps, batch = 15, 32
+    uids = rng.integers(0, 80, (steps, batch)).astype(np.int32)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    drained, epoch = RG.stage_drain_schedule(
+        steps, 4, [(3, "drain", 3), (11, "undrain", 3)], device=cuda)
+    ebase = RG.event_bases(2 ** 32 - 100, steps, batch, device=cuda)
+    seq = rng.integers(0, cfg_t.vocab, (steps, batch, cfg_t.seq_len))
+    args = (t(uids), t(uids % 2), Key64.from_int(uids, device=cuda),
+            {"seq": t(seq.astype(np.int32))},
+            t((np.arange(steps) * 20_000).astype(np.int32)),
+            drained, epoch, ebase)
+    out = {}
+    for mode in ("eager", "jit"):
+        run = srv.serve_many if mode == "eager" else srv.jit_serve_many
+        state, got = srv.init_state(writebuf_capacity=128), []
+        ops.reset_launch_counts()
+        for lo in range(0, steps, 5):
+            sl = slice(lo, lo + 5)
+            chunk = [Key64(a.hi[sl], a.lo[sl]) if isinstance(a, Key64) else
+                     {k: v[sl] for k, v in a.items()} if isinstance(a, dict)
+                     else a[sl] for a in args]
+            state, acc, ys = run(model, state, *chunk)
+            got.append((S.fetch_counters(acc), ys))
+        out[mode] = (state, got, ops.launch_counts())
+    assert len(srv.jit_serve_many.graphs) == 1
+    (st_e, got_e, n_e), (st_j, got_j, n_j) = out["eager"], out["jit"]
+    assert n_j["cache_probe_dual_multi"] == n_e["cache_probe_dual_multi"] \
+        == steps
+    for (acc_e, ys_e), (acc_j, ys_j) in zip(got_e, got_j):
+        assert acc_e == acc_j
+        for a, b in zip(ys_e, ys_j):
+            assert torch.equal(a, b)
+    for a, b in zip(_state_leaves(st_e), _state_leaves(st_j)):
+        assert torch.equal(a, b)
+    assert sum(g[0]["rehomed"] for g in got_j) > 0
+    assert sum(g[0]["excursions"] for g in got_j) > 0
+    load = np.sum([g[0]["per_model_requests"] for g in got_j[1:2]], 0)
+    assert load.reshape(4, 2)[3].sum() == 0       # steps 5..10: drained

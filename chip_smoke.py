@@ -155,6 +155,24 @@ Phases, each fatal on failure:
     a step; a timed replay, an eager cuda run and a profiled drain chunk;
     then ``main(["--regions", "4", "--drain"])`` as a user calls it (and
     with ``--chunk-steps 8``, whose 31 steps hold a drain window).
+15. **restart**: ``launch.serve.restart_timeline`` (the ``--restart``
+    kill/restore harness) at SASRec's published widths at the launcher's
+    defaults (2**12 x 8 tiers of D=50, 3,000 Zipf users, B=256, 240 + 120
+    steps, a snapshot every 40: the kill lands at step 120 and a torn
+    save follows it) through ``jit_serve_many``, against an eager
+    ``backend="torch"`` run: the report and every restored and final
+    tensor of the four variants bit-identical; modes bitexact / rehash /
+    rehash / cold, the torn step skipped, the ledger continuous, the
+    parity block passing, a warm-vs-cold gain above 0; one dual probe and
+    one bag a step and one ``cache_probe_tiled`` launch a restore probe
+    and a rehash chunk. Printed beside ``BENCH_restart.json`` (another
+    stream; not gated). Then phase 2's deployment served over its 119
+    steps, snapshotted (``retain_last_k=1``) and restored bit-exact
+    (equal to the served tables plane for plane) and into 2**21 buckets
+    (every live key of both tiers still hits, values and ages
+    bit-identical), each timed in seconds and GB/s, in a temporary
+    directory whose free space is printed first and which is removed
+    afterwards.
 
 The launchers and the examples serve through the compiled entry points
 (``jit_serve_many``, ``jit_serve_step``, ``jit_flush``), so phases 3, 5,
@@ -188,7 +206,7 @@ probes and the bag, the multi-model serve (phase 4) for the multi-model
 probe, the LM serve (phase 6, its cuda run) for ``flash_attention``, the
 probe shootout for ``cache_probe_perquery`` and the decode steps (phase 8,
 the cuda run) for ``decode_attention``; the counts are reset just before
-each path and read just after. Phases 9, 10 and 12–14 check their own
+each path and read just after. Phases 9, 10 and 12–15 check their own
 counts.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and ends
@@ -3338,6 +3356,218 @@ def phase_regions(torch):
               f"{d['drained_load_during_drain']}, launches {n}")
 
 
+# ------------------------------------------------------------ phase 15
+# the kill/restore harness (``--restart``) at SASRec's published widths at
+# the launcher's defaults: 2**12 x 8 tiers of D=50, 3,000 users, B=256,
+# 240 + 120 steps, a snapshot every 40 (the kill lands at step 120)
+RESTART = dict(arch="sasrec", smoke=False)
+REHASH_COUNTS = r"(\d+) (?:direct|failover)"
+
+
+def rehash_chunks(detail, chunk=4096):
+    """Recency-pass lookups (one tiled probe each) of a rehash restore,
+    from its candidate counts."""
+    import re
+
+    return sum(-(-int(n) // chunk) for n in re.findall(REHASH_COUNTS,
+                                                       detail or ""))
+
+
+def restart_harness(torch, tmp):
+    """``restart_timeline`` compiled on the kernels (``jit_serve_many``, one
+    graph a chunk shape a server) against an eager torch-backend run on
+    the card: the report, every variant's restored cache image and final
+    state bit for bit; modes, the torn step, the ledger, the parity block
+    and the warm-vs-cold gain; one dual probe and one bag a step and one
+    tiled probe a restore probe and a rehash chunk."""
+    from repro_torch.core.graph import tensors_of
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+
+    dev = torch.device("cuda")
+    runs = {}
+    for backend, jit in (("cuda", True), ("torch", False)):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep, states = launch.restart_timeline(
+            backend=backend, jit=jit, device=dev,
+            workdir=str(Path(tmp) / f"harness-{backend}"),
+            log=lambda s, b=backend: print(f"[restart {b}] {s}"), **RESTART)
+        torch.cuda.synchronize()
+        runs[backend] = (rep, states, ops.launch_counts(),
+                         time.perf_counter() - t0)
+    (rep, st, n, wall), (rep_t, st_t, n_t, wall_t) = (runs["cuda"],
+                                                      runs["torch"])
+    strip = lambda r: {k: v for k, v in r.items()
+                       if k not in ("wall_s", "workdir", "backend")}
+    if strip(rep) != strip(rep_t):
+        raise AssertionError("restart: the report differs, compiled cuda vs "
+                             "eager torch")
+    modes = [v["mode"] for v in rep["variants"].values()]
+    if (modes != ["bitexact", "rehash", "rehash", "cold"]
+            or not rep["torn_step_skipped"] or not rep["ledger_continuous"]
+            or not rep["parity"]["pass"] or not rep["warm_vs_cold_gain"] > 0):
+        raise AssertionError(f"restart: modes {modes}, torn skipped "
+                             f"{rep['torn_step_skipped']}, ledger "
+                             f"{rep['ledger_continuous']}, parity "
+                             f"{rep['parity']}, gain "
+                             f"{rep['warm_vs_cold_gain']}")
+    for name in st:
+        if st[name]["detail"] != st_t[name]["detail"]:
+            raise AssertionError(f"restart {name}: {st[name]['detail']!r} "
+                                 f"vs {st_t[name]['detail']!r}")
+        for part in ("restored", "final"):
+            same_tensors(torch, st[name][part], st_t[name][part],
+                         f"restart {name} {part}, cuda vs torch")
+    steps = rep["kill_step"] + 4 * rep["recovery_steps"]
+    chunks = sum(rehash_chunks(v["detail"]) for v in st.values())
+    want = {"cache_probe_dual": steps, "embedding_bag": steps,
+            "cache_probe_tiled": 3 + chunks}
+    if {k: v for k, v in n.items() if v} != want or sum(n_t.values()):
+        raise AssertionError(f"restart: launches {n} (torch {n_t}), want "
+                             f"{want}")
+    bench = json.loads((ROOT / "BENCH_restart.json").read_text())
+    curve = lambda r: "/".join(
+        str(r["variants"][k]["recovery_hit_rate"])
+        for k in ("warm_same", "warm_grow", "warm_shrink", "cold"))
+    print(f"[restart] SASRec full width, {rep['n_buckets']}x8 tiers, "
+          f"{rep['users']} users, B={rep['batch']}, kill at step "
+          f"{rep['kill_step']} (a snapshot every {rep['checkpoint_every']}"
+          f"), {rep['recovery_steps']} recovery steps: modes "
+          f"{'/'.join(modes)}, recovery hit rate same/grow/shrink/cold "
+          f"{curve(rep)}, warm-vs-cold gain {rep['warm_vs_cold_gain']}, "
+          f"pre hit rate {rep['pre_hit_rate']}, parity {rep['parity']}, "
+          f"torn step skipped, ledger continuous; compiled cuda == eager "
+          f"torch in the report and every restored and final tensor of the "
+          f"4 variants; launches {n}; wall {wall:.2f} s compiled cuda, "
+          f"{wall_t:.2f} s eager torch")
+    print(f"[restart] beside BENCH_restart.json (the reference at the "
+          f"bench's quick settings: {bench['users']} users, B="
+          f"{bench['batch']}, {bench['n_buckets']} buckets, a snapshot every "
+          f"{bench['checkpoint_every']}, SMOKE tower): recovery hit rate "
+          f"{curve(bench)}, gain {bench['warm_vs_cold_gain']}, pre hit rate "
+          f"{bench['pre_hit_rate']} (another stream: not gated)")
+
+
+def restart_full_state(torch, tmp):
+    """Snapshot and restore of phase 2's deployment (2**20 x 8 tiers of
+    D=50 float32, about 1.8 GB a tier) served over phase 2's 119 steps:
+    ``snapshot_server`` with ``retain_last_k=1``, a bit-exact
+    ``restore_server`` equal to the served tables plane for plane, then a
+    rehash restore into 2**21 buckets where every live key of both tiers
+    still hits with bit-identical values. Seconds and GB/s of each."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.core import cache as C
+    from repro_torch.core import server as srv
+    from repro_torch.core.config import CacheConfig
+    from repro_torch.core.graph import tensors_of
+    from repro_torch.core.hashing import Key64
+    from repro_torch.core.metrics import ServingCounters
+    from repro_torch.ft import snapshot as snap
+    from repro_torch.launch import serve as launch
+
+    dev = torch.device("cuda")
+    tcfg, params, tower_fn, features_of = launch.build_tower(
+        "sasrec", backend="cuda", device=dev, smoke=False, seed=0)
+    cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=N_BUCKETS,
+                      ways=WAYS, value_dim=tcfg.user_embed_dim,
+                      miss_budget_frac=0.75, backend="cuda")
+    server = srv.CachedEmbeddingServer(cfg=cfg, tower_fn=tower_fn,
+                                       miss_budget=int(BATCH * 0.75))
+    state = srv.init_server_state(cfg, writebuf_capacity=BATCH * 4,
+                                  device=dev)
+    steps = 119
+    keys, feats, nows, _ = staged_stream(torch, launch, features_of, dev,
+                                         steps)
+    state, acc, _ = server.serve_many(params, state, keys, feats, nows,
+                                      flush_every=1, collect=False)
+    counters = ServingCounters.from_stats(srv.fetch_counters(acc))
+    now = int(nows[-1])
+    image_bytes = sum(t.nbytes for t in tensors_of(srv.cache_image(state)))
+    d = str(Path(tmp) / "full")
+    free = shutil.disk_usage(tmp).free
+    print(f"[restart full] {tmp}: {free / 1e9:.1f} GB free for a "
+          f"{image_bytes / 1e9:.2f} GB image")
+    if free < 1.5 * image_bytes:
+        raise AssertionError("not enough free space for the snapshot")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    state, t_save = timed(lambda: snap.snapshot_server(
+        d, steps, server, state, now, counters=counters, retain_last_k=1))
+    on_disk = sum(f.stat().st_size for f in Path(d).rglob("*")
+                  if f.is_file())
+    r, t_load = timed(lambda: snap.restore_server(
+        d, server, now_ms=now, writebuf_capacity=BATCH * 4, device=dev))
+    if (r.mode, r.step) != ("bitexact", steps) or r.counters != counters:
+        raise AssertionError(f"full-state restore: {r.mode} {r.step} "
+                             f"{r.detail}")
+    same_tensors(torch, srv.cache_image(r.state), srv.cache_image(state),
+                 "bit-exact restore vs the served tables")
+    del r
+    torch.cuda.empty_cache()
+    grown = srv.CachedEmbeddingServer(
+        cfg=dataclasses.replace(cfg, n_buckets=2 * N_BUCKETS),
+        tower_fn=tower_fn, miss_budget=int(BATCH * 0.75))
+    g, t_grow = timed(lambda: snap.restore_server(
+        d, grown, now_ms=now, writebuf_capacity=BATCH * 4, device=dev))
+    if g.mode != "rehash":
+        raise AssertionError(f"grown restore: {g.mode} {g.detail}")
+    u = torch.unique(torch.stack([keys.hi.reshape(-1), keys.lo.reshape(-1)],
+                                 1), dim=0)
+    users = Key64(hi=u[:, 0].contiguous(), lo=u[:, 1].contiguous())
+    live = {}
+    for tier, ttl in (("direct", cfg.cache_ttl_ms),
+                      ("failover", cfg.resolved_failover_relax_ttl_ms())):
+        a = C.lookup(getattr(state, tier), users, now, ttl, backend="cuda")
+        b = C.lookup(getattr(g.state, tier), users, now, ttl, backend="cuda")
+        if not (bool((b.hit | ~a.hit).all())
+                and torch.equal(b.values[a.hit], a.values[a.hit])
+                and torch.equal(b.age_ms[a.hit], a.age_ms[a.hit])):
+            raise AssertionError(f"grown restore: a live {tier} key misses "
+                                 "or its value or age differs")
+        live[tier] = int(a.hit.sum())
+    gb = image_bytes / 1e9
+    print(f"[restart full] phase 2's deployment ({N_BUCKETS}x{WAYS} tiers "
+          f"of D={tcfg.user_embed_dim} float32, {gb:.2f} GB image, "
+          f"{on_disk / 1e9:.2f} GB on disk) served over {steps} steps: "
+          f"snapshot_server {t_save:.2f} s ({gb / t_save:.2f} GB/s); "
+          f"bit-exact restore_server {t_load:.2f} s ({gb / t_load:.2f} "
+          f"GB/s), equal to the served tables plane for plane; rehash "
+          f"restore into {2 * N_BUCKETS} buckets {t_grow:.2f} s "
+          f"({gb / t_grow:.2f} GB/s read), {g.detail}; {live['direct']} "
+          f"live direct and "
+          f"{live['failover']} live failover keys of {users.hi.numel()} "
+          "users all still hit, values and ages bit-identical")
+
+
+def phase_restart(torch):
+    """Phase 15: the kill/restore harness compiled against eager torch,
+    then snapshot and restore of phase 2's full-size tiers, in a temporary
+    directory removed afterwards."""
+    import gc
+    import shutil
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-restart-")
+    try:
+        restart_harness(torch, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        restart_full_state(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3385,6 +3615,8 @@ def main() -> int:
     print(f"[time] chaos phase done at {time.perf_counter() - t0:.1f}s")
     phase_regions(torch)
     print(f"[time] regions phase done at {time.perf_counter() - t0:.1f}s")
+    phase_restart(torch)
+    print(f"[time] restart phase done at {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in sorted(counts):

@@ -2,7 +2,7 @@
 card.
 
 Twin of the basic, ``--no-cache``, ``--multi``, ``--overload``,
-``--chaos`` and ``--regions`` modes of
+``--chaos``, ``--regions`` and ``--restart`` modes of
 ``repro/launch/serve.py``: the Fig. 2-calibrated access-pattern generator
 drives one ``CachedEmbeddingServer`` fronting a recsys user tower
 (``--arch``: Wide&Deep, SASRec, BST or MIND; or, with ``--multi``, one
@@ -21,7 +21,10 @@ a schedule staged on the device and replays it against the multi-model
 tier with retry/backoff, reporting the degradation ledger window by
 window. ``--regions N`` stacks N regions over the tier with sticky
 routing on the device; ``--drain`` drains one mid-run (the Fig. 10
-test). The ``--restart`` and ``--shards`` modes join with their slices.
+test). ``--restart`` is the kill/restore harness: it snapshots the cache
+every ``--checkpoint-every`` steps, kills the server mid-incident, and
+measures recovery after a bit-exact, a grown, a shrunk and a cold
+restore. The ``--shards`` mode waits for the bucket-sharded tier.
 
 Usage::
 
@@ -38,17 +41,23 @@ Usage::
         [--chaos-steps 240] [--chaos-retries 2] [--hedge-after-ms 25]
     PYTHONPATH=src python -m repro_torch.launch.serve --regions 4 \\
         --drain [--locality 0.98] [--minutes 60 --users 2000]
+    PYTHONPATH=src python -m repro_torch.launch.serve --restart \\
+        [--checkpoint-every 40] [--users 3000 --batch 256]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import cache as cache_lib
+from repro_torch.core import graph as graph_lib
 from repro_torch.core import regional as rg_lib
 from repro_torch.core import server as srv_lib
 from repro_torch.core.cache import resolve_device
@@ -62,6 +71,7 @@ from repro_torch.data.access_patterns import (FIG6_KNOTS, InterArrivalDist,
                                               simulate_hit_rate,
                                               thin_diurnal)
 from repro_torch.ft import chaos as chaos_lib
+from repro_torch.ft import snapshot as snap_lib
 from repro_torch.ft.failure import FailureInjector, StragglerHedger
 from repro_torch.models import recsys as rec_lib
 
@@ -533,6 +543,237 @@ def run_serving_overload(arch: str = "sasrec", minutes: int = 60,
 
 
 # ------------------------------------------------------------------ chaos
+def restart_timeline(arch: str = "sasrec", pre_steps: int = 240,
+                     recovery_steps: int = 120, users: int = 3000,
+                     batch: int = 256, ttl_min: float = 5.0,
+                     checkpoint_every: int = 40, step_ms: int = 250,
+                     zipf_a: float = 1.2, n_buckets: int = 1 << 12,
+                     backend: str = "cuda", chunk_steps: int = 40,
+                     workdir: str = None, smoke: bool = True, seed: int = 0,
+                     device="cuda", jit: bool = True, log=print):
+    """The kill/restore harness of :func:`run_serving_restart` (same
+    arguments; ``jit=False`` serves through the eager ``serve_many``).
+    Returns ``(report, variants)``: ``variants`` maps each variant to its
+    restore's ``detail`` (None when cold), every tensor of its cache image
+    cloned right after the restore (``restored``) and its final state."""
+    device = resolve_device(device)
+    tower_cfg, params, tower_fn, features_of = build_tower(
+        arch, backend=backend, device=device, smoke=smoke, seed=seed)
+    ttl_ms = int(ttl_min * MINUTE_MS)
+    base_cfg = CacheConfig(
+        model_id=1, model_type="ctr", cache_ttl_ms=ttl_ms,
+        failover_ttl_ms=int(2 * HOUR_MS), n_buckets=n_buckets, ways=8,
+        value_dim=tower_cfg.user_embed_dim, backend=backend)
+
+    total = pre_steps + recovery_steps
+    rng = np.random.default_rng(seed)
+    ids_all = rng.zipf(zipf_a, size=(total, batch)).astype(np.int64) % users
+    nows_all = (np.arange(total, dtype=np.int64) + 1) * step_ms
+
+    # the incident: a failure burst over the back half of the pre phase;
+    # the process dies at the first checkpoint boundary inside it
+    burst = (int(nows_all[pre_steps // 2]), int(nows_all[pre_steps - 1]) + 1)
+    injector = FailureInjector(base_rate=0.0, burst_rate=1.0,
+                               burst_windows_ms=(burst,), seed=seed)
+    kill = injector.kill_step(nows_all, checkpoint_every)
+    if kill is None or kill > pre_steps:
+        kill = max((pre_steps // checkpoint_every) * checkpoint_every,
+                   checkpoint_every)
+    if workdir is None:
+        workdir = tempfile.mkdtemp(prefix="ercache-restart-")
+
+    def make_server(nb):
+        cfg = dataclasses.replace(base_cfg, n_buckets=nb)
+        return srv_lib.CachedEmbeddingServer(
+            cfg=cfg, tower_fn=tower_fn, miss_budget=batch), cfg
+
+    def serve(server, state, ids, nows):
+        """One chunk: one serve_many call and one counter fetch."""
+        keys, feats, nows = _stage_steps(ids, nows, features_of, device)
+        run = server.jit_serve_many if jit else server.serve_many
+        state, acc, _ = run(params, state, keys, feats, nows, flush_every=1,
+                            collect=False)
+        return state, ServingCounters.from_stats(srv_lib.fetch_counters(acc))
+
+    server, cfg0 = make_server(n_buckets)
+    state = srv_lib.init_server_state(cfg0, writebuf_capacity=batch * 4,
+                                      device=device)
+
+    # ---- phase 1: serve to the kill, snapshotting at every boundary ----
+    t0 = time.perf_counter()
+    pre_counters = ServingCounters()
+    for seg_lo in range(0, kill, checkpoint_every):
+        n = min(checkpoint_every, kill - seg_lo)
+        state, c = serve(server, state, ids_all[seg_lo:seg_lo + n],
+                         nows_all[seg_lo:seg_lo + n])
+        pre_counters.merge(c)
+        state = snap_lib.snapshot_server(
+            workdir, seg_lo + n, server, state,
+            int(nows_all[seg_lo + n - 1]), counters=pre_counters,
+            retain_last_k=3)
+    # the crash: the in-memory state dies, and a save that was in flight
+    # is left torn (manifest truncated, no COMMITTED marker)
+    torn = os.path.join(workdir, f"step_{kill + checkpoint_every:08d}")
+    os.makedirs(torn, exist_ok=True)
+    with open(os.path.join(torn, "manifest.json"), "w") as f:
+        f.write("{")
+    del state
+    restore_now = int(nows_all[kill - 1])
+
+    # ---- phase 2: restore (3 geometries) + cold, replay the SAME stream
+    rec_ids = ids_all[kill:kill + recovery_steps]
+    rec_nows = nows_all[kill:kill + recovery_steps]
+    specs = [("warm_same", n_buckets, True),
+             ("warm_grow", n_buckets * 2, True),
+             ("warm_shrink", max(n_buckets // 2, 1), True),
+             ("cold", n_buckets, False)]
+    variants, probes, states = {}, {}, {}
+    uniq = np.unique(ids_all[:kill])
+    probe_keys = Key64.from_int(uniq.astype(np.int64), device=device)
+    for name, nb, warm in specs:
+        vsrv, vcfg = make_server(nb)
+        detail = None
+        if warm:
+            r = snap_lib.restore_server(workdir, vsrv, now_ms=restore_now,
+                                        writebuf_capacity=batch * 4,
+                                        device=device)
+            vstate, ledger = r.state, r.counters
+            mode, restored_step, detail = r.mode, r.step, r.detail
+            # probe BEFORE serving writes the restored table
+            res = cache_lib.lookup(vstate.direct, probe_keys, restore_now,
+                                   ttl_ms, backend=backend)
+            probes[name] = (res.hit.cpu().numpy(), res.values.cpu().numpy())
+        else:
+            vstate = srv_lib.init_server_state(
+                vcfg, writebuf_capacity=batch * 4, device=device)
+            ledger, mode, restored_step = ServingCounters(), "cold", None
+        restored = [t.clone() for t in graph_lib.tensors_of(
+            srv_lib.cache_image(vstate))]
+        resumed = ledger.requests
+        rec = ServingCounters()
+        curve = []
+        for lo, n in _chunks(recovery_steps, chunk_steps):
+            vstate, c = serve(vsrv, vstate, rec_ids[lo:lo + n],
+                              rec_nows[lo:lo + n])
+            curve.append(round(c.hit_rate, 4))
+            rec.merge(c)
+        ledger.merge(rec)
+        states[name] = {"detail": detail, "restored": restored,
+                        "final": vstate}
+        variants[name] = {
+            "mode": mode, "restored_step": restored_step, "n_buckets": nb,
+            "recovery_hit_rate": round(rec.hit_rate, 4),
+            "recovery_curve": curve,
+            "recovery_tower_inferences": rec.tower_inferences,
+            "resumed_requests": resumed,
+            "total_requests": ledger.requests,
+        }
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+
+    # ---- resized-restore probe parity (on the pre-kill key population) -
+    h_same, v_same = probes["warm_same"]
+    h_grow, v_grow = probes["warm_grow"]
+    h_shr, v_shr = probes["warm_shrink"]
+    both_g = h_same & h_grow
+    both_s = h_same & h_shr
+    parity = {
+        "probed_keys": int(uniq.size),
+        "snapshot_live": int(h_same.sum()),
+        "grow_survivors": int(h_grow.sum()),
+        "shrink_survivors": int(h_shr.sum()),
+        "grow_preserves_all_live": bool((h_grow | ~h_same).all()),
+        "shrink_serves_subset": bool((~h_shr | h_same).all()),
+        "values_bit_exact": bool(
+            np.array_equal(v_grow[both_g], v_same[both_g])
+            and np.array_equal(v_shr[both_s], v_same[both_s])),
+    }
+    parity["pass"] = (parity["grow_preserves_all_live"]
+                      and parity["shrink_serves_subset"]
+                      and parity["values_bit_exact"])
+
+    out = {
+        "pre_steps": kill, "recovery_steps": recovery_steps,
+        "kill_step": kill, "checkpoint_every": checkpoint_every,
+        "step_ms": step_ms, "users": users, "batch": batch,
+        "zipf_a": zipf_a, "ttl_min": ttl_min, "n_buckets": n_buckets,
+        "backend": backend,
+        "pre_hit_rate": round(pre_counters.hit_rate, 4),
+        "torn_step_skipped": all(
+            variants[n]["restored_step"] == kill
+            for n in ("warm_same", "warm_grow", "warm_shrink")),
+        "ledger_continuous": (
+            variants["warm_same"]["total_requests"]
+            == (kill + recovery_steps) * batch),
+        "warm_vs_cold_gain": round(
+            variants["warm_same"]["recovery_hit_rate"]
+            - variants["cold"]["recovery_hit_rate"], 4),
+        "variants": variants, "parity": parity,
+        "wall_s": round(wall, 2), "workdir": workdir,
+    }
+    log(f"[serve-restart {arch}] kill@step {kill} "
+        f"(ckpt every {checkpoint_every}), recovery {recovery_steps} steps,"
+        f" pre_hit={out['pre_hit_rate']:.3f} ({wall:.1f}s)")
+    for name, v in variants.items():
+        log(f"  {name:>11}: mode={v['mode']:<8}"
+            f" recovery_hit={v['recovery_hit_rate']:.3f}"
+            f" tower_inferences={v['recovery_tower_inferences']}"
+            f" curve={v['recovery_curve'][:4]}")
+    log(f"  parity: live={parity['snapshot_live']}"
+        f" grow={parity['grow_survivors']}"
+        f" shrink={parity['shrink_survivors']}"
+        f" pass={parity['pass']} | warm-vs-cold gain "
+        f"{out['warm_vs_cold_gain']:+.3f} | torn skipped "
+        f"{out['torn_step_skipped']} | ledger continuous "
+        f"{out['ledger_continuous']}")
+    return out, states
+
+
+def run_serving_restart(arch: str = "sasrec", pre_steps: int = 240,
+                        recovery_steps: int = 120, users: int = 3000,
+                        batch: int = 256, ttl_min: float = 5.0,
+                        checkpoint_every: int = 40, step_ms: int = 250,
+                        zipf_a: float = 1.2, n_buckets: int = 1 << 12,
+                        backend: str = "cuda", chunk_steps: int = 40,
+                        workdir: str = None, smoke: bool = True,
+                        seed: int = 0, device="cuda", log=print) -> dict:
+    """Kill/restore fault-injection harness (paper §3.6–3.7).
+
+    Replays a Zipf-skewed request stream while snapshotting the cache at
+    every checkpoint boundary (``ft/snapshot.snapshot_server``, last-3
+    retention); each chunk is one ``jit_serve_many`` call (on the card one
+    CUDA graph replay). A ``FailureInjector`` burst window covering the
+    back half of the pre phase models the incident; the process is killed
+    at the first checkpoint boundary inside it
+    (``FailureInjector.kill_step``): the in-memory state is discarded and
+    the NEXT save is left torn (a directory without its COMMITTED marker),
+    which the restore must skip.
+
+    Recovery is then measured four ways over the SAME post-kill stream:
+
+    * **warm_same**: restore into the identical geometry (bit-exact);
+    * **warm_grow** / **warm_shrink**: restore into a 2x / half table
+      through the elastic rehash;
+    * **cold**: a fresh table, the restart without the durability layer.
+
+    The report carries per-chunk hit-rate recovery curves, the
+    resized-restore probe-parity check (every live snapshot entry the
+    grown table must still serve bit-exactly; the shrunk table serves a
+    subset, values bit-exact on survivors), and the counters-provenance
+    check (the restored ledger resumes additively across the kill). The
+    tower is the SMOKE config by default, as the reference launcher
+    serves; ``smoke=False`` serves the published widths. Snapshots go to
+    ``workdir`` (a new temporary directory by default), which is kept.
+    """
+    return restart_timeline(
+        arch=arch, pre_steps=pre_steps, recovery_steps=recovery_steps,
+        users=users, batch=batch, ttl_min=ttl_min,
+        checkpoint_every=checkpoint_every, step_ms=step_ms, zipf_a=zipf_a,
+        n_buckets=n_buckets, backend=backend, chunk_steps=chunk_steps,
+        workdir=workdir, smoke=smoke, seed=seed, device=device, log=log)[0]
+
+
 def _window_steps(windows_ms, nows_ms, tail_win: int):
     """Map the fault-edge windows (ms spans from ``chaos.fault_windows``)
     onto step ranges of the staged clock, cutting the trailing quiet span
@@ -1104,9 +1345,15 @@ def main(argv=None):
                     help="--overload: failure probability inside the "
                          "outage window (FailureInjector burst; default: "
                          "same as --failure-rate)")
+    ap.add_argument("--restart", action="store_true",
+                    help="kill/restore fault-injection harness: snapshot "
+                         "at checkpoint boundaries, kill mid-stream, "
+                         "restore same/grown/shrunk geometries and "
+                         "compare hit-rate recovery vs a cold restart")
     ap.add_argument("--checkpoint-every", type=int, default=40,
-                    help="--chaos rolling: serve steps between checkpoint "
-                         "boundaries (the reported kill points)")
+                    help="serve steps between checkpoint boundaries: "
+                         "--restart snapshots at each; --chaos rolling "
+                         "reports them as its kill points")
     ap.add_argument("--chaos", default=None,
                     choices=list(chaos_lib.PRESETS),
                     help="chaos engine: compile the named multi-fault "
@@ -1146,9 +1393,10 @@ def main(argv=None):
     if args.drain and args.regions is None:
         ap.error("--drain requires --regions")
     if args.chaos is not None:
-        if args.overload or args.multi or args.regions is not None:
+        if (args.restart or args.overload or args.multi
+                or args.regions is not None):
             ap.error("--chaos is its own scenario; drop "
-                     "--overload/--multi/--regions")
+                     "--restart/--overload/--multi/--regions")
         if args.no_cache or args.coalesce:
             ap.error("--chaos is a cache-tier scenario; drop "
                      "--no-cache/--coalesce")
@@ -1167,9 +1415,9 @@ def main(argv=None):
     if args.regions is not None:
         if args.regions < 1:
             ap.error("--regions must be >= 1")
-        if args.overload or args.multi:
+        if args.restart or args.overload or args.multi:
             ap.error("--regions drives the regional server; drop "
-                     "--overload/--multi")
+                     "--restart/--overload/--multi")
         if args.no_cache or args.coalesce:
             ap.error("--regions is a cache-tier scenario; drop "
                      "--no-cache/--coalesce")
@@ -1179,6 +1427,18 @@ def main(argv=None):
             ttl_min=5.0 if args.ttl_min is None else args.ttl_min,
             locality=args.locality, drain=args.drain,
             backend=args.backend, eviction=args.eviction,
+            chunk_steps=args.chunk_steps)
+    if args.restart:
+        if args.multi or args.overload:
+            ap.error("--restart drives the single-model server; drop "
+                     "--multi/--overload")
+        if args.no_cache or args.coalesce:
+            ap.error("--restart is a cache-durability scenario; drop "
+                     "--no-cache/--coalesce")
+        return run_serving_restart(
+            arch=args.arch, users=args.users, batch=args.batch,
+            ttl_min=5.0 if args.ttl_min is None else args.ttl_min,
+            checkpoint_every=args.checkpoint_every, backend=args.backend,
             chunk_steps=args.chunk_steps)
     if args.overload:
         if args.multi:

@@ -1301,3 +1301,155 @@ def test_jit_regional_replay_equals_eager(cuda):
     assert sum(g[0]["excursions"] for g in got_j) > 0
     load = np.sum([g[0]["per_model_requests"] for g in got_j[1:2]], 0)
     assert load.reshape(4, 2)[3].sum() == 0       # steps 5..10: drained
+
+
+# ------------------------------------------ snapshots and warm restarts
+def _restart_server(cuda, n_buckets=1 << 12, backend="cuda"):
+    """A SMOKE SASRec single-model server on 2**12 x 8 LRU tiers and a
+    Zipf stream of (S, 512) staged chunks: the restart harness's shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import server as S
+    from repro_torch.core.config import CacheConfig
+    from repro_torch.core.hashing import Key64
+    from repro_torch.models import recsys as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_t = get_config("sasrec", smoke=True)
+    model = R.init_params(torch.Generator(device=cuda).manual_seed(0), cfg_t,
+                          cuda)
+    cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=n_buckets,
+                      ways=8, value_dim=cfg_t.embed_dim, cache_ttl_ms=5 * MIN,
+                      backend=backend, eviction="lru")
+    srv = S.CachedEmbeddingServer(cfg=cfg, miss_budget=512, tower_fn=(
+        lambda p, f: R.tower_step(p, f, cfg_t, impl=backend)))
+    rng = np.random.default_rng(21)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+
+    def chunk(c, steps=10, batch=512):
+        ids = rng.zipf(1.2, (steps, batch)).astype(np.int64) % 40_000
+        seq = rng.integers(0, cfg_t.vocab, (steps, batch, cfg_t.seq_len))
+        nows = ((np.arange(steps) + c * steps + 1) * 250).astype(np.int32)
+        return (Key64.from_int(ids, device=cuda),
+                {"seq": t(seq.astype(np.int32))}, t(nows))
+
+    return srv, model, cfg, chunk
+
+
+@pytest.mark.parametrize("n_buckets", [1 << 13, 1 << 11])
+def test_rehash_cuda_matches_torch(cuda, n_buckets):
+    """The elastic rehash of a served 2**12 x 8 table (more candidates than
+    one 4096-row chunk), grown and shrunk, recency pass on the tiled probe
+    kernel (one launch a chunk) vs its plain version: the candidate count
+    and every plane of the new table bit for bit; the old table is only
+    read."""
+    from repro_torch.core import cache as C
+    from repro_torch.core import server as S
+    from repro_torch.ft import elastic as E
+    from repro_torch.kernels import ops
+
+    srv, model, cfg, chunk = _restart_server(cuda)
+    state = S.init_server_state(cfg, writebuf_capacity=2048, device=cuda)
+    for c in range(4):
+        state, _, _ = srv.serve_many(model, state, *chunk(c), collect=False)
+    old = [t.clone() for t in state.direct]
+    out = {}
+    for backend in ("cuda", "torch"):
+        ops.reset_launch_counts()
+        new, n = E.rehash_cache(
+            state.direct, C.init_cache(n_buckets, 8, cfg.value_dim,
+                                       device=cuda),
+            10_000, cfg.cache_ttl_ms, evict_lru=True, backend=backend)
+        out[backend] = (new, n, ops.launch_counts()["cache_probe_tiled"])
+    (nc, n_c, l_c), (nt, n_t, l_t) = out["cuda"], out["torch"]
+    assert n_c == n_t > 4096
+    assert (l_c, l_t) == (-(-n_c // 4096), 0)
+    for name, a, b in zip(nc._fields, nc, nt):
+        assert torch.equal(a, b), name
+    for a, b in zip(state.direct, old):
+        assert torch.equal(a, b)
+
+
+def test_restore_then_jit_serve_many_equals_eager(cuda, tmp_path):
+    """A served state is snapshotted and restored (bit-exact, new
+    tensors): ``jit_serve_many`` on the restored state captures a new
+    graph (the first keys on the old state's addresses), and two chunks
+    through it equal two eager ``serve_many`` chunks on a second restore
+    in every output, counter and state tensor, while the old state's
+    tensors stay as they were: no graph writes across the restore."""
+    from repro_torch.core import server as S
+    from repro_torch.core.graph import tensors_of
+    from repro_torch.ft import snapshot as snap
+
+    srv, model, cfg, chunk = _restart_server(cuda)
+    chunks = [chunk(c) for c in range(3)]
+    state = S.init_server_state(cfg, writebuf_capacity=2048, device=cuda)
+    state, _, _ = srv.jit_serve_many(model, state, *chunks[0])
+    state = snap.snapshot_server(str(tmp_path), 1, srv, state, 2500)
+    before = [t.clone() for t in tensors_of(state)]
+    out = {}
+    for mode in ("jit", "eager"):
+        r = snap.restore_server(str(tmp_path), srv, now_ms=2500,
+                                writebuf_capacity=2048, device=cuda)
+        assert r.mode == "bitexact"
+        assert all(torch.equal(a, b) for a, b in zip(
+            tensors_of(S.cache_image(r.state)),
+            tensors_of(S.cache_image(state))))
+        run = srv.jit_serve_many if mode == "jit" else srv.serve_many
+        st, got = r.state, []
+        for args in chunks[1:]:
+            st, acc, ys = run(model, st, *args)
+            got.append((S.fetch_counters(acc), ys))
+        out[mode] = (tensors_of(st), got)
+    assert len(srv.jit_serve_many.graphs) == 2
+    for a, b in zip(tensors_of(state), before):
+        assert torch.equal(a, b)
+    (st_j, got_j), (st_e, got_e) = out["jit"], out["eager"]
+    for (acc_j, ys_j), (acc_e, ys_e) in zip(got_j, got_e):
+        assert acc_j == acc_e
+        for a, b in zip(ys_j, ys_e):
+            assert torch.equal(a, b)
+    for a, b in zip(st_j, st_e):
+        assert torch.equal(a, b)
+
+
+def test_restart_timeline_cuda_matches_torch(cuda, tmp_path):
+    """The kill/restore harness at the SMOKE tower, compiled on the
+    kernels vs eager on the plain versions: the report (but the wall, the
+    workdir and the backend's name) and every restored and final tensor
+    of every variant bit for bit; one dual probe and one bag a step, one
+    tiled probe a restore probe and a rehash chunk."""
+    import re
+
+    from repro_torch.core.graph import tensors_of
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as L
+
+    kw = dict(pre_steps=40, recovery_steps=20, users=400, batch=64,
+              checkpoint_every=10, n_buckets=256, chunk_steps=10,
+              device=cuda, log=lambda s: None)
+    runs = {}
+    for backend, jit in (("cuda", True), ("torch", False)):
+        ops.reset_launch_counts()
+        rep, states = L.restart_timeline(backend=backend, jit=jit,
+                                         workdir=str(tmp_path / backend),
+                                         **kw)
+        runs[backend] = (rep, states, ops.launch_counts())
+    (rep, st, n), (rep_t, st_t, n_t) = runs["cuda"], runs["torch"]
+    strip = lambda r: {k: v for k, v in r.items()
+                       if k not in ("wall_s", "workdir", "backend")}
+    assert strip(rep) == strip(rep_t)
+    assert rep["parity"]["pass"] and rep["torn_step_skipped"]
+    steps = rep["kill_step"] + 4 * rep["recovery_steps"]
+    chunks = sum(-(-int(x) // 4096) for v in st.values() if v["detail"]
+                 for x in re.findall(r"(\d+) (?:direct|failover)",
+                                     v["detail"]))
+    assert {k: v for k, v in n.items() if v} == {
+        "cache_probe_dual": steps, "embedding_bag": steps,
+        "cache_probe_tiled": 3 + chunks}
+    assert not sum(n_t.values())
+    for name in st:
+        assert st[name]["detail"] == st_t[name]["detail"]
+        for part in ("restored", "final"):
+            a, b = st[name][part], st_t[name][part]
+            for x, y in zip(tensors_of(a), tensors_of(b), strict=True):
+                assert torch.equal(x, y), (name, part)

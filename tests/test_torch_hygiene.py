@@ -22,7 +22,10 @@ from repro_torch.core.config import (CacheConfig,  # noqa: E402
 from repro_torch.core.hashing import Key64  # noqa: E402
 from repro_torch.data import access_patterns as t_ap  # noqa: E402
 from repro_torch.examples import serve_lm_tower as t_lm_example  # noqa: E402
+from repro_torch.ft import checkpoint as t_ckpt  # noqa: E402
+from repro_torch.ft import elastic as t_elastic  # noqa: E402
 from repro_torch.ft import failure as t_failure  # noqa: E402
+from repro_torch.ft import snapshot as t_snap  # noqa: E402
 from repro_torch.kernels import cache_probe as tpk  # noqa: E402
 from repro_torch.kernels import decode_attention as TDA  # noqa: E402
 from repro_torch.launch import serve as t_launch  # noqa: E402
@@ -132,8 +135,10 @@ def _skip_with_card():
                                    "run_serving_multi", "lm_init_params",
                                    "serve_lm_tower_run", "init_kv_cache",
                                    "decode_attention", "init_grouped",
-                                   "init_params_wide_deep"])
-def test_default_device_entry_points_raise_without_card(entry):
+                                   "init_params_wide_deep",
+                                   "restore_server", "run_serving_restart",
+                                   "checkpoint_manager_restore_latest"])
+def test_default_device_entry_points_raise_without_card(entry, tmp_path):
     _skip_with_card()
     cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=16)
     tier = multi_model_tier_configs(value_dim=8, n_buckets=16)
@@ -161,6 +166,14 @@ def test_default_device_entry_points_raise_without_card(entry):
             TG.GroupSpec((TG.GroupMember("ctr", 4, 1000),)), 16, 4),
         "init_params_wide_deep": lambda: TR.init_params(
             torch.Generator(), t_launch.get_config("wide-deep", smoke=True)),
+        "restore_server": lambda: t_snap.restore_server(
+            str(tmp_path), TS.CachedEmbeddingServer(
+                cfg=cfg, tower_fn=lambda p, f: f["x"], miss_budget=4), 0),
+        "run_serving_restart": lambda: t_launch.run_serving_restart(
+            pre_steps=4, recovery_steps=2, users=10, batch=4,
+            checkpoint_every=2, workdir=str(tmp_path)),
+        "checkpoint_manager_restore_latest": lambda: t_ckpt.CheckpointManager(
+            str(tmp_path)).restore_latest({"w": torch.zeros(2)}),
         "decode_attention": lambda: TDA.decode_attention(
             torch.zeros((1, 4, 8), device="cuda"),
             torch.zeros((1, 16, 2, 8), device="cuda"),
@@ -211,6 +224,10 @@ def test_cuda_backend_with_cpu_tensors_raises(rng):
     grouped = TG.init_grouped(spec, 16, 4, device="cpu")
     with pytest.raises(ValueError):
         TG.lookup_member(spec, grouped, "ctr", keys, 0)
+    # the elastic rehash's recency lookups probe with the one-table kernel
+    with pytest.raises(ValueError):
+        t_elastic.rehash_cache(st, TC.init_cache(32, 4, 8, device="cpu"), 0,
+                               1000, backend="cuda")
     assert tpk.LAUNCHES == n0
     # the LM tower: backend "cuda" never takes the plain attention on the
     # CPU

@@ -173,6 +173,35 @@ Phases, each fatal on failure:
     bit-identical), each timed in seconds and GB/s, in a temporary
     directory whose free space is printed first and which is removed
     afterwards.
+16. **train**: the training slice, after the earlier phases' tensors are
+    freed. (a) ``llama-100m`` (``examples/train_lm.py``'s model: 12L,
+    d512, 8/4 heads, ffn 1536, vocab 32000, float32, two microbatches,
+    AdamW + cosine by ``for_config``) through ``run_train_loop`` at B=8,
+    S=256 for 20 steps, a checkpoint every 10 in a temporary directory
+    (removed afterwards);
+    the step-20 checkpoint is removed and a second loop resumes from step
+    10: its losses at steps 11-20 equal the first run's within
+    ``RESUME_RTOL`` (the phase does not set
+    ``torch.use_deterministic_algorithms``; it prints whether they were
+    bit-identical). The first step's loss and grad_norm on the card
+    equal the port's own CPU step from the same weights within
+    ``CARD_CPU_RTOL`` (TF32 off). (b) ``granite-moe-1b-a400m`` at its
+    published widths (24L, d1024, 32 experts top-8, vocab 49155, bf16,
+    Adafactor by ``for_config``), 5 steps on one repeated batch of B=8,
+    S=128 (2 dispatch groups of 512 tokens, capacity 160), no checkpoint
+    (the port's ``save`` refuses bfloat16 leaves): every loss finite, the
+    last below the first. (c) Wide&Deep, SASRec, BST and MIND at their
+    published widths, 3 steps each on one batch of
+    ``RECSYS_SHAPES["train_batch"]`` = 65,536: every loss finite, the
+    last at most the first + 1e-3. (d) The trained SASRec served through
+    ``tower_step(impl="cuda")`` (the bag kernel) and ``impl="torch"``:
+    bit-identical at nnz=1. One ``[train]`` line a run: arch, parameter
+    count, steps, first and last loss, median host ms a step (the
+    profiled last step left out), device kernel ms of the last step under
+    torch.profiler and its idle share, peak
+    ``torch.cuda.max_memory_allocated`` in GB, the card's name and power
+    limit. Training runs the plain versions under autograd (the hand
+    kernels have no backward and refuse inputs that need a gradient).
 
 The launchers and the examples serve through the compiled entry points
 (``jit_serve_many``, ``jit_serve_step``, ``jit_flush``), so phases 3, 5,
@@ -207,7 +236,7 @@ probe, the LM serve (phase 6, its cuda run) for ``flash_attention``, the
 probe shootout for ``cache_probe_perquery`` and the decode steps (phase 8,
 the cuda run) for ``decode_attention``; the counts are reset just before
 each path and read just after. Phases 9, 10 and 12–15 check their own
-counts.
+counts; phase 16 checks the bag's launches on the trained tower.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and ends
 with ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -3568,6 +3597,268 @@ def phase_restart(torch):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 16
+# llama-100m in float32 with TF32 off: the card and the CPU sum the same
+# matmuls in other orders through 12 layers, a loss of ~10.4 and a grad
+# norm of a few units; a resumed run restores every leaf bit for bit and
+# replays the same kernels, so any gap is the card's own non-determinism.
+CARD_CPU_RTOL = 1e-4
+RESUME_RTOL = 1e-5
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def free_card(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+class StepRecorder:
+    """Wraps a loop's ``step(state, batch)``: the metrics of every step,
+    its host ms (synchronized), and the device kernel ms of the last one
+    (``n_steps``-th call) under torch.profiler."""
+
+    def __init__(self, torch, step_fn, n_steps):
+        self.torch, self.step_fn, self.n_steps = torch, step_fn, n_steps
+        self.metrics, self.host_ms, self.device_ms = [], [], None
+
+    def __call__(self, state, batch):
+        torch = self.torch
+        last = len(self.metrics) + 1 == self.n_steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if last:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, m = self.step_fn(state, batch)
+                torch.cuda.synchronize()
+            ev = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            self.device_ms = sum(e.time_range.end - e.time_range.start
+                                 for e in ev) / 1e3
+        else:
+            state, m = self.step_fn(state, batch)
+            torch.cuda.synchronize()
+            self.host_ms.append((time.perf_counter() - t0) * 1e3)
+        self.metrics.append({k: float(v) for k, v in m.items()})
+        return state, m
+
+    @property
+    def losses(self):
+        return [m["loss"] for m in self.metrics]
+
+
+def train_line(torch, arch, n_params, rec, smi):
+    host = statistics.median(rec.host_ms)
+    idle = 1.0 - rec.device_ms / host
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train] {arch}: {n_params / 1e6:.1f}M params, "
+          f"{len(rec.metrics)} steps, loss first {rec.losses[0]:.6f} last "
+          f"{rec.losses[-1]:.6f}, host {host:.2f} ms/step (median), device "
+          f"{rec.device_ms:.2f} ms/step (last step, profiled; idle "
+          f"{idle:.3f}), peak {peak:.2f} GB | {smi}")
+
+
+def check_finite(losses, what):
+    import math
+
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: a loss is not finite: {losses}")
+
+
+def train_llama(torch, smi):
+    """(a) llama-100m: 20 steps with checkpoints in a temporary directory
+    (removed afterwards), a resume from step 10, and the first step
+    against the port's CPU step."""
+    import shutil
+    import tempfile
+
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-train-"))
+    try:
+        train_llama_in(torch, smi, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def train_llama_in(torch, smi, ckpt_dir):
+    import itertools
+    import shutil
+
+    from repro_torch.examples.train_lm import llama_100m_config
+    from repro_torch.launch.train import lm_batches, lm_train_state
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_loop import LoopConfig, run_train_loop
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    cfg = llama_100m_config()
+    steps, B, S = 20, 8, 256
+    opt = opt_lib.for_config(cfg, total_steps=steps)
+    state = lm_train_state(cfg, opt, "cuda")
+    cpu_params = opt_lib.tree_map(lambda t: t.detach().cpu().clone(),
+                                  state.params)
+    cpu_state = tfm.TrainState(cpu_params, opt.init(cpu_params),
+                               torch.zeros((), dtype=torch.int32))
+    t0 = time.perf_counter()
+    _, cpu_m = tfm.make_train_step(cfg, opt)(
+        cpu_state, next(lm_batches(cfg, B, S, device="cpu")))
+    cpu_s = time.perf_counter() - t0
+    loop = LoopConfig(total_steps=steps, log_every=10, ckpt_every=10,
+                      ckpt_dir=str(ckpt_dir), keep_last=5)
+    logs = []
+    rec = StepRecorder(torch, tfm.make_train_step(cfg, opt), steps)
+    run_train_loop(rec, state, lm_batches(cfg, B, S, device="cuda"), loop,
+                   log_fn=logs.append)
+    for line in logs:
+        print(f"[train llama-100m] {line}")
+    check_finite(rec.losses, "llama-100m")
+    train_line(torch, cfg.arch_id, cfg.param_count(), rec, smi)
+    first = rec.metrics[0]
+    for k in ("loss", "grad_norm"):
+        card, cpu = first[k], float(cpu_m[k])
+        rel = abs(card - cpu) / abs(cpu)
+        print(f"[train llama-100m] step 1 {k}: card {card:.7f} cpu "
+              f"{cpu:.7f} rel {rel:.2e} (bar {CARD_CPU_RTOL:g}; cpu step "
+              f"{cpu_s:.1f} s)")
+        if not rel <= CARD_CPU_RTOL:
+            raise AssertionError(f"llama-100m step 1 {k}: card {card} vs "
+                                 f"cpu {cpu}")
+    # resume: drop the final checkpoint, restart the loop from step 10
+    # (from another init, which the restore replaces) on the stream's
+    # batches 11-20 (the loop restarts its iterator; the data position is
+    # the caller's)
+    shutil.rmtree(ckpt_dir / f"step_{steps:08d}")
+    del state
+    free_card(torch)
+    logs2 = []
+    rec2 = StepRecorder(torch, tfm.make_train_step(cfg, opt), steps // 2)
+    run_train_loop(rec2, lm_train_state(cfg, opt, "cuda", seed=1),
+                   itertools.islice(lm_batches(cfg, B, S, device="cuda"),
+                                    steps // 2, None), loop,
+                   log_fn=logs2.append)
+    if logs2[0] != "[resume] from checkpoint step 10":
+        raise AssertionError(f"llama-100m resume: {logs2[:1]}")
+    want, got = rec.losses[10:], rec2.losses
+    worst = max(abs(a - b) / abs(a) for a, b in zip(want, got))
+    print(f"[train llama-100m] resumed from step 10: steps 11-20 losses "
+          f"max rel diff {worst:.2e} (bar {RESUME_RTOL:g}), bit-identical "
+          f"{want == got}; {logs2[-1]}")
+    if len(got) != 10 or not worst <= RESUME_RTOL:
+        raise AssertionError(f"llama-100m resume: {got} vs {want}")
+
+
+def train_granite(torch, smi):
+    """(b) granite-moe-1b-a400m at its published widths: 5 steps of
+    Adafactor on one repeated batch."""
+    import itertools
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import lm_batches, lm_train_state
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_loop import LoopConfig, run_train_loop
+
+    cfg = get_config("granite-moe-1b-a400m")
+    steps, B, S = 5, 8, 128
+    g = moe_lib.pick_group_size(B * S, cfg.moe_group_size)
+    print(f"[train granite-moe-1b-a400m] {B * S // g} dispatch groups of "
+          f"{g} tokens, capacity {moe_lib.capacity_for(g, cfg.moe)}; "
+          f"{cfg.dtype}, remat {cfg.remat}")
+    opt = opt_lib.for_config(cfg, total_steps=steps)
+    state = lm_train_state(cfg, opt, "cuda")
+    batch = next(lm_batches(cfg, B, S, device="cuda"))
+    rec = StepRecorder(torch, tfm.make_train_step(cfg, opt), steps)
+    run_train_loop(rec, state, itertools.repeat(batch),
+                   LoopConfig(total_steps=steps, log_every=1),
+                   log_fn=lambda line: print(
+                       f"[train granite-moe-1b-a400m] {line}"))
+    check_finite(rec.losses, "granite")
+    train_line(torch, cfg.arch_id, cfg.param_count(), rec, smi)
+    if not rec.losses[-1] < rec.losses[0]:
+        raise AssertionError(f"granite: the loss did not fall on a "
+                             f"repeated batch: {rec.losses}")
+
+
+def train_recsys(torch, arch, smi):
+    """(c) one tower at its published widths, 3 steps on one batch of
+    65,536; returns the trained SASRec params and a batch to serve."""
+    import itertools
+
+    from repro_torch.configs import RECSYS_SHAPES, get_config
+    from repro_torch.launch.train import (recsys_batches, recsys_loop_step,
+                                          recsys_train_state)
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_loop import LoopConfig, run_train_loop
+
+    cfg = get_config(arch)
+    steps, B = 3, RECSYS_SHAPES["train_batch"].batch
+    opt = opt_lib.for_config(cfg)
+    state = recsys_train_state(cfg, opt, "cuda")
+    n_params = sum(t.numel() for t in opt_lib.tree_leaves(state[0]))
+    batch = next(recsys_batches(cfg, B, device="cuda"))
+    rec = StepRecorder(torch, recsys_loop_step(cfg, opt), steps)
+    state = run_train_loop(rec, state, itertools.repeat(batch),
+                           LoopConfig(total_steps=steps, log_every=steps),
+                           log_fn=lambda line: print(f"[train {arch}] "
+                                                     f"{line}"))
+    check_finite(rec.losses, arch)
+    train_line(torch, arch, n_params, rec, smi)
+    if not rec.losses[-1] <= rec.losses[0] + 1e-3:
+        raise AssertionError(f"{arch}: the loss rose: {rec.losses}")
+    return (state[0], batch) if arch == "sasrec" else None
+
+
+def serve_trained_sasrec(torch, params, batch):
+    """(d) the trained SASRec behind tower_step: the bag kernel against
+    its plain version, bit for bit at nnz=1 (a quarter of the positions
+    padded with -1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.models import recsys as rec_lib
+
+    cfg = get_config("sasrec")
+    model = rec_lib.bind_tree(rec_lib.SASRec.from_config(cfg, "meta"),
+                              params)
+    seq = batch["seq"][:BATCH].clone()
+    seq[:, : cfg.seq_len // 4] = -1
+    n0 = ebk.LAUNCHES["embedding_bag"]
+    got = rec_lib.tower_step(model, {"seq": seq}, cfg, impl="cuda")
+    launches = ebk.LAUNCHES["embedding_bag"] - n0
+    want = rec_lib.tower_step(model, {"seq": seq}, cfg, impl="torch")
+    same = torch.equal(got, want)
+    print(f"[train sasrec serve] trained tower at B={BATCH}: cuda == torch "
+          f"{same}, {launches} bag launch(es), max |out| "
+          f"{float(got.abs().max()):.4f}")
+    if not same or launches != 1 or ebk.LAUNCHES["embedding_bag"] != n0 + 1:
+        raise AssertionError("trained SASRec: the bag kernel disagrees with "
+                             "its plain version or did not launch once")
+
+
+def phase_train(torch):
+    """Phase 16: the training slice on the card."""
+    smi = smi_line()
+    for run in ("llama", "granite"):
+        free_card(torch)
+        (train_llama if run == "llama" else train_granite)(torch, smi)
+    trained = None
+    for arch in ("wide-deep", "sasrec", "bst", "mind"):
+        free_card(torch)
+        out = train_recsys(torch, arch, smi)
+        trained = out or trained
+    serve_trained_sasrec(torch, *trained)
+
+
 def main() -> int:
     try:
         import torch
@@ -3617,6 +3908,8 @@ def main() -> int:
     print(f"[time] regions phase done at {time.perf_counter() - t0:.1f}s")
     phase_restart(torch)
     print(f"[time] restart phase done at {time.perf_counter() - t0:.1f}s")
+    phase_train(torch)
+    print(f"[time] train phase done at {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in sorted(counts):
@@ -3627,11 +3920,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")})
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

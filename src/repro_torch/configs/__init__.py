@@ -1,8 +1,9 @@
 """Architecture registry: ``get_config(arch_id, smoke=False)`` + shapes.
 
 Holds the archs ported so far: the dense LMs (TinyLlama-1.1B, Yi-6B,
-Llama-3-8B) and the four recsys towers (Wide&Deep, SASRec, BST, MIND).
-The MoE LMs (Granite, Arctic) join with their layers.
+Llama-3-8B), the MoE LMs (Arctic-480B, Granite-MoE-1B-A400M) and the four
+recsys towers (Wide&Deep, SASRec, BST, MIND). The GNN (GIN-TU) joins with
+the scale-out slice.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ _MODULES: Dict[str, str] = {
     "yi-6b": "yi_6b",
     "llama3-8b": "llama3_8b",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "arctic-480b": "arctic_480b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "wide-deep": "wide_deep",
     "sasrec": "sasrec",
     "bst": "bst",

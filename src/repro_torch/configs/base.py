@@ -46,8 +46,7 @@ RECSYS_SHAPES: Dict[str, RecsysShape] = {
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    """The expert block's knobs (a field type of :class:`LMConfig`; the MoE
-    layers join with their slice)."""
+    """The expert block's knobs (``models/moe.py``)."""
     n_experts: int
     top_k: int
     dense_residual: bool = False  # arctic: MoE in parallel with a dense FFN
@@ -84,6 +83,20 @@ class LMConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    def param_count(self) -> int:
+        d, hd = self.d_model, self.hd
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        if self.moe is None:
+            ffn = 3 * d * self.d_ff
+        else:
+            ffn = self.moe.n_experts * 3 * d * self.d_ff
+            if self.moe.dense_residual:
+                ffn += 3 * d * self.d_ff
+            ffn += d * self.moe.n_experts           # router
+        per_layer = attn + ffn + 2 * d
+        return self.n_layers * per_layer + 2 * self.vocab * d + d
 
 
 @dataclasses.dataclass(frozen=True)

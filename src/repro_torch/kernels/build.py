@@ -111,3 +111,18 @@ def check(lib: ctypes.CDLL, strerror: str, code: int, what: str) -> None:
         fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{what}: CUDA error {code}: "
                            f"{fn(code).decode(errors='replace')}")
+
+
+def refuse_grad(what: str, plain: str, *tensors) -> None:
+    """Raise RuntimeError when autograd is recording and a float input
+    needs a gradient: a kernel launched through raw pointers returns an
+    output with no ``grad_fn``, so the gradient would be lost without a
+    word. ``plain`` names the differentiable plain version to use."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad and t.is_floating_point()
+            for t in tensors):
+        raise RuntimeError(f"{what} has no backward: its inputs need a "
+                           f"gradient; use {plain} (differentiable) or "
+                           "call it under torch.no_grad()")

@@ -87,7 +87,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid_len: Optional[torch.Tensor] = None, *,
                      bs: int = BLOCK) -> torch.Tensor:
     """q (B, Hq, hd); k, v (B, S, Hkv, hd); valid_len (B,) int32 or None
-    (all S valid) -> (B, Hq, hd)."""
+    (all S valid) -> (B, Hq, hd). Inputs that need a gradient raise (the
+    kernel has no backward)."""
+    build.refuse_grad("decode_attention", "ref.decode_attention_ref", q, k,
+                      v)
     check_shapes(q, k, v, valid_len, bs)
     if not (q.is_cuda or k.is_cuda or v.is_cuda):
         return ref.decode_attention_ref(q, k, v, valid_len)

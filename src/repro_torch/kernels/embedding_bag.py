@@ -7,7 +7,8 @@ the grid is one wave of resident blocks, sized from the SM count. Each
 item's ids are walked in order with a float32 accumulator and one cast at
 the end: for nnz = 1 (SASRec's item gather) the result is exact. On a CPU
 tensor the wrapper runs ``ref.embedding_bag_ref``; on a CUDA tensor it
-launches the kernel (counted in :data:`LAUNCHES`) or raises.
+launches the kernel (counted in :data:`LAUNCHES`) or raises. Either way it
+refuses a table that needs a gradient while autograd records.
 """
 from __future__ import annotations
 
@@ -36,7 +37,9 @@ def _entry():
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   mode: str = "sum") -> torch.Tensor:
     """table (V, D) float32/bfloat16; ids (B, nnz) int32, -1 pads ->
-    (B, D) in the table dtype. Ids must lie in ``[-1, V)``."""
+    (B, D) in the table dtype. Ids must lie in ``[-1, V)``. A table that
+    needs a gradient raises (the kernel has no backward)."""
+    build.refuse_grad("embedding_bag", "ref.embedding_bag_ref", table)
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
     if not ids.is_cuda:

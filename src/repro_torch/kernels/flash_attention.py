@@ -9,7 +9,8 @@ output ``acc / max(l, 1e-30)`` in q's dtype. ``q_offset`` is the absolute
 position of q[0] (chunked prefill).
 
 On a CPU tensor the wrapper runs ``ref.flash_attention_ref``; on a CUDA
-tensor it launches the kernel (counted in :data:`LAUNCHES`) or raises.
+tensor it launches the kernel (counted in :data:`LAUNCHES`) or raises;
+either way it refuses inputs that need a gradient while autograd records.
 Both refuse what the reference refuses: ``Sq`` and ``Sk`` must be
 multiples of ``min(128, S)`` (its block assert).
 """
@@ -59,7 +60,9 @@ def check_shapes(q, k, v, q_offset: int) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
-    """q (B, Sq, Hq, hd); k, v (B, Sk, Hkv, hd) -> (B, Sq, Hq, hd)."""
+    """q (B, Sq, Hq, hd); k, v (B, Sk, Hkv, hd) -> (B, Sq, Hq, hd).
+    Inputs that need a gradient raise (the kernel has no backward)."""
+    build.refuse_grad("flash_attention", "ref.flash_attention_ref", q, k, v)
     check_shapes(q, k, v, q_offset)
     if not (q.is_cuda or k.is_cuda or v.is_cuda):
         return ref.flash_attention_ref(q, k, v, causal=causal,

@@ -1,0 +1,137 @@
+"""Mixture-of-Experts FFN: grouped GShard-style top-k dispatch/combine.
+
+Twin of ``repro/models/moe.py``. Tokens are reshaped to (G groups, T_g
+tokens, D); the dispatch one-hot is (G, T_g, E, C) with per-group capacity
+C ~ cf*k*T_g/E, so its footprint is T_g^2*k*cf per group, kept small by
+choosing T_g <= 512. Groups of 64 tokens or fewer (serving, decode) run
+dropless.
+
+Routing: softmax router in float32, top-k (ties to the lower expert id, as
+``jax.lax.top_k``), renormalized gates, GShard load-balance auxiliary loss,
+capacity dropping (a dropped token's slot contributes 0: it passes through
+the residual only). Plain torch ops throughout, so autograd differentiates
+the block; the one-host-device run has no all-to-all.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+
+
+def pick_group_size(n_tokens: int, max_group: int = 512) -> int:
+    """Largest divisor of n_tokens that is <= max_group."""
+    g = min(max_group, n_tokens)
+    while n_tokens % g:
+        g -= 1
+    return g
+
+
+def capacity_for(group_size: int, cfg: MoEConfig) -> int:
+    """Per-group expert capacity. Tiny groups (serving) run dropless."""
+    if group_size <= 64:
+        return group_size
+    c = int(cfg.capacity_factor * cfg.top_k * group_size / cfg.n_experts
+            + 0.999)
+    return max(c, cfg.top_k)
+
+
+def top_k_gating(logits: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """logits (G, T, E) -> (gate values (G, T, k), expert ids (G, T, k)
+    int64, probs (G, T, E)). The top k come from a stable descending sort,
+    so equal probabilities keep the lower expert id first, as
+    ``jax.lax.top_k`` does (``torch.topk`` promises no order on ties)."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    idx = torch.sort(probs.detach(), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    vals = probs.gather(-1, idx)
+    vals = vals / vals.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    return vals, idx, probs
+
+
+def dispatch_combine_tensors(idx: torch.Tensor, gates: torch.Tensor,
+                             n_experts: int, capacity: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(G, T, E, C) float32 dispatch (0/1) and combine (gated) tensors.
+
+    Slot priority is GShard's: a (token, slot)'s position in its expert is
+    the running count of earlier assignments to that expert, every token's
+    slot 0 counted before any slot 1. Positions are float32 and compared
+    with ``arange(C)`` in float32, as ``jax.nn.one_hot`` does; a position
+    at or past the capacity matches no column (the token is dropped)."""
+    K = idx.shape[-1]
+    oh = F.one_hot(idx, n_experts).to(torch.float32)      # (G, T, K, E)
+    prev = torch.zeros_like(oh[:, :1, 0])                  # (G, 1, E)
+    slots = []
+    for s in range(K):
+        m = oh[:, :, s]                                    # (G, T, E)
+        within = torch.cumsum(m, dim=1) - m                # tokens before me
+        slots.append(within + prev)
+        prev = prev + m.sum(dim=1, keepdim=True)
+    pos = torch.stack(slots, dim=2)                        # (G, T, K, E)
+    keep = (pos < capacity).to(torch.float32) * oh         # dropped -> 0
+    cols = torch.arange(capacity, dtype=torch.float32, device=idx.device)
+    pos_c = (pos[..., None] == cols).to(torch.float32)     # (G,T,K,E,C)
+    kept = keep[..., None] * pos_c
+    disp = kept.sum(dim=2)                                 # (G, T, E, C)
+    comb = (gates[..., None, None] * kept).sum(dim=2)
+    return disp, comb
+
+
+def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor],
+            cfg: MoEConfig, group_size: int = 512
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (same, float32 aux loss scalar).
+
+    params: router (D, E) float32; wg / wu (E, D, F); wd (E, F, D)."""
+    B, S, D = x.shape
+    T_all = B * S
+    g = pick_group_size(T_all, group_size)
+    G = T_all // g
+    C = capacity_for(g, cfg)
+    xg = x.reshape(G, g, D)
+
+    logits = torch.einsum("gtd,de->gte", xg.to(torch.float32),
+                          params["router"].to(torch.float32))
+    gates, idx, probs = top_k_gating(logits, cfg.top_k)
+    disp, comb = dispatch_combine_tensors(idx, gates, cfg.n_experts, C)
+    disp = disp.to(x.dtype)
+    comb = comb.to(x.dtype)
+
+    xe = torch.einsum("gtec,gtd->gecd", disp, xg)
+    gproj = F.silu(torch.einsum("gecd,edf->gecf", xe, params["wg"]))
+    uproj = torch.einsum("gecd,edf->gecf", xe, params["wu"])
+    ye = torch.einsum("gecf,efd->gecd", gproj * uproj, params["wd"])
+    y = torch.einsum("gtec,gecd->gtd", comb, ye)
+
+    # GShard load-balance loss: E * sum_e f_e * P_e, f_e from slot 0
+    me = probs.mean(dim=(0, 1))                            # (E,)
+    fe = F.one_hot(idx[..., 0], cfg.n_experts).to(torch.float32).mean(
+        dim=(0, 1))
+    aux = cfg.n_experts * torch.sum(me * fe)
+    return y.reshape(B, S, D), aux
+
+
+def init_moe_params(generator: torch.Generator, d_model: int, d_ff: int,
+                    cfg: MoEConfig, dtype=torch.float32
+                    ) -> Dict[str, torch.Tensor]:
+    """Random expert weights with the reference's shapes and scales: the
+    router N(0, 1/d_model) in float32, wg / wu N(0, 1/d_model) and wd
+    N(0, 1/d_ff) in ``dtype``, drawn on the generator's device."""
+    E = cfg.n_experts
+    gdev = generator.device
+
+    def draw(shape, scale, dt):
+        return (torch.randn(shape, generator=generator, device=gdev)
+                * scale).to(dt)
+
+    return {
+        "router": draw((d_model, E), d_model ** -0.5, torch.float32),
+        "wg": draw((E, d_model, d_ff), d_model ** -0.5, dtype),
+        "wu": draw((E, d_model, d_ff), d_model ** -0.5, dtype),
+        "wd": draw((E, d_ff, d_model), d_ff ** -0.5, dtype),
+    }

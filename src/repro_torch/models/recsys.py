@@ -1,17 +1,22 @@
 """RecSys towers, the ERCache-native family: Wide&Deep, SASRec, BST, MIND.
 
-Twin of ``repro/models/recsys.py``: the towers, the serve-side scores and
-``retrieval_step`` on one device (the row-sharded tables and the mesh
-branches join with the scale-out slice; the losses with training). The
-hot path is the sparse embedding lookup: on the card every gather runs
-the hand-written ``embedding_bag`` kernel (``kernels/embedding_bag.py``),
-the "TPU-target implementation" the reference names for it, and
-Wide&Deep's F field bags are ONE launch (:func:`field_embedding_bag`).
+Twin of ``repro/models/recsys.py``: the towers, the serve-side scores,
+``retrieval_step``, the training losses and the train step on one device
+(the row-sharded tables and the mesh branches join with the scale-out
+slice). The hot path is the sparse embedding lookup: on the card every
+serving gather runs the hand-written ``embedding_bag`` kernel
+(``kernels/embedding_bag.py``), the "TPU-target implementation" the
+reference names for it, and Wide&Deep's F field bags are ONE launch
+(:func:`field_embedding_bag`). The losses run the bag's plain version
+(``impl="torch"``), which autograd differentiates, as the reference's
+losses run its ``jnp`` bag under ``jax.grad``: the kernel has no
+backward.
 
 The ERCache tower contract is kept as a plain function:
     ``tower_step(params, inputs, cfg, impl) -> (B, cfg.user_embed_dim)``
-where ``params`` is the tower's ``nn.Module`` (parameters frozen: these
-are serving towers).
+where ``params`` is the tower's ``nn.Module`` (parameters frozen until a
+train step makes them trainable). :func:`param_tree` gives the
+reference's parameter pytree over a module's own Parameters.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from torch import nn
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels import ref
 from repro_torch.models import layers as L
+from repro_torch.training.optimizer import leaf_grads, trainable
 
 IMPLS = ("torch", "cuda")
 _INT32_MAX = 2 ** 31 - 1
@@ -468,3 +474,118 @@ def bst_score(params: BST, inputs, cfg: RecsysConfig,
     """BST's serving score (B,) of ``inputs["target"]`` (-1 masked)."""
     with torch.no_grad():
         return params.score(inputs, cfg, impl)
+
+
+# ================================================================ training
+def param_tree(model: nn.Module) -> Dict:
+    """The reference's parameter pytree over the module's own Parameters
+    (no copy): lists for the MLP stacks, a dict a block."""
+    out = {}
+    for key in sorted(model.TREE_KEYS):
+        v = getattr(model, key)
+        if isinstance(v, nn.ParameterList):
+            out[key] = list(v)
+        elif isinstance(v, nn.ModuleList):
+            out[key] = [dict(b.named_parameters(recurse=False)) for b in v]
+        else:
+            out[key] = v
+    return out
+
+
+def bind_tree(model: nn.Module, tree: Dict) -> nn.Module:
+    """Make the module's Parameters the tree's (which must be
+    Parameters): the module then computes with the tree's tensors."""
+    for key, val in tree.items():
+        dst = getattr(model, key)
+        if isinstance(dst, nn.ParameterList):
+            for i, p in enumerate(val):
+                dst[i] = p
+        elif isinstance(dst, nn.ModuleList):
+            for blk, ps in zip(dst, val, strict=True):
+                for name, p in ps.items():
+                    setattr(blk, name, p)
+        else:
+            setattr(model, key, val)
+    return model
+
+
+def _bce(logits, labels):
+    logits = logits.to(torch.float32)
+    labels = labels.to(torch.float32)
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def _sampled_softmax(user_vec, item_table, pos_ids, neg_ids):
+    """Mean of log-softmax over {pos} U negs item embeddings."""
+    pos_e = item_table[pos_ids.long()]                        # (B, D)
+    neg_e = item_table[neg_ids.long()]                        # (B, K, D)
+    pos_s = torch.einsum("bd,bd->b", user_vec, pos_e)
+    neg_s = torch.einsum("bd,bkd->bk", user_vec, neg_e)
+    all_s = torch.cat([pos_s[:, None], neg_s], dim=1).to(torch.float32)
+    return torch.mean(torch.logsumexp(all_s, dim=1) - all_s[:, 0])
+
+
+def wide_deep_loss(params: WideDeep, batch, cfg: RecsysConfig,
+                   impl: str = "torch"):
+    return _bce(params.score(batch, cfg, impl), batch["labels"])
+
+
+def sasrec_loss(params: SASRec, batch, cfg: RecsysConfig,
+                impl: str = "torch"):
+    """Standard SASRec BCE: positive next item vs one sampled negative."""
+    h = params.tower(batch, cfg, impl)                        # (B, D)
+    pos = params.item_emb[batch["pos"].long()]
+    neg = params.item_emb[batch["neg"].long()]
+    s_pos = torch.einsum("bd,bd->b", h, pos)
+    s_neg = torch.einsum("bd,bd->b", h, neg)
+    ones = torch.ones_like(s_pos)
+    return _bce(s_pos, ones) + _bce(s_neg, 1.0 - ones)
+
+
+def bst_loss(params: BST, batch, cfg: RecsysConfig, impl: str = "torch"):
+    return _bce(params.score(batch, cfg, impl), batch["labels"])
+
+
+def mind_loss(params: MIND, batch, cfg: RecsysConfig, impl: str = "torch",
+              pow_p: float = 2.0):
+    """Label-aware attention over interests + sampled softmax."""
+    ints = params.interests(batch["seq"], cfg, impl)          # (B, K, D)
+    tgt = params.item_emb[batch["target"].long()]
+    att = torch.softmax(torch.einsum("bkd,bd->bk", ints, tgt) * pow_p,
+                        dim=1)
+    user = torch.einsum("bk,bkd->bd", att, ints)
+    return _sampled_softmax(user, params.item_emb, batch["target"],
+                            batch["neg"])
+
+
+LOSSES = {"wide-deep": wide_deep_loss, "sasrec": sasrec_loss,
+          "bst": bst_loss, "mind": mind_loss}
+
+
+def loss_fn(params: nn.Module, batch, cfg: RecsysConfig,
+            impl: str = "torch") -> torch.Tensor:
+    """The tower's training loss (a float32 scalar). The default
+    ``impl="torch"`` gathers with the bag's plain version, which autograd
+    differentiates; the kernel refuses inputs that need a gradient."""
+    get_arch_fns(cfg.arch_id)                  # raises on a non-tower arch
+    return LOSSES[cfg.arch_id.replace("-smoke", "")](params, batch, cfg,
+                                                     impl)
+
+
+def make_train_step(cfg: RecsysConfig, optimizer):
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    {"loss"})``: one gradient of :func:`loss_fn` and one optimizer
+    application. ``params`` is the reference's pytree
+    (:func:`param_tree`); the step updates it and the optimizer state IN
+    PLACE and returns them, every leaf a Parameter that requires grad."""
+    skeleton = get_arch_fns(cfg.arch_id).from_config(cfg, "meta")
+
+    def step(params, opt_state, batch):
+        params = trainable(params)
+        loss = loss_fn(bind_tree(skeleton, params), batch, cfg)
+        grads = leaf_grads(loss, params)
+        opt_state = optimizer.apply(grads, opt_state, params)
+        return params, opt_state, {"loss": loss.detach()}
+
+    return step

@@ -1,51 +1,80 @@
-"""LLaMA-family decoder LM: an ERCache user tower, and its prefill/decode.
+"""LLaMA-family decoder LM (dense + MoE): an ERCache user tower, its
+prefill/decode, and its training step.
 
-Twin of the serving part of ``repro/models/transformer.py``: token
-embedding, ``n_layers`` pre-norm decoder layers (RMSNorm, GQA attention with
-RoPE, SwiGLU FFN), a final RMSNorm, then either the mean-pooled hidden state
-through a projection head (the (B, user_embed_dim) representation ERCache
-stores; paper ref [24], Scaling User Modeling) or the unembedding to
-next-token logits (generation: :func:`prefill_step` fills a
-:class:`KVCache`, :func:`decode_step` appends one token per call).
+Twin of ``repro/models/transformer.py``: token embedding, ``n_layers``
+pre-norm decoder layers (RMSNorm, GQA attention with RoPE, a SwiGLU FFN
+and/or the MoE block of ``models/moe.py``), a final RMSNorm, then either
+the mean-pooled hidden state through a projection head (the (B,
+user_embed_dim) representation ERCache stores; paper ref [24], Scaling
+User Modeling) or the unembedding to next-token logits (generation:
+:func:`prefill_step` fills a :class:`KVCache`, :func:`decode_step` appends
+one token per call; training: :func:`lm_loss`, :func:`make_train_step`).
 
-The reference's stacked ``(L, ...)`` layer pytree and ``lax.scan`` become an
-``nn.ModuleList`` walked by a Python loop (remat has no meaning without a
-backward pass). Weights keep the reference's (in, out) layout, so every
-projection is ``x @ w``. Attention follows ``cfg.attn_impl`` through
-``layers.attention``: with ``"flash_kernel"`` and more than 2**20 query-key
-pairs it runs the hand-written ``flash_attention`` kernel (``backend="cuda"``)
-or its plain version (``backend="torch"``). A decode step attends through
-the hand-written ``decode_attention`` kernel (``backend="cuda"``) or the
-reference's ``collectives.decode_attention_local`` (``backend="torch"``).
-
-Dense configs only: the MoE FFN, ``lm_loss`` and the training step join
-with later slices.
+Layer parameters are held stacked ``(L, ...)`` as in the reference's
+pytree (``LMTower.stack``), and layer i reads the views ``[i]`` of one
+``torch.unbind`` a forward, so the optimizer sees the reference's leaves
+and shapes (Adafactor's update clipping takes one RMS over a stacked
+leaf) and checkpoints carry the reference's leaf names. The ``lax.scan``
+over layers becomes a Python loop; ``cfg.remat`` is
+``torch.utils.checkpoint`` around each layer while autograd records.
+Weights keep the reference's (in, out) layout, so every projection is
+``x @ w``. Attention follows ``cfg.attn_impl`` through
+``layers.attention``: with ``"flash_kernel"`` and more than 2**20
+query-key pairs it runs the hand-written ``flash_attention`` kernel
+(``backend="cuda"``) or its plain version (``backend="torch"``). A decode
+step attends through the hand-written ``decode_attention`` kernel
+(``backend="cuda"``) or the reference's
+``collectives.decode_attention_local`` (``backend="torch"``). Training
+runs the plain versions (``backend="torch"``): the hand kernels have no
+backward.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.training.optimizer import (global_norm, leaf_grads,
+                                            trainable, tree_leaves)
 
 BACKENDS = ("torch", "cuda")
+TOP_KEYS = ("embed", "final_norm", "unembed", "user_head")
 
 
 def _dtype(cfg: LMConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def layer_param_shapes(cfg: LMConfig) -> Dict[str, tuple]:
-    """name -> shape of one dense decoder layer (the reference's names)."""
+# ------------------------------------------------------------------- params
+def layer_param_shapes(cfg: LMConfig) -> Dict[str, Tuple[tuple, str]]:
+    """name -> (shape without the layer axis, init kind): the reference's
+    layer leaves, in its order."""
     D, F = cfg.d_model, cfg.d_ff
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return {"attn_norm": (D,), "wq": (D, Hq * hd), "wk": (D, Hkv * hd),
-            "wv": (D, Hkv * hd), "wo": (Hq * hd, D), "ffn_norm": (D,),
-            "wg": (D, F), "wu": (D, F), "wd": (F, D)}
+    shapes = {
+        "attn_norm": ((D,), "ones"),
+        "wq": ((D, Hq * hd), "fan_in"),
+        "wk": ((D, Hkv * hd), "fan_in"),
+        "wv": ((D, Hkv * hd), "fan_in"),
+        "wo": ((Hq * hd, D), "fan_in"),
+        "ffn_norm": ((D,), "ones"),
+    }
+    if cfg.moe is None or cfg.moe.dense_residual:
+        shapes.update({"wg": ((D, F), "fan_in"), "wu": ((D, F), "fan_in"),
+                       "wd": ((F, D), "fan_in")})
+    if cfg.moe is not None:
+        E = cfg.moe.n_experts
+        shapes.update({"router": ((D, E), "fan_in_f32"),
+                       "moe_wg": ((E, D, F), "fan_in"),
+                       "moe_wu": ((E, D, F), "fan_in"),
+                       "moe_wd": ((E, F, D), "fan_in")})
+    return shapes
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -53,60 +82,70 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-class DecoderLayer(nn.Module):
-    """One pre-norm layer: x + attn(norm(x)), then + swiglu(norm(x))."""
+class LayerView:
+    """Layer i of a tower: each attribute is the view ``[i]`` of the
+    stacked (L, ...) parameter of that name."""
 
-    def __init__(self, cfg: LMConfig, device=None):
-        super().__init__()
-        for name, shape in layer_param_shapes(cfg).items():
-            setattr(self, name, _param(shape, _dtype(cfg), device))
+    def __init__(self, stack, i: int):
+        self._stack, self._i = stack, i
 
-    def forward(self, x, cos, sin, cfg: LMConfig, backend: str,
-                kv_out=None):
-        """x (B, T, D) -> (B, T, D). With ``kv_out`` = (k, v) buffers of
-        shape (B, >= T, Hkv, hd), the post-RoPE k and the v of the T
-        positions are written into their first T rows."""
-        B, T, _ = x.shape
-        Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        h = L.rms_norm(x, self.attn_norm, cfg.norm_eps)
-        q = L.apply_rope((h @ self.wq).reshape(B, T, Hq, hd), cos, sin)
-        k = L.apply_rope((h @ self.wk).reshape(B, T, Hkv, hd), cos, sin)
-        v = (h @ self.wv).reshape(B, T, Hkv, hd)
-        if kv_out is not None:
-            kv_out[0][:, :T] = k
-            kv_out[1][:, :T] = v
-        o = L.attention(q, k, v, causal=True, impl=cfg.attn_impl,
-                        kv_chunk=cfg.kv_chunk, backend=backend)
-        x = x + o.reshape(B, T, Hq * hd) @ self.wo
-        h2 = L.rms_norm(x, self.ffn_norm, cfg.norm_eps)
-        return x + L.swiglu(h2, self.wg, self.wu, self.wd)
+    def __getattr__(self, name):
+        if name.startswith("_") or name not in self._stack:
+            raise AttributeError(name)
+        return self._stack[name][self._i]
 
 
 class LMTower(nn.Module):
-    """Embedding, decoder layers, final norm, user head and unembedding.
-    Parameters are frozen (serving)."""
+    """Embedding, the stacked decoder layers (``stack``: the reference's
+    ``params["layers"]``), final norm, user head and unembedding.
+    Parameters are frozen (serving) until a train step makes them
+    trainable."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
-        if cfg.moe is not None:
-            raise ValueError(f"{cfg.arch_id}: the MoE FFN is not ported yet")
         dt = _dtype(cfg)
+        self.n_layers = cfg.n_layers
         self.embed = _param((cfg.vocab, cfg.d_model), dt, device)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        self.stack = nn.ParameterDict({
+            name: _param((cfg.n_layers,) + shape,
+                         torch.float32 if kind == "fan_in_f32" else dt,
+                         device)
+            for name, (shape, kind) in layer_param_shapes(cfg).items()})
         self.final_norm = _param((cfg.d_model,), dt, device)
         self.user_head = _param((cfg.d_model, cfg.user_embed_dim), dt, device)
         self.unembed = _param((cfg.d_model, cfg.vocab), dt, device)
+
+    @property
+    def layers(self) -> List[LayerView]:
+        return [LayerView(self.stack, i) for i in range(self.n_layers)]
+
+
+def param_tree(model: LMTower) -> Dict:
+    """The reference's parameter pytree over the module's own Parameters
+    (no copy): top-level leaves and ``"layers"``, the stacked ones."""
+    return {**{k: getattr(model, k) for k in TOP_KEYS},
+            "layers": dict(model.stack.items())}
+
+
+def bind_tree(model: LMTower, tree: Dict) -> LMTower:
+    """Make the module's Parameters the tree's (which must be
+    Parameters): the module then computes with the tree's tensors."""
+    for k in TOP_KEYS:
+        setattr(model, k, tree[k])
+    for name, p in tree["layers"].items():
+        model.stack[name] = p
+    return model
 
 
 def init_params(generator: torch.Generator, cfg: LMConfig,
                 device="cuda") -> LMTower:
     """Random weights with the reference's shapes and scales
     (``transformer.py:init_params``): embedding N(0, 0.02^2), projections
-    N(0, 1/fan_in), user head and unembedding N(0, 1/d_model), norms 1;
-    drawn in float32 on the generator's device, cast to ``cfg.dtype`` on
-    ``device``. The unembedding is drawn last, so the tower's weights are
-    those of a generator that draws no unembedding."""
+    N(0, 1/fan_in) (``shape[-2]`` for a 3-D expert weight), the MoE router
+    in float32, user head and unembedding N(0, 1/d_model), norms 1; drawn
+    in float32 on the generator's device layer by layer, cast to
+    ``cfg.dtype`` on ``device``. The unembedding is drawn last, so the
+    tower's weights are those of a generator that draws no unembedding."""
     from repro_torch.core.cache import resolve_device
 
     device = resolve_device(device)
@@ -121,12 +160,14 @@ def init_params(generator: torch.Generator, cfg: LMConfig,
         fill(model.embed, 0.02)
         fill(model.user_head, cfg.d_model ** -0.5)
         model.final_norm.fill_(1.0)
-        for layer in model.layers:
-            for name, p in layer.named_parameters():
-                if p.dim() == 1:
+        for i in range(cfg.n_layers):
+            for name, (shape, kind) in layer_param_shapes(cfg).items():
+                p = model.stack[name][i]
+                if kind == "ones":
                     p.fill_(1.0)
                 else:
-                    fill(p, p.shape[0] ** -0.5)
+                    fill(p, shape[0] ** -0.5 if len(shape) == 2
+                         else shape[-2] ** -0.5)
         fill(model.unembed, cfg.d_model ** -0.5)
     return model
 
@@ -146,27 +187,80 @@ def load_jax_params(np_tree: Dict, cfg: LMConfig, device="cuda") -> LMTower:
             device=device, dtype=p.dtype))
 
     with torch.no_grad():
-        for name in ("embed", "final_norm", "user_head", "unembed"):
+        for name in TOP_KEYS:
             put(getattr(model, name), np_tree[name])
-        for i, layer in enumerate(model.layers):
-            for name in layer_param_shapes(cfg):
-                put(getattr(layer, name), np_tree["layers"][name][i])
+        for name in layer_param_shapes(cfg):
+            put(model.stack[name], np_tree["layers"][name])
     return model
 
 
+# ------------------------------------------------------------------ forward
+def _ffn_apply(lp, h, cfg: LMConfig):
+    """Dense SwiGLU and/or the MoE block -> (out, aux loss or None). MoE
+    first, then ``+ swiglu`` with ``dense_residual`` (Arctic)."""
+    if cfg.moe is None:
+        return L.swiglu(h, lp["wg"], lp["wu"], lp["wd"]), None
+    y, aux = moe_lib.moe_ffn(
+        h, {"router": lp["router"], "wg": lp["moe_wg"], "wu": lp["moe_wu"],
+            "wd": lp["moe_wd"]}, cfg.moe, group_size=cfg.moe_group_size)
+    if cfg.moe.dense_residual:
+        y = y + L.swiglu(h, lp["wg"], lp["wu"], lp["wd"])
+    return y, aux
+
+
+def _layer_apply(lp, x, cos, sin, cfg: LMConfig, backend: str,
+                 kv_out=None):
+    """One pre-norm layer over x (B, T, D): x + attn(norm(x)), then + the
+    FFN of norm(x). Returns (x, aux or None). With ``kv_out`` = (k, v)
+    buffers of shape (B, >= T, Hkv, hd), the post-RoPE k and the v of the
+    T positions are written into their first T rows."""
+    B, T, _ = x.shape
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = L.apply_rope((h @ lp["wq"]).reshape(B, T, Hq, hd), cos, sin)
+    k = L.apply_rope((h @ lp["wk"]).reshape(B, T, Hkv, hd), cos, sin)
+    v = (h @ lp["wv"]).reshape(B, T, Hkv, hd)
+    if kv_out is not None:
+        kv_out[0][:, :T] = k
+        kv_out[1][:, :T] = v
+    o = L.attention(q, k, v, causal=True, impl=cfg.attn_impl,
+                    kv_chunk=cfg.kv_chunk, backend=backend)
+    x = x + o.reshape(B, T, Hq * hd) @ lp["wo"]
+    f, aux = _ffn_apply(lp, L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps),
+                        cfg)
+    return x + f, aux
+
+
+def _layer_views(params) -> List[Dict[str, torch.Tensor]]:
+    """Per layer, ``{name: stacked[name][i]}`` from one ``unbind`` a
+    leaf (its backward stacks the L grads in one go)."""
+    views = {n: torch.unbind(p) for n, p in params.stack.items()}
+    return [{n: v[i] for n, v in views.items()}
+            for i in range(params.n_layers)]
+
+
 def _forward(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
-             backend: str, kv_out=None) -> torch.Tensor:
-    """The layers over tokens (B, S); with ``kv_out`` = (k, v) stacked
-    (L, B, >= S, Hkv, hd) buffers, layer i writes its k and v into
+             backend: str, kv_out=None):
+    """The layers over tokens (B, S) -> (final hidden, float32 aux loss
+    summed over layers). With ``kv_out`` = (k, v) stacked (L, B, >= S,
+    Hkv, hd) buffers, layer i writes its k and v into
     ``kv_out[.][i, :, :S]`` (no second copy of the cache)."""
     S = tokens.shape[1]
     x = params.embed[tokens.long()]
     cos, sin = L.rope_tables(torch.arange(S, device=tokens.device), cfg.hd,
                              cfg.rope_theta)
-    for i, layer in enumerate(params.layers):
-        x = layer(x, cos, sin, cfg, backend,
-                  None if kv_out is None else (kv_out[0][i], kv_out[1][i]))
-    return L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, lp in enumerate(_layer_views(params)):
+        kv = None if kv_out is None else (kv_out[0][i], kv_out[1][i])
+        if remat:
+            x, a = checkpoint(_layer_apply, lp, x, cos, sin, cfg, backend,
+                              kv, use_reentrant=False)
+        else:
+            x, a = _layer_apply(lp, x, cos, sin, cfg, backend, kv)
+        if a is not None:
+            aux = aux + a
+    return L.rms_norm(x, params.final_norm, cfg.norm_eps), aux
 
 
 def forward_hidden(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
@@ -174,12 +268,13 @@ def forward_hidden(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
     """tokens (B, S) -> final hidden (B, S, D): a plain embedding take, the
     layers in order, the final RMSNorm. With ``collect_kv`` returns
     ``(x, (k, v))``, k and v the stacked (L, B, S, Hkv, hd) post-RoPE keys
-    and values (the reference returns them beside its MoE aux loss)."""
+    and values (the reference returns them beside its MoE aux loss, which
+    :func:`lm_loss` reads)."""
     if not collect_kv:
-        return _forward(params, tokens, cfg, backend)
+        return _forward(params, tokens, cfg, backend)[0]
     kv = _kv_buffers(cfg, tokens.shape[0], tokens.shape[1], tokens.device,
                      torch.empty)
-    return _forward(params, tokens, cfg, backend, kv), kv
+    return _forward(params, tokens, cfg, backend, kv)[0], kv
 
 
 def logits_from_hidden(params: LMTower, x: torch.Tensor) -> torch.Tensor:
@@ -213,6 +308,84 @@ def _check_backend(backend: str, *tensors) -> None:
     if backend == "cuda" and not all(t.is_cuda for t in tensors):
         raise ValueError("backend='cuda' runs the CUDA kernels and needs "
                          "CUDA tensors; use backend='torch' on the CPU")
+
+
+# --------------------------------------------------------------------- loss
+def lm_loss(params: LMTower, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: LMConfig, backend: str = "torch"):
+    """Mean next-token CE (float32 reduction) + the weighted MoE aux loss;
+    labels -1 are masked. Returns (loss, {"ce", "aux"}). The default
+    ``backend="torch"`` runs the plain attention, which autograd
+    differentiates."""
+    x, aux = _forward(params, tokens, cfg, backend)
+    logits = logits_from_hidden(params, x).to(torch.float32)
+    mask = (labels >= 0).to(torch.float32)
+    lab = labels.clamp(min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lab[..., None])[..., 0]
+    ce = torch.sum((lse - gold) * mask) / mask.sum().clamp(min=1.0)
+    return ce + cfg.moe_aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+# --------------------------------------------------------------- train step
+class TrainState(NamedTuple):
+    params: Dict                # the reference's pytree (param_tree)
+    opt_state: Dict
+    step: torch.Tensor          # () int32
+
+
+def optimizer_grad_norm(grads) -> torch.Tensor:
+    """sqrt of the float32 sum of squares over every leaf."""
+    return global_norm(grads)
+
+
+def make_train_step(cfg: LMConfig, optimizer, backend: str = "torch"):
+    """Returns ``step(state, batch) -> (state, metrics)``: the batch
+    (``{"tokens": (B, S) int32, "labels": (B, S)}``) split
+    row-contiguously into ``cfg.microbatches`` chunks, the gradients
+    summed chunk by chunk in the parameter dtype and divided by their
+    count, the optimizer applied once. Metrics: ``loss`` and ``ce`` (means
+    over the chunks) and ``grad_norm`` (before the optimizer clips).
+
+    The step updates ``state.params`` and the optimizer state IN PLACE
+    and returns them (as a donated JAX state); every leaf becomes a
+    Parameter that requires grad (``optimizer.trainable``)."""
+    n_micro = max(cfg.microbatches, 1)
+    skeleton = LMTower(cfg, device="meta")
+
+    def step(state: TrainState, batch):
+        tokens, labels = batch["tokens"], batch["labels"]
+        B = tokens.shape[0]
+        if B % n_micro:
+            raise ValueError(f"batch {B} does not split into {n_micro} "
+                             "microbatches")
+        bm = B // n_micro
+        tree = trainable(state.params)
+        model = bind_tree(skeleton, tree)
+        gsum, losses, ces = None, [], []
+        for c in range(n_micro):
+            rows = slice(c * bm, (c + 1) * bm)
+            loss, metrics = lm_loss(model, tokens[rows], labels[rows], cfg,
+                                    backend)
+            grads = leaf_grads(loss, tree)
+            if gsum is None:
+                gsum = grads
+            else:
+                for acc, g in zip(tree_leaves(gsum), tree_leaves(grads)):
+                    acc.add_(g)
+            losses.append(loss.detach())
+            ces.append(metrics["ce"].detach())
+        grads = gsum
+        if n_micro > 1:
+            for g in tree_leaves(grads):
+                g.div_(n_micro)
+        grad_norm = optimizer_grad_norm(grads)
+        new_opt = optimizer.apply(grads, state.opt_state, tree)
+        metrics = {"loss": torch.stack(losses).sum() / n_micro,
+                   "ce": torch.stack(ces).mean(), "grad_norm": grad_norm}
+        return TrainState(tree, new_opt, state.step + 1), metrics
+
+    return step
 
 
 # ------------------------------------------------------------------- decode
@@ -255,7 +428,7 @@ def prefill_step(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
     with torch.no_grad():
         k, v = _kv_buffers(cfg, B, max_seq, tokens.device,
                            torch.zeros if max_seq > S else torch.empty)
-        x = _forward(params, tokens, cfg, backend, (k, v))
+        x = _forward(params, tokens, cfg, backend, (k, v))[0]
         logits = logits_from_hidden(params, x[:, -1])
     return logits, KVCache(k, v, torch.full((B,), S, dtype=torch.int32,
                                             device=tokens.device))
@@ -294,11 +467,11 @@ def decode_step(params: LMTower, cache: KVCache, tokens: torch.Tensor,
         # (B, hd/2) tables: apply_rope on (B, H, hd) is the reference's
         # _rope_single (one position per row, broadcast over heads)
         cos, sin = L.rope_tables(pos, hd, cfg.rope_theta)
-        for i, layer in enumerate(params.layers):
-            h = L.rms_norm(x, layer.attn_norm, cfg.norm_eps)
-            q = L.apply_rope((h @ layer.wq).reshape(B, Hq, hd), cos, sin)
-            k = L.apply_rope((h @ layer.wk).reshape(B, Hkv, hd), cos, sin)
-            v = (h @ layer.wv).reshape(B, Hkv, hd)
+        for i, lp in enumerate(_layer_views(params)):
+            h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            q = L.apply_rope((h @ lp["wq"]).reshape(B, Hq, hd), cos, sin)
+            k = L.apply_rope((h @ lp["wk"]).reshape(B, Hkv, hd), cos, sin)
+            v = (h @ lp["wv"]).reshape(B, Hkv, hd)
             kc, vc = cache.k[i], cache.v[i]
             kc[rows, at] = torch.where(keep, k.to(kc.dtype), kc[rows, at])
             vc[rows, at] = torch.where(keep, v.to(vc.dtype), vc[rows, at])
@@ -307,9 +480,13 @@ def decode_step(params: LMTower, cache: KVCache, tokens: torch.Tensor,
                 o = decode_attention(q, kc, vc, valid, bs=S)
             else:
                 o = decode_attention_local(q, kc, vc, kv_valid_len=valid)
-            x = x + o.reshape(B, Hq * hd) @ layer.wo
-            h2 = L.rms_norm(x, layer.ffn_norm, cfg.norm_eps)
-            x = x + L.swiglu(h2, layer.wg, layer.wu, layer.wd)
+            x = x + o.reshape(B, Hq * hd) @ lp["wo"]
+            h2 = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+            if cfg.moe is None:
+                x = x + L.swiglu(h2, lp["wg"], lp["wu"], lp["wd"])
+            else:
+                # B tokens route as one group of B: dropless up to 64
+                x = x + _ffn_apply(lp, h2[:, None, :], cfg)[0][:, 0, :]
         x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
         logits = logits_from_hidden(params, x)
     return logits, KVCache(cache.k, cache.v, cache.length + 1)

@@ -1453,3 +1453,41 @@ def test_restart_timeline_cuda_matches_torch(cuda, tmp_path):
             a, b = st[name][part], st_t[name][part]
             for x, y in zip(tensors_of(a), tensors_of(b), strict=True):
                 assert torch.equal(x, y), (name, part)
+
+
+# ------------------------------------------------------------ training
+# tinyllama-1.1b-smoke in float32, TF32 off: the card and the CPU sum the
+# same matmuls in other orders over two layers.
+TRAIN_RTOL = 1e-5
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One make_train_step (AdamW + cosine, two microbatches, remat) of
+    tinyllama-1.1b-smoke on the card and on the CPU from the same
+    weights: loss, ce and grad_norm, then every parameter after it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import lm_batches, lm_train_state
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True),
+                              microbatches=2)
+    opt = O.for_config(cfg, total_steps=10)
+    card = lm_train_state(cfg, opt, cuda)
+    cpu_params = O.tree_map(lambda t: t.detach().cpu().clone(), card.params)
+    cpu = T.TrainState(cpu_params, opt.init(cpu_params),
+                       torch.zeros((), dtype=torch.int32))
+    batch = next(lm_batches(cfg, 8, 64, device=cuda))
+    card, m_card = T.make_train_step(cfg, opt)(card, batch)
+    cpu, m_cpu = T.make_train_step(cfg, opt)(
+        cpu, {k: v.cpu() for k, v in batch.items()})
+    for k in ("loss", "ce", "grad_norm"):
+        np.testing.assert_allclose(float(m_card[k]), float(m_cpu[k]),
+                                   rtol=TRAIN_RTOL, err_msg=k)
+    assert card.params["embed"].is_cuda and int(card.step) == 1
+    for a, b in zip(O.tree_leaves(card.params), O.tree_leaves(cpu.params)):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), atol=1e-5, rtol=0)

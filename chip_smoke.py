@@ -202,6 +202,20 @@ Phases, each fatal on failure:
     ``torch.cuda.max_memory_allocated`` in GB, the card's name and power
     limit. Training runs the plain versions under autograd (the hand
     kernels have no backward and refuse inputs that need a gradient).
+17. **shards**: the bucket-sharded cache tier on the one card, every
+    shard on ``cuda:0`` through ``make_cache_mesh``. Phase 2's deployment
+    (32 cold + 32 warm steps) on 1, 2, 4 and 8 shards, eager and through
+    ``jit_serve_many`` (a chunk captured, one replayed, a third profiled):
+    counters, sources, ages, embeddings (a -0.0 may read +0.0 at N >= 2,
+    the reference's ``psum`` rule) and every plane and ring bit-identical
+    to phase 2's unsharded cuda run, compiled == eager, N dual-probe
+    launches a step; host ms a step eager and compiled, device ms of the
+    profiled chunk, the card's name and power limit per N. Phase 4's
+    deployment on 4 shards against its unsharded run. Phase 2's image
+    snapshotted from 4 shards, restored onto 1 and 8 shards plane for
+    plane and rehashed into 2**21 buckets on 4, where every live key
+    still hits; seconds and GB/s. ``run_serving(n_shards=4)`` against
+    ``n_shards=1``.
 
 The launchers and the examples serve through the compiled entry points
 (``jit_serve_many``, ``jit_serve_step``, ``jit_flush``), so phases 3, 5,
@@ -235,8 +249,10 @@ probes and the bag, the multi-model serve (phase 4) for the multi-model
 probe, the LM serve (phase 6, its cuda run) for ``flash_attention``, the
 probe shootout for ``cache_probe_perquery`` and the decode steps (phase 8,
 the cuda run) for ``decode_attention``; the counts are reset just before
-each path and read just after. Phases 9, 10 and 12–15 check their own
-counts; phase 16 checks the bag's launches on the trained tower.
+each path and read just after. The sharded runs of phase 17 add their
+dual and dual-multi launches, each counted over its own run. Phases 9,
+10 and 12–15 check their own counts; phase 16 checks the bag's launches
+on the trained tower.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and ends
 with ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -1297,6 +1313,7 @@ def _chunk_out(torch, out, ys, acc, t0, chunk, dim):
 
     out["chunks"].append(srv.fetch_counters(acc))
     out["step_ms"].append((time.perf_counter() - t0) * 1e3 / chunk)
+    out["emb"].append(ys[0])
     out["src"].append(ys[1])
     out["age"].append(ys[2])
     out["emb_finite"] &= bool(torch.isfinite(ys[0]).all())
@@ -1320,14 +1337,15 @@ def compare_runs(torch, a, b, what):
                                      "between backends")
 
 
-def serve_run(torch, backend, stream, chunk):
+def serve_run(torch, backend, stream, chunk, mesh=None):
     """Cold then warm chunk of serve_many + a read-back lookup of the last
-    batch, at full SASRec width. Returns what the run produced, the
-    server and its state."""
+    batch, at full SASRec width (on ``mesh``'s shards: phase 17). Returns
+    what the run produced, the server and its state."""
     from repro_torch.core import cache as C
     from repro_torch.core import server as srv
     from repro_torch.core.config import CacheConfig
     from repro_torch.core.hashing import Key64
+    from repro_torch.distributed.sharding import gather_cache
     from repro_torch.launch import serve as launch
 
     dev = torch.device("cuda")
@@ -1337,11 +1355,11 @@ def serve_run(torch, backend, stream, chunk):
                       ways=WAYS, value_dim=tcfg.user_embed_dim,
                       miss_budget_frac=0.75, backend=backend)
     server = srv.CachedEmbeddingServer(
-        cfg=cfg, tower_fn=tower_fn, miss_budget=int(BATCH * 0.75))
+        cfg=cfg, tower_fn=tower_fn, miss_budget=int(BATCH * 0.75), mesh=mesh)
     state = srv.init_server_state(cfg, writebuf_capacity=BATCH * 4,
-                                  device=dev)
+                                  device=dev, mesh=mesh)
     keys, feats, nows, _ = stream
-    out = {"chunks": [], "src": [], "age": [], "step_ms": [],
+    out = {"chunks": [], "emb": [], "src": [], "age": [], "step_ms": [],
            "emb_finite": True}
     for lo in range(0, 2 * chunk, chunk):
         sl = slice(lo, lo + chunk)
@@ -1354,8 +1372,8 @@ def serve_run(torch, backend, stream, chunk):
         last_emb = ys[0][-1]
     # read back the last batch: every computed row's write is acknowledged
     last = Key64(keys.hi[2 * chunk - 1], keys.lo[2 * chunk - 1])
-    rb = C.lookup(state.direct, last, nows[2 * chunk - 1], cfg.cache_ttl_ms,
-                  backend=backend)
+    rb = C.lookup(gather_cache(state.direct), last, nows[2 * chunk - 1],
+                  cfg.cache_ttl_ms, backend=backend)
     computed = out["src"][-1][-1] == srv.SRC_COMPUTED
     ids64 = (last.hi.long() << 32) | (last.lo.long() & 0xFFFFFFFF)
     _, inv, cnt = torch.unique(ids64, return_inverse=True,
@@ -1510,10 +1528,10 @@ def phase_entry(torch):
 MULTI_KERNELS = ("cache_probe_dual_multi",)
 
 
-def multi_run(torch, backend, stream, slots, chunk):
+def multi_run(torch, backend, stream, slots, chunk, mesh=None):
     """Cold then warm chunk of the multi-model serve_many at full SASRec
-    width over the 8-model registry. Returns what the run produced, the
-    server and its state."""
+    width over the 8-model registry (on ``mesh``'s shards: phase 17).
+    Returns what the run produced, the server and its state."""
     import dataclasses
 
     from repro_torch.core import server as srv
@@ -1528,11 +1546,12 @@ def multi_run(torch, backend, stream, slots, chunk):
             for c in multi_model_tier_configs(
                 value_dim=tcfg.user_embed_dim, n_buckets=MULTI_BUCKETS)]
     server = srv.MultiModelServer(cfgs=tuple(cfgs), tower_fn=tower_fn,
-                                  miss_budget=int(BATCH * 0.75), device=dev)
+                                  miss_budget=int(BATCH * 0.75), device=dev,
+                                  mesh=mesh)
     state = srv.init_multi_server_state(cfgs, writebuf_capacity=BATCH * 4,
-                                        device=dev)
+                                        device=dev, mesh=mesh)
     keys, feats, nows, _ = stream
-    out = {"chunks": [], "src": [], "age": [], "step_ms": [],
+    out = {"chunks": [], "emb": [], "src": [], "age": [], "step_ms": [],
            "emb_finite": True}
     for lo in range(0, 2 * chunk, chunk):
         sl = slice(lo, lo + chunk)
@@ -3859,6 +3878,310 @@ def phase_train(torch):
     serve_trained_sasrec(torch, *trained)
 
 
+# ------------------------------------------------------------ phase 17
+# The bucket-sharded cache tier on the one card: N shards of every table,
+# all on cuda:0 (make_cache_mesh's round-robin over the cards there are).
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARD_MULTI = 4
+SHARD_KERNELS = ("cache_probe_dual", "cache_probe_dual_multi")
+
+
+def bits_equal(torch, a, b, zero_sign=False):
+    """Bit for bit (float32 through an int32 view); with ``zero_sign`` a
+    -0.0 may read +0.0, the sharded probe's stated rule at N >= 2."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    same = a.view(torch.int32) == b.view(torch.int32)
+    if zero_sign:
+        same |= (a == 0) & (b == 0)
+    return bool(same.all())
+
+
+def state_tensors(state):
+    """Every tensor of a server state, its sharded tables gathered into
+    the global planes."""
+    from repro_torch.core.graph import tensors_of
+    from repro_torch.distributed.sharding import gather_cache
+
+    return tensors_of(state._replace(direct=gather_cache(state.direct),
+                                     failover=gather_cache(state.failover)))
+
+
+def compare_sharded(torch, base, run, what, zero_sign=False):
+    """Counters, sources, ages and embeddings of every chunk and every
+    state tensor (both tiers' planes, both rings, the budget) equal."""
+    if base["chunks"] != run["chunks"]:
+        raise AssertionError(f"{what}: counters differ")
+    for name in ("src", "age", "emb"):
+        for x, y in zip(base[name], run[name], strict=True):
+            if not bits_equal(torch, x, y, zero_sign and name == "emb"):
+                raise AssertionError(f"{what}: {name} differ")
+    for i, (x, y) in enumerate(zip(state_tensors(base["state"]),
+                                   state_tensors(run["state"]),
+                                   strict=True)):
+        if not bits_equal(torch, x, y):
+            raise AssertionError(f"{what}: state tensor {i} differs")
+
+
+def shard_compiled(torch, eager, stream, chunk, mesh):
+    """The eager run's deployment through ``jit_serve_many`` from a fresh
+    state: the first chunk captures (its eager first call is the result),
+    the second replays, and both equal the eager run in every output and
+    state tensor; then a third chunk's replay is profiled."""
+    from repro_torch.core import server as srv
+    from repro_torch.core.hashing import Key64
+
+    server, params = eager["server"], eager["params"]
+    state = srv.init_server_state(server.cfg, writebuf_capacity=BATCH * 4,
+                                  device=mesh.devices[0], mesh=mesh)
+    keys, feats, nows, _ = stream
+    out = {"chunks": [], "emb": [], "src": [], "age": [], "step_ms": [],
+           "emb_finite": True}
+    inputs = lambda sl: (Key64(keys.hi[sl], keys.lo[sl]),
+                         {k: v[sl] for k, v in feats.items()}, nows[sl])
+    for lo in (0, chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, acc, ys = server.jit_serve_many(
+            params, state, *inputs(slice(lo, lo + chunk)), flush_every=1)
+        _chunk_out(torch, out, ys, acc, t0, chunk,
+                   ys[0].shape[-1])
+    out["state"] = state
+    out["graphs"] = list(server.jit_serve_many.graphs.values())
+    compare_sharded(torch, eager, out,
+                    f"{mesh.n_shards} shards compiled vs eager")
+    got = phase_profile(
+        torch, f"profile shards {mesh.n_shards} compiled", chunk,
+        lambda: server.jit_serve_many(params, state,
+                                      *inputs(slice(2 * chunk, 3 * chunk)),
+                                      flush_every=1)[1])
+    out["device_ms"] = (None if got is None
+                        else sum(got[0].values()) / 1e3 / chunk)
+    return out
+
+
+def shard_snapshots(torch, run4, base, stream, chunk, smi):
+    """(d): snapshot phase 2's image from 4 shards, restore it onto 1 and
+    8 shards bit-exact plane for plane, and rehash it into 2**21 buckets
+    on 4 shards, where every live key still hits. Seconds and GB/s."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.core import cache as C
+    from repro_torch.core import server as srv
+    from repro_torch.core.graph import tensors_of
+    from repro_torch.core.hashing import Key64
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.ft import snapshot as snap
+    from repro_torch.launch.mesh import make_cache_mesh
+
+    dev = torch.device("cuda")
+    server4, state4 = run4["server"], run4["state"]
+    keys, _, nows, _ = stream
+    now = int(nows[2 * chunk - 1])
+    gb = sum(t.nbytes for t in tensors_of(srv.cache_image(state4))) / 1e9
+    base_image = tensors_of(srv.cache_image(base["state"]))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-shards-")
+    try:
+        d = str(Path(tmp) / "snap")
+        _, t_save = timed(lambda: snap.snapshot_server(
+            d, 2 * chunk, server4, state4, now, retain_last_k=1))
+        times = [f"snapshot from 4 shards {t_save:.2f} s "
+                 f"({gb / t_save:.2f} GB/s)"]
+        for n in (1, 8):
+            target = dataclasses.replace(server4, mesh=make_cache_mesh(n))
+            r, t = timed(lambda: snap.restore_server(
+                d, target, now_ms=now, writebuf_capacity=BATCH * 4,
+                device=dev))
+            if r.mode != "bitexact" or r.state.direct.n_shards != n:
+                raise AssertionError(f"restore onto {n} shards: {r.mode} "
+                                     f"{r.detail}")
+            for i, (x, y) in enumerate(zip(
+                    tensors_of(srv.cache_image(r.state)), base_image,
+                    strict=True)):
+                if not bits_equal(torch, x, y):
+                    raise AssertionError(f"restore onto {n} shards: image "
+                                         f"tensor {i} differs from phase "
+                                         "2's served tables")
+            times.append(f"bit-exact restore onto {n} shard(s) {t:.2f} s "
+                         f"({gb / t:.2f} GB/s)")
+            del r
+            torch.cuda.empty_cache()
+        grown = dataclasses.replace(
+            server4, cfg=dataclasses.replace(server4.cfg,
+                                             n_buckets=2 * N_BUCKETS))
+        g, t_grow = timed(lambda: snap.restore_server(
+            d, grown, now_ms=now, writebuf_capacity=BATCH * 4, device=dev))
+        if g.mode != "rehash" or g.state.direct.n_buckets != 2 * N_BUCKETS:
+            raise AssertionError(f"grown restore: {g.mode} {g.detail}")
+        times.append(f"rehash restore into {2 * N_BUCKETS} buckets on 4 "
+                     f"shards {t_grow:.2f} s ({gb / t_grow:.2f} GB/s read)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sl = slice(0, 2 * chunk)
+    u = torch.unique(torch.stack([keys.hi[sl].reshape(-1),
+                                  keys.lo[sl].reshape(-1)], 1), dim=0)
+    users = Key64(hi=u[:, 0].contiguous(), lo=u[:, 1].contiguous())
+    cfg = server4.cfg
+    ttl = (cfg.cache_ttl_ms, cfg.resolved_failover_relax_ttl_ms())
+    a = C.lookup_dual(base["state"].direct, base["state"].failover, users,
+                      now, *ttl, backend="cuda")
+    b = coll.sharded_lookup_dual(grown.mesh, g.state.direct,
+                                 g.state.failover, users, now, *ttl,
+                                 backend="cuda")
+    live = []
+    for tier, x, y in zip(("direct", "failover"), a, b):
+        if not (bool((y.hit | ~x.hit).all())
+                and bits_equal(torch, y.values[x.hit], x.values[x.hit],
+                               zero_sign=True)
+                and torch.equal(y.age_ms[x.hit], x.age_ms[x.hit])):
+            raise AssertionError(f"grown restore: a live {tier} key misses "
+                                 "or its value or age differs")
+        live.append(int(x.hit.sum()))
+    print(f"[shards snapshot] phase 2's image ({gb:.2f} GB): "
+          + "; ".join(times) + f"; {g.detail}; {live[0]} live direct and "
+          f"{live[1]} live failover keys of {users.hi.numel()} users all "
+          f"still hit on 4 shards; {smi}")
+
+
+def shard_entry(torch):
+    """(e): ``run_serving(n_shards=4)`` as a user calls it: the report of
+    ``n_shards=1`` but ``n_shards`` and the clock keys; 4 dual-probe
+    launches a step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+
+    reports, launches = {}, {}
+    for n in (1, 4):
+        ops.reset_launch_counts()
+        reports[n] = launch.run_serving(
+            arch="sasrec", minutes=8, users=400, backend="cuda", n_shards=n,
+            log=lambda line, n=n: print(f"[shards entry {n}] {line}"))
+        launches[n] = ops.launch_counts()["cache_probe_dual"]
+    one, four = reports[1], reports[4]
+    for k in set(one) - {"wall_s", "req_per_s", "n_shards"}:
+        if four[k] != one[k]:
+            raise AssertionError(f"run_serving(n_shards=4): {k} "
+                                 f"{four[k]} != {one[k]}")
+    if (four["n_shards"], launches[1], launches[4]) != (
+            4, one["batches"], 4 * one["batches"]):
+        raise AssertionError(f"run_serving(n_shards=4): launches {launches}"
+                             f" for {one['batches']} batches")
+    print(f"[shards entry] run_serving(n_shards=4) == n_shards=1 in every "
+          f"report key but n_shards and the clock ({one['batches']} "
+          f"batches, hit rate {four['hit_rate']:.4f}); dual launches "
+          f"{launches[1]} / {launches[4]}; wall {one['wall_s']} / "
+          f"{four['wall_s']} s")
+
+
+def phase_shards(torch, counts):
+    """Phase 17: the bucket-sharded cache tier on the card."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch.mesh import make_cache_mesh
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    chunk = 32
+    steps = 2 * chunk
+    _, _, _, features_of = launch.build_tower("sasrec", backend="torch",
+                                              device=dev, smoke=False)
+    stream = staged_stream(torch, launch, features_of, dev, 3 * chunk)
+    base = serve_run(torch, "cuda", stream, chunk)      # phase 2's run
+    path = {k: 0 for k in SHARD_KERNELS}
+    for n in SHARD_COUNTS:
+        mesh = make_cache_mesh(n)
+        if mesh.devices != (torch.device("cuda", 0),) * n:
+            raise AssertionError(f"mesh placement {mesh.devices}")
+        ops.reset_launch_counts()                # this path's window
+        run = serve_run(torch, "cuda", stream, chunk, mesh=mesh)
+        got = ops.launch_counts()
+        if got["cache_probe_dual"] != n * steps:
+            raise AssertionError(f"{n} shards: {got['cache_probe_dual']} "
+                                 f"dual launches for {steps} steps")
+        path["cache_probe_dual"] += got["cache_probe_dual"]
+        compare_sharded(torch, base, run, f"{n} shards vs unsharded",
+                        zero_sign=n > 1)
+        comp = shard_compiled(torch, run, stream, chunk, mesh)
+        (graph,) = comp["graphs"]
+        if graph.launches.get("cache_probe_dual") != n * chunk:
+            raise AssertionError(f"{n} shards: graph launches "
+                                 f"{graph.launches}")
+        dms = comp["device_ms"]
+        print(f"[shards {n}] phase 2's deployment on {n} shard(s) of "
+              f"cuda:0 ({N_BUCKETS // n} buckets a shard): {steps} steps "
+              f"bit-identical to the unsharded cuda run (counters, sources, "
+              f"ages, embeddings{' up to -0.0 -> +0.0' if n > 1 else ''}, "
+              f"every plane of both tiers, both rings, the budget); "
+              f"compiled == eager; host ms a step eager "
+              f"{run['step_ms'][1]:.3f} (warm), compiled "
+              f"{comp['step_ms'][1]:.3f} (replay; capture "
+              f"{graph.capture_s:.2f} s, pool {graph.pool_bytes / 1e6:.1f} "
+              f"MB); device ms a step "
+              + ("not measured" if dms is None else f"{dms:.3f}")
+              + f" (profiled compiled chunk); probe launches a step "
+              f"{graph.launches['cache_probe_dual'] // chunk}; {smi}")
+        if n == 4:
+            print("[shards compiled] 4 shards: the compiled chunks equal "
+                  "the eager ones in every output and state tensor")
+            shard_snapshots(torch, run, base, stream, chunk, smi)
+        del run, comp, graph
+        gc.collect()
+        torch.cuda.empty_cache()
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    slots = torch.as_tensor(
+        (np.arange(BATCH)[None, :] + np.arange(3 * chunk)[:, None]) % 8,
+        dtype=torch.int32, device=dev)
+    mbase = multi_run(torch, "cuda", stream, slots, chunk)   # phase 4's
+    ops.reset_launch_counts()                    # this path's window
+    mrun = multi_run(torch, "cuda", stream, slots, chunk,
+                     mesh=make_cache_mesh(SHARD_MULTI))
+    got = ops.launch_counts()["cache_probe_dual_multi"]
+    if got != SHARD_MULTI * steps:
+        raise AssertionError(f"multi on {SHARD_MULTI} shards: {got} "
+                             f"dual-multi launches for {steps} steps")
+    path["cache_probe_dual_multi"] += got
+    compare_sharded(torch, mbase, mrun, f"multi on {SHARD_MULTI} shards",
+                    zero_sign=True)
+    print(f"[shards multi] phase 4's deployment (8 models) on "
+          f"{SHARD_MULTI} shards: {steps} steps bit-identical to the "
+          f"unsharded cuda run (counters with every per-model vector, "
+          f"sources, ages, embeddings up to -0.0 -> +0.0, every plane of "
+          f"both stacked tiers, both rings, the budget); host ms a step "
+          f"eager {mrun['step_ms'][1]:.3f} (unsharded "
+          f"{mbase['step_ms'][1]:.3f}); dual-multi launches a step "
+          f"{got // steps}; {smi}")
+    del mbase, mrun
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_entry(torch)
+    for k, v in path.items():
+        counts[k] = counts.get(k, 0) + v
+    print(f"[shards] phase 17 launches {path} added to the kernels line; "
+          f"phase done in {time.perf_counter() - t_phase:.1f}s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3910,6 +4233,8 @@ def main() -> int:
     print(f"[time] restart phase done at {time.perf_counter() - t0:.1f}s")
     phase_train(torch)
     print(f"[time] train phase done at {time.perf_counter() - t0:.1f}s")
+    phase_shards(torch, counts)
+    print(f"[time] shards phase done at {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in sorted(counts):

@@ -1,9 +1,10 @@
 """ERCache core: a set-associative, TTL-validated embedding cache in device
 memory, as PyTorch functions on tensors.
 
-Twin of ``repro/core/cache.py``: the single-table functions and the
-stacked multi-model tier (the bucket-sharded tier joins with its slice).
-Layout and semantics are the reference's:
+Twin of ``repro/core/cache.py``: the single-table functions, the stacked
+multi-model tier and the bucket-sharding arithmetic of the sharded tier
+(:func:`shard_local_buckets`, :func:`route_buckets`). Layout and
+semantics are the reference's:
 
   * ``n_buckets`` buckets x ``ways`` slots; a lookup is one bucket row
     gather, which the ``cache_probe`` kernels exploit;
@@ -117,6 +118,44 @@ def flat_entries(state: CacheState):
             state.write_ts.reshape(n), state.last_access_ts.reshape(n), live)
 
 
+# ============================================================ bucket sharding
+# The scale-out tier (``distributed/collectives.py``): a cache's bucket axis
+# is split CONTIGUOUSLY over the shards of a cache mesh, shard s owning the
+# global buckets [s*nb_local, (s+1)*nb_local). A key's bucket is a pure
+# function of the key, so the bucket id alone names the owning shard and
+# every probe, insert and touch stays on it.
+
+
+def shard_local_buckets(n_buckets: int, n_shards: int) -> int:
+    """Per-shard bucket count of the contiguous split; the shard count must
+    divide the bucket count."""
+    if n_buckets % n_shards:
+        raise ValueError(f"n_buckets={n_buckets} not divisible by "
+                         f"n_shards={n_shards}")
+    return n_buckets // n_shards
+
+
+def route_buckets(bucket: torch.Tensor, shard: int, nb_global: int,
+                  nb_local: int):
+    """GLOBAL bucket ids -> (owned (B,) bool, local (B,) int32) on
+    ``shard``.
+
+    Plain and POOLED (``slot * Nb + within``) ids alike: the slab slot is
+    recovered by divmod and re-applied at the local bucket count, so a
+    stacked tier split along its bucket axis keeps its pooled flat-view
+    addressing on each shard. Negative ids (the touch ring's "no hit") are
+    owned by no shard; rows a shard does not own get an in-range dummy
+    index, which callers mask with ``owned``."""
+    ok = bucket >= 0
+    b = bucket.clamp(min=0).long()
+    slot = b // nb_global
+    within = b - slot * nb_global
+    local_w = within - shard * nb_local
+    owned = ok & (local_w >= 0) & (local_w < nb_local)
+    local = slot * nb_local + local_w.clamp(0, nb_local - 1)
+    return owned, local.to(torch.int32)
+
+
 def _check_backend(backend: str, *tensors) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"unknown cache backend: {backend!r}")
@@ -186,22 +225,27 @@ def lookup(state: CacheState, keys: Key64, now_ms, ttl_ms,
 
 def lookup_dual(direct: CacheState, failover: CacheState, keys: Key64,
                 now_ms, direct_ttl_ms, failover_ttl_ms,
-                backend: str = "cuda"):
+                backend: str = "cuda", buckets_d=None, buckets_f=None):
     """Probe the direct AND failover caches for the same keys.
 
     Returns (LookupResult_direct, LookupResult_failover). On the cuda
     backend this is ONE kernel launch (``cache_probe_dual``); on torch it
-    is two plain lookups, with the same results.
+    is two plain lookups, with the same results. ``buckets_d`` /
+    ``buckets_f`` override the hash-derived indices (a shard's local
+    buckets).
     """
     if backend != "cuda":
-        return (lookup(direct, keys, now_ms, direct_ttl_ms, backend=backend),
+        return (lookup(direct, keys, now_ms, direct_ttl_ms, backend=backend,
+                       buckets=buckets_d),
                 lookup(failover, keys, now_ms, failover_ttl_ms,
-                       backend=backend))
+                       backend=backend, buckets=buckets_f))
     from repro_torch.kernels import cache_probe as probe_kernels
 
     _check_backend(backend, direct.key_hi, failover.key_hi, keys.hi)
-    b_d = bucket_index(keys, direct.n_buckets)
-    b_f = bucket_index(keys, failover.n_buckets)
+    b_d = (bucket_index(keys, direct.n_buckets) if buckets_d is None
+           else buckets_d)
+    b_f = (bucket_index(keys, failover.n_buckets) if buckets_f is None
+           else buckets_f)
     (hd, vd, ad, wd), (hf, vf, af, wf) = probe_kernels.cache_probe_dual(
         direct.key_hi, direct.key_lo, direct.write_ts, direct.values,
         failover.key_hi, failover.key_lo, failover.write_ts, failover.values,
@@ -693,7 +737,7 @@ def _pooled_bucket_pair(direct: MultiCacheState, failover: MultiCacheState,
 
 def lookup_dual_multi(direct: MultiCacheState, failover: MultiCacheState,
                       policy: ModelPolicy, slots, keys: Key64, now_ms,
-                      backend: str = "cuda"):
+                      backend: str = "cuda", buckets_d=None, buckets_f=None):
     """Probe BOTH stacked tiers for a mixed-model batch: ``slots`` (B,)
     int32 assigns each query its model (in [0, M)), whose direct/failover
     TTLs validate it. On the cuda backend this is ONE kernel launch
@@ -702,10 +746,15 @@ def lookup_dual_multi(direct: MultiCacheState, failover: MultiCacheState,
     lookups on the pooled views, with the same results.
 
     Returns (LookupResult_direct, LookupResult_failover), buckets pooled.
+    ``buckets_d`` / ``buckets_f`` override the pooled indices (a shard's
+    local ones).
     """
     _check_backend(backend, direct.key_hi, failover.key_hi, keys.hi)
     slots = torch.as_tensor(slots, dtype=torch.int32, device=keys.hi.device)
-    b_d, b_f = _pooled_bucket_pair(direct, failover, policy, slots, keys)
+    if buckets_d is None:
+        b_d, b_f = _pooled_bucket_pair(direct, failover, policy, slots, keys)
+    else:
+        b_d, b_f = buckets_d, buckets_f
     fd, ff = direct.flat(), failover.flat()
     if backend == "cuda":
         from repro_torch.kernels import cache_probe as probe_kernels

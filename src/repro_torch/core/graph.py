@@ -23,6 +23,12 @@ Outputs are cloned out of the graph's memory pool, so the next replay
 cannot overwrite them. The kernel launches recorded while
 capturing are added to the ``kernels.ops`` counts on every replay.
 
+A bucket-sharded state (``distributed.sharding.ShardedCacheState``) is a
+pytree like any other: its shards' slabs are among the in-place tensors,
+so a graph's key holds every slab's address. A state whose tensors lie
+on more than one device (a mesh over distinct cards) raises
+``NotImplementedError``: one CUDA graph records the work of one card.
+
 A capture or replay that fails raises; nothing falls back to running
 ``fn`` eagerly. ``fn`` must leave every in-place tensor's storage where it
 was (:func:`write_back`) and must not sync with the host: an ``.item()``
@@ -209,6 +215,14 @@ class Compiled:
     def __call__(self, *args, **kwargs):
         bound, args = args[:self._inplace], args[self._inplace:]
         state = tensors_of(bound[-1])
+        devices = {t.device for t in state}
+        if len(devices) > 1:
+            raise NotImplementedError(
+                f"a compiled entry point runs one device's work, and this "
+                f"state lies on {len(devices)} devices "
+                f"({', '.join(sorted(map(str, devices)))}): a mesh over "
+                "distinct cards is not captured as a CUDA graph; call the "
+                "eager serve_step / serve_many / flush instead")
         if not state or not state[0].is_cuda:
             return self._assemble(bound, self._fn(*bound, *args, **kwargs))
         dev = state[0].device

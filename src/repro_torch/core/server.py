@@ -47,7 +47,16 @@ compiled fault schedule (``ft/chaos.py``; a bucket blackout, an outage,
 failures and bounded retries inside the admission budget), and
 ``serve_many`` takes the whole (S, ...) schedule, whose flush stalls
 predicate each folded flush on the device and whose ring overflows are
-counted. The reference's ``mesh=`` argument waits for the sharding slice.
+counted.
+
+Both servers take the reference's ``mesh`` (a ``launch.mesh.CacheMesh``):
+the tables are split by bucket range over its shards
+(``init_server_state(mesh=...)`` / ``distributed.sharding``), each step
+probes every shard (one probe launch a shard on the cuda backend) and
+combines the results, and the flush writes each shard's own records
+(``distributed/collectives.py``). Every output and plane equals the
+unsharded server's, but a stored -0.0 value reads back +0.0 on two or
+more shards, as in the reference.
 """
 from __future__ import annotations
 
@@ -65,6 +74,8 @@ from repro_torch.core.cache import CacheState
 from repro_torch.core.config import CacheConfig
 from repro_torch.core.hashing import Key64
 from repro_torch.core.writebuf import TouchBuffer, WriteBuffer
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as shard_lib
 
 # Provenance codes (per request)
 SRC_DIRECT = 0
@@ -91,20 +102,36 @@ class ServeResult(NamedTuple):
     stats: dict               # 0-d counter tensors
 
 
+def _tables(init: Callable, n_buckets: int, device, mesh):
+    """One table: ``init(n_buckets, device)``, or with a mesh one slab a
+    shard, each allocated on its shard's device."""
+    if mesh is None:
+        return init(n_buckets, device)
+    return shard_lib.init_sharded(init, n_buckets, mesh)
+
+
 def init_server_state(cfg: CacheConfig, dtype=torch.float32,
                       writebuf_capacity: int = 4096,
                       touchbuf_capacity: Optional[int] = None,
-                      device="cuda") -> ServerState:
+                      device="cuda", mesh=None) -> ServerState:
     """Allocate both caches (the failover sized by its own knobs) and the
-    write and touch rings on ``device``."""
+    write and touch rings on ``device``. ``mesh`` splits both tables by
+    bucket range over its shards and puts the rings and the budget on its
+    first device, which ``device`` must agree with (the shard count must
+    divide both bucket counts)."""
     if touchbuf_capacity is None:
         touchbuf_capacity = writebuf_capacity
+    if mesh is not None:
+        shard_lib.validate_cache_sharding(
+            mesh, {cfg.n_buckets, cfg.resolved_failover_n_buckets()})
+        device = shard_lib.mesh_device(device, mesh)
     return ServerState(
-        direct=cache_lib.init_cache(cfg.n_buckets, cfg.ways, cfg.value_dim,
-                                    dtype, device),
-        failover=cache_lib.init_cache(cfg.resolved_failover_n_buckets(),
-                                      cfg.resolved_failover_ways(),
-                                      cfg.value_dim, dtype, device),
+        direct=_tables(lambda nb, dev: cache_lib.init_cache(
+            nb, cfg.ways, cfg.value_dim, dtype, dev), cfg.n_buckets,
+            device, mesh),
+        failover=_tables(lambda nb, dev: cache_lib.init_cache(
+            nb, cfg.resolved_failover_ways(), cfg.value_dim, dtype, dev),
+            cfg.resolved_failover_n_buckets(), device, mesh),
         writebuf=wb_lib.init_writebuf(writebuf_capacity, cfg.value_dim,
                                       dtype, device),
         touchbuf=wb_lib.init_touchbuf(touchbuf_capacity, device),
@@ -530,6 +557,9 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
     tower_fn: Callable
     miss_budget: int
     fallback_value: float = 0.0   # default embedding on total fallback
+    # The bucket-sharded tier: a launch.mesh.CacheMesh whose shards hold
+    # the state's tables (init_server_state(mesh=...)); None: unsharded.
+    mesh: Any = None
 
     @property
     def _admission(self) -> bool:
@@ -578,9 +608,15 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
         # (1) direct + failover probe: ONE launch. With admission control
         # the failover validates at the RELAXED TTL and the strict hit set
         # is recovered from the probe's age below.
-        direct, fo = cache_lib.lookup_dual(
-            state.direct, state.failover, keys, now, cfg.cache_ttl_ms,
-            cfg.resolved_failover_relax_ttl_ms(), backend=cfg.backend)
+        if self.mesh is not None:
+            direct, fo = coll.sharded_lookup_dual(
+                self.mesh, state.direct, state.failover, keys, now,
+                cfg.cache_ttl_ms, cfg.resolved_failover_relax_ttl_ms(),
+                backend=cfg.backend)
+        else:
+            direct, fo = cache_lib.lookup_dual(
+                state.direct, state.failover, keys, now, cfg.cache_ttl_ms,
+                cfg.resolved_failover_relax_ttl_ms(), backend=cfg.backend)
 
         # (1a) bucket-range blackout, before every downstream stage
         write_drop = None
@@ -703,12 +739,12 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
         if self.cfg.failover_write == "off":
             wb_lib.flush(state.writebuf, state.direct, now_ms,
                          self.cfg.cache_ttl_ms, evict_lru=lru, touchbuf=tb,
-                         enabled=enabled)
+                         enabled=enabled, mesh=self.mesh)
         else:
             wb_lib.flush_dual(state.writebuf, state.direct, state.failover,
                               now_ms, self.cfg.cache_ttl_ms,
                               self.cfg.failover_ttl_ms, evict_lru=lru,
-                              touchbuf=tb, enabled=enabled)
+                              touchbuf=tb, enabled=enabled, mesh=self.mesh)
         return state
 
 
@@ -724,25 +760,34 @@ class MultiServerState(NamedTuple):
 def init_multi_server_state(cfgs: Sequence[CacheConfig], dtype=torch.float32,
                             writebuf_capacity: int = 4096,
                             touchbuf_capacity: Optional[int] = None,
-                            device="cuda") -> MultiServerState:
+                            device="cuda", mesh=None) -> MultiServerState:
     """Allocate the stacked tier of an ordered model registry on
     ``device``. Every model keeps its own direct/failover capacity (bucket
     masks); value_dim must agree across the tier, and heterogeneous
-    ``ways`` are normalized up to the tier maximum."""
+    ``ways`` are normalized up to the tier maximum. ``mesh`` splits both
+    stacks along their bucket axis (every model's range) as in
+    :func:`init_server_state`."""
     dims = {c.value_dim for c in cfgs}
     if len(dims) != 1:
         raise ValueError(f"tier needs one value_dim, got {sorted(dims)}")
     dim = dims.pop()
     if touchbuf_capacity is None:
         touchbuf_capacity = writebuf_capacity
+    nbs_d = [c.n_buckets for c in cfgs]
+    nbs_f = [c.resolved_failover_n_buckets() for c in cfgs]
+    if mesh is not None:
+        shard_lib.validate_cache_sharding(mesh, {max(nbs_d), max(nbs_f)})
+        device = shard_lib.mesh_device(device, mesh)
+
+    def stack(nbs, ways):
+        # a shard's slab holds every model's local bucket range
+        return _tables(lambda nb, dev: cache_lib.init_multi_cache(
+            nbs if mesh is None else [nb] * len(nbs), ways, dim, dtype, dev),
+            max(nbs), device, mesh)
+
     return MultiServerState(
-        direct=cache_lib.init_multi_cache(
-            [c.n_buckets for c in cfgs], max(c.ways for c in cfgs), dim,
-            dtype, device),
-        failover=cache_lib.init_multi_cache(
-            [c.resolved_failover_n_buckets() for c in cfgs],
-            max(c.resolved_failover_ways() for c in cfgs), dim, dtype,
-            device),
+        direct=stack(nbs_d, max(c.ways for c in cfgs)),
+        failover=stack(nbs_f, max(c.resolved_failover_ways() for c in cfgs)),
         writebuf=wb_lib.init_writebuf(writebuf_capacity, dim, dtype, device),
         touchbuf=wb_lib.init_touchbuf(touchbuf_capacity, device),
         budget=rl_lib.init_infer_budget(cfgs, device))
@@ -768,8 +813,15 @@ class MultiModelServer(_CompiledEntryPoints):
     # "torch" | "cuda"; None resolves from the configs, which must agree
     backend: Optional[str] = None
     device: Any = "cuda"
+    # the bucket-sharded tier, as CachedEmbeddingServer.mesh; the policy
+    # tables then live on its first device, which ``device`` must agree
+    # with
+    mesh: Any = None
 
     def __post_init__(self) -> None:
+        if self.mesh is not None:
+            object.__setattr__(self, "device",
+                               shard_lib.mesh_device(self.device, self.mesh))
         if self.backend is None:
             backends = {c.backend for c in self.cfgs}
             if len(backends) != 1:
@@ -839,9 +891,14 @@ class MultiModelServer(_CompiledEntryPoints):
             failure_mask = failure_mask | chaos.fail
 
         # (1) direct + failover probe of ALL models: ONE launch
-        direct, fo = cache_lib.lookup_dual_multi(
-            state.direct, state.failover, self._probe_policy, slots, keys,
-            now, backend=self.backend)
+        if self.mesh is not None:
+            direct, fo = coll.sharded_lookup_dual_multi(
+                self.mesh, state.direct, state.failover, self._probe_policy,
+                slots, keys, now, backend=self.backend)
+        else:
+            direct, fo = cache_lib.lookup_dual_multi(
+                state.direct, state.failover, self._probe_policy, slots,
+                keys, now, backend=self.backend)
 
         # (1a) pooled-bucket-range blackout, before every downstream stage
         write_drop = None
@@ -966,24 +1023,36 @@ class MultiModelServer(_CompiledEntryPoints):
         wb_lib.flush_dual_multi(
             state.writebuf, state.direct, state.failover, self.policy,
             now_ms, touchbuf=state.touchbuf if self._any_touch else None,
-            enabled=enabled)
+            enabled=enabled, mesh=self.mesh)
         return state
 
 
 def cache_image(state: ServerState) -> dict:
     """The durable subset of a server state (what a warm-restart snapshot
     stores): both cache tables plus the admission token bucket. Works on
-    :class:`ServerState` and :class:`MultiServerState` alike."""
-    return {"direct": state.direct, "failover": state.failover,
+    :class:`ServerState` and :class:`MultiServerState` alike; a
+    bucket-sharded table is gathered into its global planes (new tensors
+    on the first shard's device), so the image does not depend on the
+    shard count."""
+    return {"direct": shard_lib.gather_cache(state.direct),
+            "failover": shard_lib.gather_cache(state.failover),
             "budget": state.budget}
 
 
 def with_cache_image(state, image: dict):
     """Graft a durable image onto a freshly initialized state of the SAME
     shape; the rings keep their empty allocation (a snapshot drains them
-    first, so empty rings are the faithful restore)."""
-    return state._replace(direct=image["direct"],
-                          failover=image["failover"],
+    first, so empty rings are the faithful restore). A global image
+    grafted onto a sharded state is split over the state's shards."""
+    def like(tier, img):
+        if (isinstance(tier, shard_lib.ShardedCacheState)
+                and not isinstance(img, shard_lib.ShardedCacheState)):
+            return shard_lib.split_cache(
+                img, [s.key_hi.device for s in tier.shards])
+        return img
+
+    return state._replace(direct=like(state.direct, image["direct"]),
+                          failover=like(state.failover, image["failover"]),
                           budget=image["budget"])
 
 

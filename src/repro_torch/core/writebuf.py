@@ -11,7 +11,9 @@ Unlike the reference, which returns new buffers, :func:`append`,
 :func:`touch_append` and the flushes update the rings (and the flushes the
 cache tables) IN PLACE and return the same objects. Coordinates in the
 touch ring stay valid until the flush because only the flush writes the
-tables.
+tables. Each flush takes the reference's ``mesh``: a bucket-sharded tier
+(``distributed/collectives.py``) is flushed shard by shard, with the same
+results.
 """
 from __future__ import annotations
 
@@ -224,14 +226,21 @@ def _apply_touches_dual(buf: Optional[TouchBuffer],
 
 def flush(buf: WriteBuffer, state: cache_lib.CacheState, now_ms, ttl_ms,
           evict_lru: bool = False, touchbuf: Optional[TouchBuffer] = None,
-          enabled: Optional[torch.Tensor] = None
+          enabled: Optional[torch.Tensor] = None, mesh=None
           ) -> Tuple[cache_lib.CacheState, WriteBuffer,
                      Optional[TouchBuffer]]:
     """Apply all buffered records to one cache, IN PLACE, in append order
     (so last-writer-wins follows the true write stream), after
     scatter-maxing ``touchbuf``'s DIRECT-cache bumps; reset the ring(s).
     ``evict_lru`` selects the victim order (paper §3.3); ``enabled`` (0-d
-    bool, None: True) predicates the whole flush."""
+    bool, None: True) predicates the whole flush; ``mesh`` routes it to a
+    bucket-sharded table, bit for bit."""
+    if mesh is not None:
+        from repro_torch.distributed import collectives as coll
+
+        return coll.sharded_flush(mesh, buf, state, now_ms, ttl_ms,
+                                  evict_lru=evict_lru, touchbuf=touchbuf,
+                                  enabled=enabled)
     if touchbuf is not None:
         _apply_touches(touchbuf, state, touchbuf.bucket_d, touchbuf.way_d,
                        enabled)
@@ -248,13 +257,22 @@ def flush_dual(buf: WriteBuffer, direct: cache_lib.CacheState,
                failover: cache_lib.CacheState, now_ms,
                direct_ttl_ms, failover_ttl_ms, evict_lru: bool = False,
                touchbuf: Optional[TouchBuffer] = None,
-               enabled: Optional[torch.Tensor] = None
+               enabled: Optional[torch.Tensor] = None, mesh=None
                ) -> Tuple[cache_lib.CacheState, cache_lib.CacheState,
                           WriteBuffer, Optional[TouchBuffer]]:
     """Flush the ring into BOTH caches, IN PLACE, with ONE shared insert
     plan (``cache.insert_dual``): per cache the same as two :func:`flush`
     calls with the respective TTLs. The touch ring's bumps land in both
-    recency planes first. ``enabled`` as in :func:`flush`."""
+    recency planes first. ``enabled`` and ``mesh`` as in :func:`flush`
+    (the sharded flush runs the two inserts apart: a record's two rows
+    may live on different shards)."""
+    if mesh is not None:
+        from repro_torch.distributed import collectives as coll
+
+        return coll.sharded_flush_dual(mesh, buf, direct, failover, now_ms,
+                                       direct_ttl_ms, failover_ttl_ms,
+                                       evict_lru=evict_lru,
+                                       touchbuf=touchbuf, enabled=enabled)
     direct, failover, touchbuf = _apply_touches_dual(touchbuf, direct,
                                                      failover, enabled)
     keys, values, ts, live, _ = _ring_order(buf)
@@ -270,7 +288,7 @@ def flush_dual_multi(buf: WriteBuffer, direct: cache_lib.MultiCacheState,
                      failover: cache_lib.MultiCacheState,
                      policy: cache_lib.ModelPolicy, now_ms,
                      touchbuf: Optional[TouchBuffer] = None,
-                     enabled: Optional[torch.Tensor] = None
+                     enabled: Optional[torch.Tensor] = None, mesh=None
                      ) -> Tuple[cache_lib.MultiCacheState,
                                 cache_lib.MultiCacheState, WriteBuffer,
                                 Optional[TouchBuffer]]:
@@ -278,8 +296,15 @@ def flush_dual_multi(buf: WriteBuffer, direct: cache_lib.MultiCacheState,
     shared insert plan (``cache.insert_dual_multi``): each record under
     its model's TTLs and eviction policy, the dedupe salted by model slot.
     The touch ring holds POOLED (M*Nb) coordinates, so its bumps land on
-    the flat views of the stacked recency planes first. ``enabled`` as in
-    :func:`flush`."""
+    the flat views of the stacked recency planes first. ``enabled`` and
+    ``mesh`` as in :func:`flush`."""
+    if mesh is not None:
+        from repro_torch.distributed import collectives as coll
+
+        return coll.sharded_flush_dual_multi(mesh, buf, direct, failover,
+                                             policy, now_ms,
+                                             touchbuf=touchbuf,
+                                             enabled=enabled)
     if touchbuf is not None:
         _apply_touches_dual(touchbuf, direct.flat(), failover.flat(),
                             enabled)

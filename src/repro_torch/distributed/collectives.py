@@ -1,15 +1,43 @@
-"""Single-device decode attention: the reference the sharded decode wraps.
+"""Collectives of the port: the single-device decode reference and the
+bucket-sharded cache tier.
 
-Twin of ``_local_decode_partials`` and ``decode_attention_local`` of
-``repro/distributed/collectives.py``: one query token per batch row
-against a KV cache, as plain torch. ``transformer.decode_step`` attends
-through :func:`decode_attention_local` with ``backend="torch"``. The query
-heads are grouped as (B, Hkv, n_rep, hd) against the (B, S, Hkv, hd) cache
-without repeating it, so a long cache never grows n_rep-fold. The
-sequence-sharded combine (``seq_sharded_decode_attention``) joins with the
-scale-out slice; :func:`combine_decode_partials` is its merge, which the
-split decode kernel (``csrc/decode_attention.cu``) runs across the splits
-of one card.
+Twin of ``repro/distributed/collectives.py``:
+
+* ``_local_decode_partials`` and ``decode_attention_local``: one query
+  token per batch row against a KV cache, as plain torch.
+  ``transformer.decode_step`` attends through :func:`decode_attention_local`
+  with ``backend="torch"``. The query heads are grouped as (B, Hkv, n_rep,
+  hd) against the (B, S, Hkv, hd) cache without repeating it, so a long
+  cache never grows n_rep-fold. The sequence-sharded combine
+  (``seq_sharded_decode_attention``) joins with the model-axis sharding;
+  :func:`combine_decode_partials` is its merge, which the split decode
+  kernel (``csrc/decode_attention.cu``) runs across the splits of one card.
+* The cache half: the probe and the flush of a cache tier split by bucket
+  range over the shards of a :class:`~repro_torch.launch.mesh.CacheMesh`
+  (``distributed/sharding.py`` places the tables). The reference runs each
+  under one ``shard_map``; here one controller loops over the shards in
+  order, each shard's work on its own device:
+
+  - the probe runs the unsharded probe on every shard's slabs at the
+    shard's LOCAL buckets (one ``cache_probe_dual`` or
+    ``cache_probe_dual_multi`` launch a shard on the cuda backend, the
+    reference's single-launch contract applied to each device), then
+    :func:`_combine_probe` masks each result to the rows the shard owns
+    and sums them over the shards in shard order on the first device,
+    the counterpart of the reference's one-hot ``psum``;
+  - the flush needs no combine: each shard applies the ordinary insert
+    plan to the ring records it owns, in place on its slab.
+
+  Every output and plane equals the unsharded path's bit for bit, with
+  one exception the reference has too: its ``psum`` over two or more
+  devices adds the owner's -0.0 to the other shards' +0.0, so a stored
+  -0.0 value reads back +0.0 at N >= 2 (N = 1 and the unsharded probe
+  keep the sign). :func:`_combine_probe` sums the same way.
+
+The reference's ``cache_pspec`` becomes :func:`bucket_axis`: the bucket
+axis is axis 0 of a ``CacheState`` leaf and axis 1 (behind the model axis)
+of a ``MultiCacheState`` leaf. ``distributed/compat.py``, the reference's
+``shard_map`` shim across JAX versions, has no counterpart.
 """
 from __future__ import annotations
 
@@ -73,3 +101,238 @@ def combine_decode_partials(m: torch.Tensor, l: torch.Tensor,
     l_g = (l * corr).sum(dim=0)
     acc_g = (acc * corr[..., None]).sum(dim=0)
     return (acc_g / torch.clamp(l_g[..., None], min=1e-30)).to(dtype)
+
+
+# ============================================================ cache tier
+# Imported here, below the decode half: ``kernels/ref.py`` imports that
+# half, and ``core/cache.py`` imports ``kernels/ref.py``.
+from repro_torch.core import cache as cache_lib  # noqa: E402
+from repro_torch.core import writebuf as wb_lib  # noqa: E402
+from repro_torch.core.hashing import Key64, bucket_index  # noqa: E402
+from repro_torch.launch.mesh import SHARD_AXIS  # noqa: E402
+
+
+def bucket_axis(state) -> int:
+    """The axis a table's leaves are split along: the bucket axis, 0 of a
+    ``CacheState`` leaf, 1 (behind the model axis) of a
+    ``MultiCacheState`` leaf."""
+    return 1 if isinstance(state, cache_lib.MultiCacheState) else 0
+
+
+def _on(x, dev: torch.device):
+    """A tensor, or a NamedTuple of tensors, on ``dev`` (no copy where it
+    is already there)."""
+    if isinstance(x, torch.Tensor):
+        return x if x.device == dev else x.to(dev)
+    if isinstance(x, tuple):
+        return type(x)(*(_on(t, dev) for t in x))
+    return x
+
+
+def _combine_probe(results, owned, global_bucket: torch.Tensor
+                   ) -> cache_lib.LookupResult:
+    """Per-shard probe results -> one result on the first shard's device.
+    At most one shard owns a query's bucket, so masking each shard's
+    result to its owned hits and summing over the shards in shard order
+    reassembles the owner's row. The miss sentinels (age and way -1,
+    zero values) are imposed after the sum; the reported bucket is the
+    GLOBAL one, so the touch ring stays shard-agnostic. With one shard the
+    masked result is returned as it is (a stored -0.0 keeps its sign);
+    with more, the sum turns it into +0.0, as the reference's ``psum``."""
+    dev = global_bucket.device
+    total = None
+    for res, own in zip(results, owned):
+        hitc = _on(res.hit & own, dev)
+        part = (hitc,
+                torch.where(hitc[:, None], _on(res.values, dev),
+                            torch.zeros((), dtype=res.values.dtype,
+                                        device=dev)),
+                torch.where(hitc, _on(res.age_ms, dev), 0),
+                torch.where(hitc, _on(res.way, dev), 0))
+        total = part if total is None else (
+            total[0] | part[0], total[1] + part[1], total[2] + part[2],
+            total[3] + part[3])
+    hit, values, age, way = total
+    return cache_lib.LookupResult(
+        hit=hit, values=values, age_ms=torch.where(hit, age, -1),
+        bucket=global_bucket, way=torch.where(hit, way, -1))
+
+
+def _shard_keys(keys: Key64, dev: torch.device) -> Key64:
+    return Key64(hi=_on(keys.hi, dev), lo=_on(keys.lo, dev))
+
+
+def _shards(mesh, tier):
+    """(shard count, local buckets) of a table split over ``mesh``."""
+    n = mesh.shape[SHARD_AXIS]
+    if tier.n_shards != n:
+        raise ValueError(f"a table of {tier.n_shards} shards on a mesh of "
+                         f"{n}")
+    return n, cache_lib.shard_local_buckets(tier.n_buckets, n)
+
+
+def _probe_shards(mesh, direct, failover, g_d, g_f, probe):
+    """Probe every shard at its local buckets: ``probe(d, f, dev, loc_d,
+    loc_f)`` gives one shard's (direct, failover) results; the combine
+    reassembles them with the global buckets ``g_d`` / ``g_f``."""
+    _, nbl_d = _shards(mesh, direct)
+    _, nbl_f = _shards(mesh, failover)
+    res_d, res_f, own_d, own_f = [], [], [], []
+    for s, (d, f) in enumerate(zip(direct.shards, failover.shards)):
+        dev = d.key_hi.device
+        od, ld = cache_lib.route_buckets(_on(g_d, dev), s,
+                                         direct.n_buckets, nbl_d)
+        of, lf = cache_lib.route_buckets(_on(g_f, dev), s,
+                                         failover.n_buckets, nbl_f)
+        rd, rf = probe(d, f, dev, ld, lf)
+        res_d.append(rd)
+        res_f.append(rf)
+        own_d.append(od)
+        own_f.append(of)
+    return (_combine_probe(res_d, own_d, g_d),
+            _combine_probe(res_f, own_f, g_f))
+
+
+def sharded_lookup_dual(mesh, direct, failover, keys: Key64, now_ms,
+                        direct_ttl_ms, failover_ttl_ms, *,
+                        backend: str = "cuda"):
+    """``cache.lookup_dual`` across a bucket-sharded pair of tables
+    (``ShardedCacheState``): one dual probe a shard at its local buckets
+    (one ``cache_probe_dual`` launch a shard on the cuda backend), then
+    the combine. Returns (LookupResult_direct, LookupResult_failover) on
+    the first shard's device, buckets global."""
+    return _probe_shards(
+        mesh, direct, failover, bucket_index(keys, direct.n_buckets),
+        bucket_index(keys, failover.n_buckets),
+        lambda d, f, dev, ld, lf: cache_lib.lookup_dual(
+            d, f, _shard_keys(keys, dev), _on(now_ms, dev), direct_ttl_ms,
+            failover_ttl_ms, backend=backend, buckets_d=ld, buckets_f=lf))
+
+
+def sharded_lookup_dual_multi(mesh, direct, failover,
+                              policy: cache_lib.ModelPolicy, slots,
+                              keys: Key64, now_ms, *, backend: str = "cuda"):
+    """``cache.lookup_dual_multi`` across bucket-sharded stacked tiers:
+    the pooled bucket ids are computed once on the first device (a pure
+    function of slot, key and policy), routed to each shard and probed
+    against the shard's local pooled view (one ``cache_probe_dual_multi``
+    launch a shard on the cuda backend); the combine as in
+    :func:`sharded_lookup_dual`."""
+    slots = torch.as_tensor(slots, dtype=torch.int32, device=keys.hi.device)
+    return _probe_shards(
+        mesh, direct, failover,
+        cache_lib.pooled_buckets(slots, keys, policy.bucket_mask_d,
+                                 direct.n_buckets),
+        cache_lib.pooled_buckets(slots, keys, policy.bucket_mask_f,
+                                 failover.n_buckets),
+        lambda d, f, dev, ld, lf: cache_lib.lookup_dual_multi(
+            d, f, _on(policy, dev), _on(slots, dev), _shard_keys(keys, dev),
+            _on(now_ms, dev), backend=backend, buckets_d=ld, buckets_f=lf))
+
+
+def _touch_local(state, tb: wb_lib.TouchBuffer, bucket, way, nb_global: int,
+                 nb_local: int, shard: int, enabled=None):
+    """One cache's deferred recency bumps routed to ``shard`` (the ring
+    holds global coordinates, -1 for "no hit in that cache")."""
+    own, loc = cache_lib.route_buckets(bucket, shard, nb_global, nb_local)
+    live = wb_lib._gate(wb_lib._touch_live(tb) & (bucket >= 0) & own,
+                        enabled)
+    return cache_lib.touch(state, loc, way, tb.ts_ms, live=live)
+
+
+def _flush_tier(mesh, tier, g, ring, now_ms, ttl_ms, evict_lru, touchbuf,
+                coords, enabled, salt=None) -> None:
+    """One table's share of a sharded flush, IN PLACE: on each shard the
+    touches it owns are scatter-maxed into its recency plane, then the
+    ring records it owns are inserted (``write_mask = live & owned`` at
+    the local buckets). ``g`` holds the records' global (or pooled)
+    buckets, ``ring`` the unrolled ring (keys, values, ts, live),
+    ``coords`` the touch ring's (bucket, way) fields of this table; a
+    stacked tier's slabs are written through their pooled views."""
+    _, nbl = _shards(mesh, tier)
+    keys, values, ts, live = ring
+    for s, st in enumerate(tier.shards):
+        dev = st.key_hi.device
+        on = _on(enabled, dev)
+        if isinstance(st, cache_lib.MultiCacheState):
+            st = st.flat()
+        if touchbuf is not None:
+            tb = _on(touchbuf, dev)
+            _touch_local(st, tb, getattr(tb, coords[0]),
+                         getattr(tb, coords[1]), tier.n_buckets, nbl, s, on)
+        own, loc = cache_lib.route_buckets(_on(g, dev), s, tier.n_buckets,
+                                           nbl)
+        cache_lib.insert(st, _shard_keys(keys, dev), _on(values, dev),
+                         _on(now_ms, dev), _on(ttl_ms, dev),
+                         write_mask=wb_lib._gate(_on(live, dev) & own, on),
+                         ts_ms=_on(ts, dev), evict_lru=_on(evict_lru, dev),
+                         buckets=loc, dedupe_salt=_on(salt, dev))
+
+
+_DIRECT, _FAILOVER = ("bucket_d", "way_d"), ("bucket_f", "way_f")
+
+
+def _reset_rings(buf, touchbuf, enabled) -> None:
+    if touchbuf is not None:
+        wb_lib._reset(touchbuf.count, enabled)
+    wb_lib._reset(buf.count, enabled)
+
+
+def sharded_flush(mesh, buf: wb_lib.WriteBuffer, state, now_ms, ttl_ms,
+                  evict_lru=False, touchbuf=None, enabled=None):
+    """``writebuf.flush`` (the direct tier only) across a bucket-sharded
+    table: each shard applies the touches and the ring records it owns,
+    IN PLACE on its slab. Returns (state, buf, touchbuf)."""
+    keys, values, ts, live, _ = wb_lib._ring_order(buf)
+    _flush_tier(mesh, state, bucket_index(keys, state.n_buckets),
+                (keys, values, ts, live), now_ms, ttl_ms, evict_lru,
+                touchbuf, _DIRECT, enabled)
+    _reset_rings(buf, touchbuf, enabled)
+    return state, buf, touchbuf
+
+
+def sharded_flush_dual(mesh, buf: wb_lib.WriteBuffer, direct, failover,
+                       now_ms, direct_ttl_ms, failover_ttl_ms,
+                       evict_lru=False, touchbuf=None, enabled=None):
+    """``writebuf.flush_dual`` across a bucket-sharded pair of tables.
+
+    The two tiers hash at different bucket counts, so a record's direct
+    and failover rows may live on DIFFERENT shards: each tier is routed
+    and inserted on its own, two plain inserts a shard (the unsharded
+    flush's shared plan equals two independent inserts, and a plan
+    restricted to the rows one shard owns equals the global plan's
+    restriction, because all occurrences of a key share its bucket).
+    Returns (direct, failover, buf, touchbuf)."""
+    keys, values, ts, live, _ = wb_lib._ring_order(buf)
+    for tier, ttl, coords in ((direct, direct_ttl_ms, _DIRECT),
+                              (failover, failover_ttl_ms, _FAILOVER)):
+        _flush_tier(mesh, tier, bucket_index(keys, tier.n_buckets),
+                    (keys, values, ts, live), now_ms, ttl, evict_lru,
+                    touchbuf, coords, enabled)
+    _reset_rings(buf, touchbuf, enabled)
+    return direct, failover, buf, touchbuf
+
+
+def sharded_flush_dual_multi(mesh, buf: wb_lib.WriteBuffer, direct,
+                             failover, policy: cache_lib.ModelPolicy,
+                             now_ms, touchbuf=None, enabled=None):
+    """``writebuf.flush_dual_multi`` across bucket-sharded stacked tiers:
+    the ring records carry model slots, whose pooled bucket ids are
+    computed once from the policy (as the unsharded flush does) and
+    routed to each shard; each record keeps its model's TTLs, eviction
+    policy and slot-salted dedupe, and only the table writes are local.
+    Returns (direct, failover, buf, touchbuf)."""
+    keys, values, ts, live, slots = wb_lib._ring_order(buf)
+    s_idx = slots.long()
+    for tier, mask, ttl, coords in (
+            (direct, policy.bucket_mask_d, policy.ttl_ms, _DIRECT),
+            (failover, policy.bucket_mask_f, policy.failover_ttl_ms,
+             _FAILOVER)):
+        _flush_tier(mesh, tier,
+                    cache_lib.pooled_buckets(slots, keys, mask,
+                                             tier.n_buckets),
+                    (keys, values, ts, live), now_ms, ttl[s_idx],
+                    policy.evict_lru[s_idx], touchbuf, coords, enabled,
+                    salt=slots)
+    _reset_rings(buf, touchbuf, enabled)
+    return direct, failover, buf, touchbuf

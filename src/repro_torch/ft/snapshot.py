@@ -33,8 +33,12 @@ the cache exists to save (paper §3.6–3.7).
   :class:`ServingCounters`; the restore hands them back so the ledger
   resumes additively across the kill/restore boundary.
 
-The reference's mesh placement of a restored state waits for the
-bucket-sharded tier.
+* Placement: a bucket-sharded server (``server.mesh`` set) snapshots its
+  GLOBAL planes (``server.cache_image`` gathers the shards), so its
+  manifest and bytes equal the unsharded server's; a restore targets the
+  server's placement as well as its geometry, building the state on the
+  mesh's first device and splitting it over the mesh at the end, on all
+  three outcomes. A snapshot taken on N shards restores onto M.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from repro_torch.core import regional as regional_lib
 from repro_torch.core import server as server_lib
 from repro_torch.core.metrics import ServingCounters
 from repro_torch.core.ratelimit import InferBudget
+from repro_torch.distributed import sharding as shard_lib
 from repro_torch.ft import checkpoint as ckpt
 from repro_torch.ft import elastic
 
@@ -101,18 +106,17 @@ def snapshot_server(directory: str, step: int, server, state, now_ms: int,
     place)."""
     state = server.flush(state, now_ms)
     if isinstance(state, regional_lib.RegionalState):
-        kind, image, tier = ("regional", regional_lib.cache_image(state),
-                             state.inner)
+        kind, image = "regional", regional_lib.cache_image(state)
     elif isinstance(state, server_lib.MultiServerState):
-        kind, image, tier = "multi", server_lib.cache_image(state), state
+        kind, image = "multi", server_lib.cache_image(state)
     else:
-        kind, image, tier = "single", server_lib.cache_image(state), state
+        kind, image = "single", server_lib.cache_image(state)
     meta = {
         "schema": SCHEMA,
         "kind": kind,
         "now_ms": int(now_ms),
-        "value_dim": int(tier.direct.dim),
-        "dtype": _np_dtype_name(tier.direct.values.dtype),
+        "value_dim": int(image["direct"].dim),
+        "dtype": _np_dtype_name(image["direct"].values.dtype),
         "shapes": _shape_meta(server, state),
         "counters": None if counters is None else counters.as_dict(),
     }
@@ -229,9 +233,14 @@ def restore_server(directory: str, server, now_ms: int,
     ``device``). A snapshot that cannot be read or does not fit restores
     cold (logged, never raised); ``now_ms`` is the stream clock used to
     drop already-expired entries during a rehash, whose recency lookups run
-    the target's backend."""
+    the target's backend. A sharded server's state is built on its mesh's
+    first device (``device`` must agree with it in kind) and split over
+    the mesh."""
     regional = isinstance(server, regional_lib.RegionalServer)
     multi = isinstance(server, server_lib.MultiModelServer)
+    mesh = getattr(server, "mesh", None)
+    if mesh is not None:
+        device = shard_lib.mesh_device(device, mesh)
     if regional:
         cold = server.init_state(dtype, writebuf_capacity,
                                  touchbuf_capacity)
@@ -245,9 +254,13 @@ def restore_server(directory: str, server, now_ms: int,
             device=device)
     device = cold.home.device if regional else cold.direct.key_hi.device
 
+    def place(st):
+        """The server's placement: split over its mesh, if it has one."""
+        return st if mesh is None else shard_lib.place_server_state(st, mesh)
+
     def cold_result(detail: str, at: Optional[int] = None) -> RestoreResult:
         log.warning("cache restore fell back to cold init: %s", detail)
-        return RestoreResult(state=cold, counters=ServingCounters(),
+        return RestoreResult(state=place(cold), counters=ServingCounters(),
                              mode="cold", step=at, detail=detail)
 
     try:
@@ -277,7 +290,8 @@ def restore_server(directory: str, server, now_ms: int,
     if image["budget"].tokens.shape == cold.budget.tokens.shape:
         budget = image["budget"]
     if (kind == "multi") == multi and shapes == _shape_meta(server, cold):
-        state = server_lib.with_cache_image(cold, dict(image, budget=budget))
+        state = place(server_lib.with_cache_image(cold, dict(image,
+                                                             budget=budget)))
         return RestoreResult(state=state, counters=counters,
                              mode="bitexact", step=step,
                              detail=f"loaded step {step} in place")
@@ -320,7 +334,8 @@ def restore_server(directory: str, server, now_ms: int,
             old_f1, cold.failover, now_ms,
             cfg.resolved_failover_relax_ttl_ms(), evict_lru=lru1,
             backend=cfg.backend)
-    state = cold._replace(direct=new_d, failover=new_f, budget=budget)
+    state = place(cold._replace(direct=new_d, failover=new_f,
+                                budget=budget))
     detail = (f"rehashed step {step}: {n_dir} direct + {n_fo} failover "
               "live entries into new geometry")
     log.info("cache restore: %s", detail)

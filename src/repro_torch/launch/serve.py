@@ -24,7 +24,12 @@ routing on the device; ``--drain`` drains one mid-run (the Fig. 10
 test). ``--restart`` is the kill/restore harness: it snapshots the cache
 every ``--checkpoint-every`` steps, kills the server mid-incident, and
 measures recovery after a bit-exact, a grown, a shrunk and a cold
-restore. The ``--shards`` mode waits for the bucket-sharded tier.
+restore. ``--shards N`` splits the plain and ``--multi`` modes' cache
+tier by bucket range over N shards (``launch/mesh.make_cache_mesh``: the
+first N cards, or round-robin over fewer; on one card all N share it).
+The reference's ``ensure_shard_devices`` re-exec has no counterpart: JAX
+fixes its host device count before the flags are parsed, torch needs no
+forced device count.
 
 Usage::
 
@@ -33,6 +38,7 @@ Usage::
         --ttl-min 5 [--no-cache] [--coalesce]
     PYTHONPATH=src python -m repro_torch.launch.serve --multi \\
         --minutes 30 --users 1000 [--multi-buckets 4096] [--coalesce]
+    PYTHONPATH=src python -m repro_torch.launch.serve [--multi] --shards 4
     PYTHONPATH=src python -m repro_torch.launch.serve --overload \\
         --minutes 60 --users 2000 [--budget-frac 0.5] \\
         [--failure-rate 0.02 --failure-burst-rate 0.2]
@@ -140,6 +146,19 @@ def _stage_steps(ids, nows_ms, features_of, device):
             torch.as_tensor(np.asarray(nows_ms, np.int32), device=device))
 
 
+def _cache_mesh(n_shards: int, device: torch.device):
+    """The cache tier's mesh of ``n_shards`` shards (None: unsharded). On
+    the card :func:`~repro_torch.launch.mesh.make_cache_mesh` places them;
+    on the CPU every shard is ``device``."""
+    if n_shards <= 1:
+        return None
+    from repro_torch.launch.mesh import make_cache_mesh
+
+    if device.type == "cuda":
+        return make_cache_mesh(n_shards)
+    return make_cache_mesh(n_shards, devices=[device] * n_shards)
+
+
 def _chunks(n_batches: int, chunk_steps: int):
     """(lo_batch, n_steps) chunk spans covering ``n_batches``."""
     lo = 0
@@ -154,9 +173,10 @@ def run_serving(arch: str = "sasrec", minutes: int = 60, users: int = 2000,
                 failure_rate: float = 0.0, use_cache: bool = True,
                 backend: str = "cuda", eviction: str = "ttl",
                 coalesce: bool = False, chunk_steps: int = 64,
-                n_buckets: int = 1 << 14, seed: int = 0, device="cuda",
-                log=print):
+                n_buckets: int = 1 << 14, n_shards: int = 1, seed: int = 0,
+                device="cuda", log=print):
     device = resolve_device(device)
+    mesh = _cache_mesh(n_shards, device)
     tower_cfg, params, tower_fn, features_of = build_tower(
         arch, backend=backend, device=device, seed=seed)
     cache_cfg = CacheConfig(
@@ -169,9 +189,9 @@ def run_serving(arch: str = "sasrec", minutes: int = 60, users: int = 2000,
         backend=backend, eviction=eviction, coalesce_misses=coalesce)
     server = srv_lib.CachedEmbeddingServer(
         cfg=cache_cfg, tower_fn=tower_fn,
-        miss_budget=max(int(batch * miss_budget_frac), 1))
+        miss_budget=max(int(batch * miss_budget_frac), 1), mesh=mesh)
     state = srv_lib.init_server_state(cache_cfg, writebuf_capacity=batch * 4,
-                                      device=device)
+                                      device=device, mesh=mesh)
 
     stream_cfg = StreamConfig(n_users=users, horizon_s=minutes * 60.0,
                               seed=seed)
@@ -229,6 +249,7 @@ def run_serving(arch: str = "sasrec", minutes: int = 60, users: int = 2000,
         f" fallback_rate={d['fallback_rate']:.4f}"
         f" tower_inferences={d['tower_inferences']}"
         f" ({wall:.1f}s, {d['req_per_s']:.0f} req/s)")
+    d["n_shards"] = n_shards
     return d
 
 
@@ -237,15 +258,17 @@ def run_serving_multi(arch: str = "sasrec", minutes: int = 60,
                       miss_budget_frac: float = 0.75,
                       n_buckets: int = 1 << 12, failure_rate: float = 0.0,
                       backend: str = "cuda", coalesce: bool = False,
-                      chunk_steps: int = 64, seed: int = 0, device="cuda",
-                      log=print):
+                      chunk_steps: int = 64, n_shards: int = 1,
+                      seed: int = 0, device="cuda", log=print):
     """Replay one access stream across the whole model registry: each
     request is fanned out to one registry model (round-robin within the
     batch, phased by the batch index), so every batch is a mixed-model
     batch served by ONE ``MultiModelServer`` step; chunks of
     ``chunk_steps`` batches run as one ``serve_many`` call each. Reports
-    the global counters and the per-model hit rates (Table 2's shape)."""
+    the global counters and the per-model hit rates (Table 2's shape).
+    ``n_shards`` splits the stacked tiers by bucket range."""
     device = resolve_device(device)
+    mesh = _cache_mesh(n_shards, device)
     tower_cfg, params, tower_fn, features_of = build_tower(
         arch, backend=backend, device=device, seed=seed)
     cfgs = multi_model_tier_configs(value_dim=tower_cfg.user_embed_dim,
@@ -255,9 +278,9 @@ def run_serving_multi(arch: str = "sasrec", minutes: int = 60,
     server = srv_lib.MultiModelServer(
         cfgs=tuple(cfgs), tower_fn=tower_fn,
         miss_budget=max(int(batch * miss_budget_frac), 1), backend=backend,
-        device=device)
+        device=device, mesh=mesh)
     state = srv_lib.init_multi_server_state(
-        cfgs, writebuf_capacity=batch * 4, device=device)
+        cfgs, writebuf_capacity=batch * 4, device=device, mesh=mesh)
     n_models = server.n_models
 
     stream_cfg = StreamConfig(n_users=users, horizon_s=minutes * 60.0,
@@ -295,6 +318,7 @@ def run_serving_multi(arch: str = "sasrec", minutes: int = 60,
     d["wall_s"] = round(wall, 2)
     d["batches"] = n_batches
     d["n_models"] = n_models
+    d["n_shards"] = n_shards
     d["req_per_s"] = round(counters.requests / max(wall, 1e-9), 1)
     d["device"] = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
@@ -1389,7 +1413,14 @@ def main(argv=None):
                     help="direct/failover victim order (paper §3.3); lru "
                          "enables access-recency touches (incompatible "
                          "with --multi: the registry sets it per model)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="bucket-shard the cache tier over N shards (the "
+                         "first N cards; on one card every shard shares "
+                         "it)")
     args = ap.parse_args(argv)
+    if args.shards > 1:
+        if args.restart or args.overload or args.no_cache:
+            ap.error("--shards drives the plain/--multi serving modes")
     if args.drain and args.regions is None:
         ap.error("--drain requires --regions")
     if args.chaos is not None:
@@ -1400,6 +1431,8 @@ def main(argv=None):
         if args.no_cache or args.coalesce:
             ap.error("--chaos is a cache-tier scenario; drop "
                      "--no-cache/--coalesce")
+        if args.shards > 1:
+            ap.error("--chaos runs on one device; drop --shards")
         if args.eviction != "ttl":
             ap.error("--chaos fixes eviction=ttl (the scenario isolates "
                      "fault handling, not victim order)")
@@ -1421,6 +1454,8 @@ def main(argv=None):
         if args.no_cache or args.coalesce:
             ap.error("--regions is a cache-tier scenario; drop "
                      "--no-cache/--coalesce")
+        if args.shards > 1:
+            ap.error("--regions stacks regions on one device; drop --shards")
         return run_serving_regional(
             arch=args.arch, n_regions=args.regions, minutes=args.minutes,
             users=args.users, batch=args.batch,
@@ -1475,7 +1510,8 @@ def main(argv=None):
             arch=args.arch, minutes=args.minutes, users=args.users,
             batch=args.batch, n_buckets=args.multi_buckets,
             failure_rate=args.failure_rate, backend=args.backend,
-            coalesce=args.coalesce, chunk_steps=args.chunk_steps)
+            coalesce=args.coalesce, chunk_steps=args.chunk_steps,
+            n_shards=args.shards)
     if args.no_cache and args.coalesce:
         ap.error("--coalesce dedupes cache misses; drop --no-cache")
     return run_serving(arch=args.arch, minutes=args.minutes,
@@ -1484,7 +1520,7 @@ def main(argv=None):
                        failure_rate=args.failure_rate, batch=args.batch,
                        use_cache=not args.no_cache, backend=args.backend,
                        eviction=args.eviction, coalesce=args.coalesce,
-                       chunk_steps=args.chunk_steps)
+                       chunk_steps=args.chunk_steps, n_shards=args.shards)
 
 
 if __name__ == "__main__":

@@ -4,6 +4,11 @@ numpy, and leaf-by-leaf comparisons at the stated tolerances."""
 import numpy as np
 import torch
 
+# The suite runs in several worker processes, each importing this module:
+# one torch thread a worker keeps them from oversubscribing the cores
+# (the tests' tensors are small).
+torch.set_num_threads(1)
+
 # Tower outputs and the values cached from them: XLA and torch sum
 # matmuls, softmax and layer norm in different orders.
 TOWER_ATOL, TOWER_RTOL = 2e-5, 1e-4

@@ -1491,3 +1491,45 @@ def test_train_step_on_card_matches_cpu(cuda):
     for a, b in zip(O.tree_leaves(card.params), O.tree_leaves(cpu.params)):
         np.testing.assert_allclose(a.detach().cpu().numpy(),
                                    b.detach().numpy(), atol=1e-5, rtol=0)
+
+
+def test_sharded_lookup_and_flush_dual_cuda_match_torch(cuda):
+    """The bucket-sharded tier at N=4 on one card: ``sharded_lookup_dual``
+    on the dual kernel (one launch a shard) and ``sharded_flush_dual``
+    equal the ``"torch"`` backend bit for bit, every output and plane."""
+    from repro_torch.core import writebuf as W
+    from repro_torch.core.hashing import Key64
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shard_lib
+    from repro_torch.launch.mesh import make_cache_mesh
+
+    rng = np.random.default_rng(4)
+    mesh = make_cache_mesh(4, devices=[cuda] * 4)
+    runs = {}
+    for backend in ("cuda", "torch"):
+        d = C.init_cache(256, 8, 50, device=cuda)
+        f = C.init_cache(64, 4, 50, device=cuda)
+        ids = rng.integers(0, 3000, 512) if backend == "cuda" else ids
+        keys = Key64.from_int(ids, device=cuda)
+        vals = torch.as_tensor(np.random.default_rng(1).standard_normal(
+            (512, 50)), dtype=torch.float32, device=cuda)
+        C.insert_dual(d, f, keys, vals, 5 * MIN, MIN, 10 * MIN)
+        sd, sf = (shard_lib.split_cache(t, mesh.devices) for t in (d, f))
+        n0 = pk.LAUNCHES["dual"]
+        res = coll.sharded_lookup_dual(mesh, sd, sf, keys, 6 * MIN, MIN,
+                                       10 * MIN, backend=backend)
+        launches = pk.LAUNCHES["dual"] - n0
+        buf = W.init_writebuf(1024, 50, device=cuda)
+        tb = W.init_touchbuf(1024, device=cuda)
+        W.append(buf, keys, vals + 1, 6 * MIN, torch.ones(
+            512, dtype=torch.bool, device=cuda))
+        W.touch_append(tb, res[0], res[1], 6 * MIN)
+        W.flush_dual(buf, sd, sf, 7 * MIN, MIN, 10 * MIN, evict_lru=True,
+                     touchbuf=tb, mesh=mesh)
+        runs[backend] = (res, launches, sd.gather(), sf.gather())
+    (rc, nc, dc, fc), (rt, nt, dt, ft) = runs["cuda"], runs["torch"]
+    assert (nc, nt) == (4, 0)
+    assert bool(rc[0].hit.any())
+    for a, b in zip(rc, rt):
+        assert_same([x for x in a], [x for x in b])
+    assert_same(list(dc) + list(fc), list(dt) + list(ft))

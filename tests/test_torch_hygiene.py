@@ -28,6 +28,7 @@ from repro_torch.ft import failure as t_failure  # noqa: E402
 from repro_torch.ft import snapshot as t_snap  # noqa: E402
 from repro_torch.kernels import cache_probe as tpk  # noqa: E402
 from repro_torch.kernels import decode_attention as TDA  # noqa: E402
+from repro_torch.launch import mesh as t_mesh  # noqa: E402
 from repro_torch.launch import serve as t_launch  # noqa: E402
 from repro_torch.models import recsys as TR  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -137,7 +138,10 @@ def _skip_with_card():
                                    "decode_attention", "init_grouped",
                                    "init_params_wide_deep",
                                    "restore_server", "run_serving_restart",
-                                   "checkpoint_manager_restore_latest"])
+                                   "checkpoint_manager_restore_latest",
+                                   "make_cache_mesh",
+                                   "init_server_state_mesh",
+                                   "run_serving_shards"])
 def test_default_device_entry_points_raise_without_card(entry, tmp_path):
     _skip_with_card()
     cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=16)
@@ -174,6 +178,11 @@ def test_default_device_entry_points_raise_without_card(entry, tmp_path):
             checkpoint_every=2, workdir=str(tmp_path)),
         "checkpoint_manager_restore_latest": lambda: t_ckpt.CheckpointManager(
             str(tmp_path)).restore_latest({"w": torch.zeros(2)}),
+        "make_cache_mesh": lambda: t_mesh.make_cache_mesh(2),
+        "init_server_state_mesh": lambda: TS.init_server_state(
+            cfg, mesh=t_mesh.CacheMesh((torch.device("cuda", 0),) * 2)),
+        "run_serving_shards": lambda: t_launch.run_serving(
+            minutes=1, users=10, n_shards=2),
         "decode_attention": lambda: TDA.decode_attention(
             torch.zeros((1, 4, 8), device="cuda"),
             torch.zeros((1, 16, 2, 8), device="cuda"),

@@ -149,8 +149,9 @@ def test_serve_many_matches_jax(tower, flush_every, coalesce, admission,
                                     miss_budget=MISS_BUDGET)
     jstate = JS.init_server_state(jcfg, writebuf_capacity=64)
     tstate = TS.init_server_state(tcfg, writebuf_capacity=64, device="cpu")
-    # two dispatches: the second starts from the first's state
-    for lo, hi in ((0, 5), (5, S)):
+    # two dispatches of one shape (one JAX compile): the second starts
+    # from the first's state
+    for lo, hi in ((0, S // 2), (S // 2, S)):
         jk = JKey.from_int(ids[lo:hi])
         tk = TKey.from_int(ids[lo:hi], device="cpu")
         jstate, jacc, jys = jsrv.jit_serve_many(
@@ -186,7 +187,7 @@ def test_serve_many_matches_jax(tower, flush_every, coalesce, admission,
     assert set(image) == set(JS.cache_image(jstate))
     assert image["direct"] is tstate.direct
     c = ServingCounters.from_stats(tacc)
-    assert c.requests == (S - 5) * B
+    assert c.requests == (S - S // 2) * B
     src = to_np(tys[1])
     assert (src == TS.SRC_DIRECT).any() and (src != TS.SRC_DIRECT).any()
 

@@ -216,6 +216,36 @@ Phases, each fatal on failure:
     plane and rehashed into 2**21 buckets on 4, where every live key
     still hits; seconds and GB/s. ``run_serving(n_shards=4)`` against
     ``n_shards=1``.
+18. **mesh and GNN**: the model-axis mesh (``launch.mesh.ModelMesh``, every
+    shard on ``cuda:0``; ``make_host_mesh`` is (1, 1) on one card and a
+    mesh over distinct devices is refused) and GIN-TU. (a) Wide&Deep at
+    its published widths (the 10.24 GB tables row-sharded) on (1, N)
+    meshes, N = 1, 2, 4, B=512: ``wide_deep_score(mesh=)`` with and
+    without ``serve_scatter`` against the unsharded cuda score within
+    ``WD_TOL``, 2N bag launches a score, device ms a score. (b)
+    ``retrieval_step(mesh=)`` on BST's 1M-row item table for 512 users on
+    (1, 4) and (2, 2) meshes: the unsharded step's ids, order and scores;
+    ``collectives.top_k`` (the tie rule) equal to a stable sort's first
+    100 on bf16-rounded scores, its device time beside ``torch.topk`` and
+    the stable sort. (c) TinyLlama-1.1B in phase 8's deployment: the
+    1920-token prefill under a mesh (22 flash launches), then 16 decode
+    steps on 1, 2 and 4 sequence shards (``decode_step(mesh=)``, 22 x N
+    ``decode_attention_partials`` launches a step) teacher-forced against
+    the unsharded cuda decode within relative L2 ``MESH_DEC_TOL``; host ms
+    a step. (d) ``long_500k``: a seeded B=1 cache of 524,288 positions
+    (11.8 GB of bf16 KV), 4 steps on 4 sequence shards against unsharded,
+    held to the larger of 0.02 and twice the torch backend's gap to the
+    unsharded cuda run on the same steps (one bf16 row's noise floor), and
+    each layer's sharded attention against the unsharded kernel on its
+    cache at ``DEC_KERNEL_TOL``.
+    (e) gin-tu at its published widths: ``full_graph_sm`` (the sampler
+    copy's power-law graph) on the card against the port's CPU forward
+    and ``forward_partitioned`` over 4 node shards against ``forward``;
+    ``ogb_products``' size (2,449,029 nodes padded to 2,449,032, 61,859,140
+    edges drawn on the card, d_feat 100) replicated against partitioned,
+    ms and peak GB of each. (f) ``launch.train.main(["--arch", "gin-tu",
+    "--full-config", ...])`` for 20 steps as a user calls it, every loss
+    finite, and its ``[train]`` line.
 
 The launchers and the examples serve through the compiled entry points
 (``jit_serve_many``, ``jit_serve_step``, ``jit_flush``), so phases 3, 5,
@@ -233,7 +263,11 @@ across the cache, ``split_plan``) against its plain version at the decode
 path's shape (q (128, 32, 64), k/v (128, 2048, 4, 64), bf16), at
 ``LM_SHAPES["decode_32k"]`` and ``["long_500k"]`` and at edge shapes with
 a valid_len on a split boundary (DEC_KERNEL_TOL), timed beside SDPA at
-all three; each time is printed with its rate and roofline share; and
+all three; holds ``decode_attention_partials`` (the same kernel's split
+partials, unmerged) on a key range at an offset, with a range all masked
+(m = -1e30, l = acc = 0 exactly), against its plain version, and times
+it at the decode path's shape and at long_500k; each time is printed
+with its rate and roofline share; and
 runs the
 probe shootout of ``benchmarks/bench_kernel_probe.py`` (2**12 x 8 x 64
 tier, B=4096, ~60% hits): ``cache_probe_perquery`` against its plain
@@ -250,7 +284,10 @@ probe, the LM serve (phase 6, its cuda run) for ``flash_attention``, the
 probe shootout for ``cache_probe_perquery`` and the decode steps (phase 8,
 the cuda run) for ``decode_attention``; the counts are reset just before
 each path and read just after. The sharded runs of phase 17 add their
-dual and dual-multi launches, each counted over its own run. Phases 9,
+dual and dual-multi launches, each counted over its own run; phase 18
+adds the sharded Wide&Deep scores' bag launches, the mesh prefill's
+flash launches, and counts ``decode_attention_partials`` over its
+sharded decode steps (c) and (d). Phases 9,
 10 and 12–15 check their own counts; phase 16 checks the bag's launches
 on the trained tower.
 
@@ -880,6 +917,7 @@ def phase_kernels(torch, results):
     kernels_dual_multi(torch, results)
     kernels_flash(torch, results)
     kernels_decode(torch, results)
+    kernels_decode_partials(torch, results)
 
 
 LM_B, LM_S, LM_HQ, LM_HKV, LM_HD = 48, 2048, 32, 4, 64   # miss budget 48
@@ -1183,6 +1221,112 @@ def kernels_decode(torch, results):
               f"({bound / lib:.1%}); bound {bound:.4f} ms by bytes "
               f"({nb / 1e9:.3f} GB)")
         del q, k, v
+    torch.cuda.empty_cache()
+
+
+def partials_bytes(q, k, valid, pos_offset, n_split):
+    """Least bytes of one partials launch: the valid keys of its range in
+    k and v, q read once, the float32 partials written once."""
+    S, Hkv, hd = k.shape[1:]
+    n = int((valid.long() - pos_offset).clamp(0, S).sum())
+    B, Hq = q.shape[:2]
+    return (2 * n * Hkv * hd * k.element_size() + q.nbytes
+            + n_split * B * Hq * (hd + 2) * 4)
+
+
+def kernels_decode_partials(torch, results):
+    """decode_attention_partials (the decode kernel's split partials, the
+    merge skipped) against its plain version: on the second half of the
+    decode path's cache (a view at position offset 1024, valid_len 0, 1024
+    -- the range all masked --, one split boundary past it, 2048) with the
+    split plan's and 3 splits; then timed at the decode path's shape and
+    at long_500k over the whole cache, beside the plain version."""
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.distributed.collectives import combine_decode_partials
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smi = smi_line()
+
+    def inputs(b, s):
+        mk = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(
+            torch.bfloat16)
+        return (mk(b, LM_HQ, LM_HD), mk(b, s, LM_HKV, LM_HD),
+                mk(b, s, LM_HKV, LM_HD))
+
+    def merged(m, l, acc):
+        return combine_decode_partials(m, l, acc, torch.float32)
+
+    q, k, v = inputs(DEC_B, DEC_MAX)
+    half = DEC_MAX // 2
+    for n_split in (None, 3):
+        n, sl = (dk.split_plan(DEC_B, half, LM_HKV, sms) if n_split is None
+                 else dk.splits_of(half, n_split))
+        lens = torch.tensor([0, half, half + sl + 1, DEC_MAX], device=dev,
+                            dtype=torch.int32).repeat(DEC_B // 4)
+        n0 = dk.LAUNCHES["decode_attention_partials"]
+        m, l, acc = dk.decode_attention_partials(
+            q, k[:, half:], v[:, half:], lens, half, n_split=n_split)
+        torch.cuda.synchronize()
+        if dk.LAUNCHES["decode_attention_partials"] != n0 + 1:
+            raise AssertionError("decode_attention_partials did not count "
+                                 "one launch")
+        wm, wl, wacc = ref.decode_attention_partials_ref(
+            q, k[:, half:], v[:, half:], lens, half, n, sl)
+        empty = wl == 0
+        err = float((merged(m, l, acc)[~empty.all(0)]
+                     - merged(wm, wl, wacc)[~empty.all(0)]).abs().max())
+        if not (m.shape[0] == n and bool((m[empty] == -1e30).all())
+                and not bool(l[empty].any()) and not bool(acc[empty].any())
+                and bool(torch.isfinite(m).all()) and err <= 1e-5
+                and float((m - wm).abs().max()) <= 1e-4):
+            raise AssertionError(f"decode_attention_partials disagrees with "
+                                 f"its plain version ({n} splits: merged "
+                                 f"max |err| {err:.3g})")
+        print(f"[kernels] decode_attention_partials on keys {half}.."
+              f"{DEC_MAX - 1} of q {tuple(q.shape)} k/v {tuple(k.shape)} bf16, "
+              f"{n} split(s) of {sl} keys, valid_len 0/{half}/{half + sl + 1}"
+              f"/{DEC_MAX}: empty splits m = -1e30, l = acc = 0 exactly; "
+              f"merged max |err| {err:.3g} (float32, tolerance 1e-5)")
+
+    valid = torch.arange(DEC_PROMPT + 1, DEC_MAX + 1, dtype=torch.int32,
+                         device=dev)
+    rows = []
+    for shape, qkv, vl, n_k in (
+            ("the decode path", (q, k, v), valid, 20),
+            ("long_500k", inputs(1, LM_SHAPES["long_500k"].seq_len),
+             torch.full((1,), LM_SHAPES["long_500k"].seq_len,
+                        dtype=torch.int32, device=dev), 3)):
+        qq, kk, vv = qkv
+        m, l, acc = dk.decode_attention_partials(qq, kk, vv, vl)
+        n_split = m.shape[0]
+        err = float((merged(m, l, acc) - merged(
+            *ref.decode_attention_partials_ref(qq, kk, vv, vl))).abs().max())
+        ms = device_ms(lambda i: dk.decode_attention_partials(qq, kk, vv, vl),
+                       n=n_k, reps=3)
+        plain = device_ms(lambda i: ref.decode_attention_partials_ref(
+            qq, kk, vv, vl), n=1, reps=3)
+        nb = partials_bytes(qq, kk, vl, 0, n_split)
+        bound = nb / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(
+            name="decode_attention_partials", route="cuda",
+            source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:91",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by="bytes", library_ms=None))
+        print(f"[kernels] decode_attention_partials at {shape} q "
+              f"{tuple(qq.shape)} k/v {tuple(kk.shape)} bf16, {n_split} "
+              f"split(s): {ms:.4f} ms on the card ({nb / ms / 1e6:.0f} GB/s, "
+              f"{bound / ms:.1%} of its bound), plain {plain:.3f} ms; bound "
+              f"{bound:.4f} ms by bytes ({nb / 1e9:.4f} GB at 3.35 TB/s); "
+              f"merged max |err| {err:.3g} (float32); no library call "
+              f"returns the partials | {smi}")
+        del qkv, qq, kk, vv
+    results["decode_attention_partials"] = rows[0]
+    del q, k, v
     torch.cuda.empty_cache()
 
 
@@ -3815,8 +3959,9 @@ def train_recsys(torch, arch, smi):
     import itertools
 
     from repro_torch.configs import RECSYS_SHAPES, get_config
-    from repro_torch.launch.train import (recsys_batches, recsys_loop_step,
+    from repro_torch.launch.train import (loop_step, recsys_batches,
                                           recsys_train_state)
+    from repro_torch.models import recsys as rec_lib
     from repro_torch.training import optimizer as opt_lib
     from repro_torch.training.train_loop import LoopConfig, run_train_loop
 
@@ -3826,7 +3971,8 @@ def train_recsys(torch, arch, smi):
     state = recsys_train_state(cfg, opt, "cuda")
     n_params = sum(t.numel() for t in opt_lib.tree_leaves(state[0]))
     batch = next(recsys_batches(cfg, B, device="cuda"))
-    rec = StepRecorder(torch, recsys_loop_step(cfg, opt), steps)
+    rec = StepRecorder(torch, loop_step(rec_lib.make_train_step(cfg, opt)),
+                       steps)
     state = run_train_loop(rec, state, itertools.repeat(batch),
                            LoopConfig(total_steps=steps, log_every=steps),
                            log_fn=lambda line: print(f"[train {arch}] "
@@ -4182,6 +4328,431 @@ def phase_shards(torch, counts):
           f"phase done in {time.perf_counter() - t_phase:.1f}s")
 
 
+# ------------------------------------------------------------ phase 18
+MESH_SHARDS = (1, 2, 4)                      # the model axis of (1, N)
+MESH_DEC_STEPS = 16
+MESH_DEC_TOL = 2e-2                          # phase 8's bf16 relative L2
+LONG_STEPS, LONG_SHARDS = 4, 4
+TOPK_K = 100                                 # retrieval_step's default
+GIN_TOL = 1e-4               # relative to the largest |output| (atomics)
+GIN_SHARDS = 4
+GIN_TRAIN_STEPS = 20
+
+
+def model_mesh(torch, dims):
+    """A ("data", "model") mesh of ``dims`` whose every shard is cuda:0."""
+    from repro_torch.launch.mesh import ModelMesh
+
+    return ModelMesh(dims, ("data", "model"),
+                     (torch.device("cuda", 0),) * (dims[0] * dims[1]))
+
+
+def mesh_wide_deep(torch, smi):
+    """(a) Wide&Deep's score at its published widths on (1, N) meshes,
+    with and without ``serve_scatter``, against the unsharded cuda score;
+    returns the bag launches of the sharded scores (2N a score)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import recsys as rec
+
+    dev = torch.device("cuda")
+    tcfg, params, _, _ = launch.build_tower("wide-deep", backend="cuda",
+                                            device=dev, smoke=False, seed=0)
+    rng = np.random.default_rng(18)
+    batch = {"sparse_ids": torch.as_tensor(rng.integers(
+        0, tcfg.vocab, (BATCH, tcfg.n_sparse, tcfg.nnz_per_field)).astype(
+        np.int32), device=dev)}
+    base = rec.wide_deep_score(params, batch, tcfg, impl="cuda")
+    launches = 0
+    for n in MESH_SHARDS:
+        mesh = model_mesh(torch, (1, n))
+        errs = []
+        for scatter in (False, True):
+            cfg = dataclasses.replace(tcfg, serve_scatter=scatter)
+            n0 = ebk.LAUNCHES["embedding_bag"]
+            got = rec.wide_deep_score(params, batch, cfg, impl="cuda",
+                                      mesh=mesh)
+            made = ebk.LAUNCHES["embedding_bag"] - n0
+            launches += made
+            errs.append(float((got - base).abs().max()))
+            if made != 2 * n or not torch.allclose(got, base, **WD_TOL):
+                raise AssertionError(f"wide-deep on (1, {n}) scatter="
+                                     f"{scatter}: {made} bag launches, max "
+                                     f"|err| {errs[-1]:.3g}")
+        ms = device_ms(lambda i: rec.wide_deep_score(params, batch, tcfg,
+                                                     impl="cuda", mesh=mesh),
+                       n=10, reps=3)
+        print(f"[mesh wide-deep] (1, {n}) mesh of cuda:0, B={BATCH}, "
+              f"{tcfg.n_sparse} x {tcfg.vocab} x {tcfg.embed_dim} tables "
+              f"row-sharded {n} ways: {2 * n} bag launches a score; vs the "
+              f"unsharded cuda score max |err| {errs[0]:.3g} (serve_scatter "
+              f"{errs[1]:.3g}; WD_TOL); device {ms:.4f} ms a score | {smi}")
+    return launches
+
+
+def mesh_retrieval(torch, smi):
+    """(b) ``retrieval_step(mesh=)`` on BST's 1M-row item table against
+    the unsharded step (ids and order), and the top-k tie pass timed
+    beside ``torch.topk`` and, on tied scores, a full stable sort."""
+    import numpy as np
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import recsys as rec
+
+    dev = torch.device("cuda")
+    tcfg, params, _, _ = launch.build_tower("bst", backend="cuda", device=dev,
+                                            smoke=False, seed=0)
+    rng = np.random.default_rng(19)
+    seq = torch.as_tensor(rng.integers(0, tcfg.vocab, (
+        BATCH, tcfg.seq_len)).astype(np.int32), device=dev)
+    user = rec.tower_step(params, {"seq": seq}, tcfg, impl="cuda")
+    base_v, base_i = rec.retrieval_step(user, params.item_emb, tcfg)
+    for dims in ((1, 4), (2, 2)):
+        v, i = rec.retrieval_step(user, params.item_emb, tcfg,
+                                  mesh=model_mesh(torch, dims))
+        if not (torch.equal(i, base_i) and torch.equal(v, base_v)):
+            raise AssertionError(f"retrieval on {dims}: ids or scores differ "
+                                 "from the unsharded step")
+    scores = user.float() @ params.item_emb.float().T
+    tied = scores.to(torch.bfloat16).float()        # many exact ties
+    got = coll.top_k(tied, TOPK_K)
+    want = torch.sort(tied, dim=-1, descending=True, stable=True)
+    if not (torch.equal(got[1], want.indices[:, :TOPK_K])
+            and torch.equal(got[0], want.values[:, :TOPK_K])):
+        raise AssertionError("top_k on tied scores is not the stable order")
+    t = {name: kernel_ms(torch, fn, reps=3)[0] for name, fn in (
+        ("topk", lambda: torch.topk(scores, TOPK_K, dim=-1)),
+        ("tie pass", lambda: coll.top_k(scores, TOPK_K)),
+        ("topk tied", lambda: torch.topk(tied, TOPK_K, dim=-1)),
+        ("tie pass tied", lambda: coll.top_k(tied, TOPK_K)),
+        ("stable sort tied", lambda: torch.sort(tied, dim=-1,
+                                                descending=True,
+                                                stable=True)))}
+    print(f"[mesh retrieval] BST, {BATCH} users x {params.item_emb.shape[0]} "
+          f"items: retrieval_step on (1, 4) and (2, 2) meshes of cuda:0 "
+          f"equals the unsharded step (ids, order, scores); top-{TOPK_K} of "
+          f"the ({BATCH}, {scores.shape[1]}) scores, device kernel ms: "
+          f"torch.topk {t['topk']:.3f}, top_k with the tie pass "
+          f"{t['tie pass']:.3f}; on bf16-rounded scores (ties at the k-th "
+          f"value; top_k == a stable sort's first {TOPK_K}) torch.topk "
+          f"{t['topk tied']:.3f}, top_k {t['tie pass tied']:.3f}, the full "
+          f"stable sort {t['stable sort tied']:.3f} | {smi}")
+
+
+def mesh_decode(torch, smi):
+    """(c) TinyLlama decode in phase 8's deployment: the prefill under a
+    mesh (22 flash launches), then MESH_DEC_STEPS steps on 1, 2 and 4
+    sequence shards against the unsharded cuda decode; (d) long_500k on
+    LONG_SHARDS shards against unsharded. Returns (flash launches,
+    partials launches)."""
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device("cuda")
+    cfg = lm_config()
+    L = cfg.n_layers
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             dev)
+    prompt = torch.randint(0, cfg.vocab, (DEC_B, DEC_PROMPT), dtype=torch.int32,
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(7))
+    n0 = fa.LAUNCHES["flash_attention"]
+    logits, cache = tfm.prefill_step(params, prompt, cfg, backend="cuda",
+                                     max_seq=DEC_MAX,
+                                     mesh=model_mesh(torch, (1, 4)))
+    flash = fa.LAUNCHES["flash_attention"] - n0
+    if flash != L:
+        raise AssertionError(f"prefill under a mesh: {flash} flash launches")
+    clone = lambda c: tfm.KVCache(c.k.clone(), c.v.clone(), c.length.clone())
+    start = clone(cache)
+    toks, want, base_ms = [logits.argmax(-1).to(torch.int32)], [], []
+    for _ in range(MESH_DEC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = tfm.decode_step(params, cache, toks[-1], cfg,
+                                    backend="cuda")
+        torch.cuda.synchronize()
+        base_ms.append((time.perf_counter() - t0) * 1e3)
+        want.append(lg)
+        toks.append(lg.argmax(-1).to(torch.int32))
+    del cache
+    partials = 0
+    for n in MESH_SHARDS:
+        mesh, c, errs, ms = model_mesh(torch, (1, n)), clone(start), [], []
+        n0 = dk.LAUNCHES["decode_attention_partials"]
+        for i in range(MESH_DEC_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, c = tfm.decode_step(params, c, toks[i], cfg, backend="cuda",
+                                    mesh=mesh)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            errs.append(close_errors(torch, lg, want[i])[1])
+        made = dk.LAUNCHES["decode_attention_partials"] - n0
+        partials += made
+        if made != MESH_DEC_STEPS * L * n or max(errs) > MESH_DEC_TOL:
+            raise AssertionError(f"decode on {n} sequence shards: {made} "
+                                 f"partials launches, worst relative L2 "
+                                 f"{max(errs):.3g}")
+        print(f"[mesh decode] {cfg.arch_id} B={DEC_B}, prefill of "
+              f"{DEC_PROMPT} tokens under a mesh ({L} flash launches), "
+              f"{MESH_DEC_STEPS} steps on {n} sequence shard(s) of cuda:0: "
+              f"{made // MESH_DEC_STEPS} partials launches a step; logits vs "
+              f"the unsharded cuda decode worst relative L2 {max(errs):.3g} "
+              f"(tolerance {MESH_DEC_TOL}); host ms a step median "
+              f"{statistics.median(ms):.2f} (unsharded "
+              f"{statistics.median(base_ms):.2f}) | {smi}")
+        del c
+    del start
+    free_card(torch)
+
+    # (d) long_500k: one row, a seeded cache of 524,288 positions
+    from repro_torch.distributed.collectives import \
+        seq_sharded_decode_attention
+
+    S = LM_SHAPES["long_500k"].seq_len
+    gen = torch.Generator(device=dev).manual_seed(21)
+    shape = (L, 1, S, cfg.n_kv_heads, cfg.hd)
+    k = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    v = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    for i in range(L):
+        k[i].normal_(generator=gen)
+        v[i].normal_(generator=gen)
+    first = S - LONG_STEPS
+    one = tfm.KVCache(k, v, torch.full((1,), first, dtype=torch.int32,
+                                       device=dev))
+    sharded = clone(one)
+    tok = torch.randint(0, cfg.vocab, (1,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    mesh = model_mesh(torch, (1, LONG_SHARDS))
+    toks, want, ms1 = [tok], [], []
+    for _ in range(LONG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, one = tfm.decode_step(params, one, toks[-1], cfg, backend="cuda")
+        torch.cuda.synchronize()
+        ms1.append((time.perf_counter() - t0) * 1e3)
+        want.append(a)
+        toks.append(a.argmax(-1).to(torch.int32))
+    errs, ms = [], []
+    n0 = dk.LAUNCHES["decode_attention_partials"]
+    for i in range(LONG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b, sharded = tfm.decode_step(params, sharded, toks[i], cfg,
+                                     backend="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        errs.append(close_errors(torch, b, want[i])[1])
+    made = dk.LAUNCHES["decode_attention_partials"] - n0
+    partials += made
+    del sharded
+    # the noise floor of one bf16 row: the torch backend from the same
+    # cache (each step rewrites the row it then attends to)
+    torch_errs, one = [], tfm.KVCache(k, v, torch.full_like(one.length,
+                                                            first))
+    for i in range(LONG_STEPS):
+        c, one = tfm.decode_step(params, one, toks[i], cfg, backend="torch")
+        torch_errs.append(close_errors(torch, c, want[i])[1])
+    bar = max(MESH_DEC_TOL, 2 * max(torch_errs))
+    # every layer's sharded attention against the unsharded kernel
+    q = torch.randn((1, cfg.n_heads, cfg.hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    valid = torch.full((1,), S, dtype=torch.int32, device=dev)
+    att = [attention_errors(torch, seq_sharded_decode_attention(
+        q, k[i], v[i], mesh, kv_valid_len=valid, backend="cuda"),
+        dk.decode_attention(q, k[i], v[i], valid, bs=S), DEC_KERNEL_TOL)
+        for i in range(L)]
+    kv_gb = 2 * k.nbytes / 1e9
+    if (made != LONG_STEPS * L * LONG_SHARDS or max(errs) > bar
+            or not all(a[3] for a in att)):
+        raise AssertionError(f"long_500k on {LONG_SHARDS} shards: {made} "
+                             f"partials launches, worst relative L2 "
+                             f"{max(errs):.3g} (bar {bar:.3g}), attention "
+                             f"within DEC_KERNEL_TOL {[a[3] for a in att]}")
+    print(f"[mesh long_500k] B=1 cache of {S} positions ({kv_gb:.2f} GB of "
+          f"bf16 KV, seeded), {LONG_STEPS} steps on {LONG_SHARDS} sequence "
+          f"shards vs unsharded: {made // LONG_STEPS} partials launches a "
+          f"step; logits relative L2 by step "
+          + ", ".join(f"{e:.4f}" for e in errs)
+          + " (torch backend vs cuda, the noise floor of one bf16 row: "
+          + ", ".join(f"{e:.4f}" for e in torch_errs)
+          + f"; bar {bar:.4f}, the larger of {MESH_DEC_TOL} and twice that); "
+          f"each of the {L} layers' sharded attention vs the unsharded "
+          f"kernel worst relative L2 {max(a[2] for a in att):.3g} within "
+          f"DEC_KERNEL_TOL; host ms a step median {statistics.median(ms):.2f}"
+          f" (unsharded {statistics.median(ms1):.2f}) | {smi}")
+    return flash, partials
+
+
+def mesh_gin(torch, smi):
+    """(e) gin-tu at its published widths: full_graph_sm on the card
+    against the port's CPU forward and partitioned over GIN_SHARDS node
+    shards; ogb_products' size replicated against partitioned."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import GNN_SHAPES, get_config
+    from repro_torch.models import gnn, sampler
+
+    dev = torch.device("cuda")
+    cfg = get_config("gin-tu")
+    mesh = model_mesh(torch, (GIN_SHARDS, 1))
+
+    def rel_err(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    sm = GNN_SHAPES["full_graph_sm"]
+    g = sampler.synthetic_power_law_graph(sm.n_nodes, sm.n_edges,
+                                          d_feat=sm.d_feat,
+                                          n_classes=cfg.n_classes, seed=0)
+    recv = np.repeat(np.arange(sm.n_nodes), np.diff(g.indptr)).astype(
+        np.int32)
+    model = gnn.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            sm.d_feat, device=dev)
+    on_cpu = gnn.Graph(torch.as_tensor(g.node_feats),
+                       torch.as_tensor(g.indices), torch.as_tensor(recv))
+    want = gnn.forward(copy.deepcopy(model).to("cpu"), on_cpu, cfg)
+    feats = on_cpu.node_feats.to(dev)
+    got = gnn.forward(model, gnn.Graph(feats, on_cpu.senders.to(dev),
+                                       on_cpu.receivers.to(dev)), cfg)
+    ps, pr = gnn.partition_edges(g.indices, recv, sm.n_nodes, GIN_SHARDS)
+    part = gnn.forward_partitioned(model, gnn.Graph(
+        feats, torch.as_tensor(ps, device=dev),
+        torch.as_tensor(pr, device=dev)), cfg, mesh)
+    e_cpu, e_part = rel_err(got.cpu(), want), rel_err(part, got)
+    if e_cpu > GIN_TOL or e_part > GIN_TOL or got.shape != (sm.n_nodes,
+                                                            cfg.d_hidden):
+        raise AssertionError(f"gin full_graph_sm: card vs CPU {e_cpu:.3g}, "
+                             f"partitioned vs replicated {e_part:.3g}")
+    print(f"[mesh gin full_graph_sm] {sm.n_nodes} nodes, {g.n_edges} edges "
+          f"(power law, sampler copy), d_feat {sm.d_feat}, {cfg.n_layers} "
+          f"layers of {cfg.d_hidden}: card vs the port's CPU forward max "
+          f"|err| / max |out| {e_cpu:.3g}; partitioned over {GIN_SHARDS} "
+          f"node shards vs replicated {e_part:.3g} (tolerance {GIN_TOL})")
+    del model, feats
+
+    ob = GNN_SHAPES["ogb_products"]
+    n_pad = -(-ob.n_nodes // GIN_SHARDS) * GIN_SHARDS
+    gen = torch.Generator(device=dev).manual_seed(20)
+    snd, rcv = (torch.randint(0, ob.n_nodes, (ob.n_edges,), generator=gen,
+                              device=dev, dtype=torch.int32)
+                for _ in range(2))
+    feats = torch.zeros((n_pad, ob.d_feat), device=dev)
+    feats[:ob.n_nodes].normal_(generator=gen)
+    model = gnn.init_params(gen, cfg, ob.d_feat, device=dev)
+    out = {}
+    for name in ("replicated", "partitioned"):
+        if name == "partitioned":
+            ps, pr = gnn.partition_edges(snd.cpu().numpy(), rcv.cpu().numpy(),
+                                         n_pad, GIN_SHARDS)
+            graph = gnn.Graph(feats, torch.as_tensor(ps, device=dev),
+                              torch.as_tensor(pr, device=dev))
+            del ps, pr
+        else:
+            graph = gnn.Graph(feats, snd, rcv)
+        free_card(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = (gnn.forward_partitioned(model, graph, cfg, mesh)
+             if name == "partitioned" else gnn.forward(model, graph, cfg))
+        torch.cuda.synchronize()
+        out[name] = (h[:ob.n_nodes], (time.perf_counter() - t0) * 1e3,
+                     torch.cuda.max_memory_allocated() / 1e9)
+        del graph, h
+    err = rel_err(out["partitioned"][0], out["replicated"][0])
+    if err > GIN_TOL or not bool(torch.isfinite(out["replicated"][0]).all()):
+        raise AssertionError(f"gin ogb_products: partitioned vs replicated "
+                             f"{err:.3g}")
+    print(f"[mesh gin ogb_products] {ob.n_nodes} nodes (padded to {n_pad} "
+          f"with isolated rows), {ob.n_edges} uniform edges drawn on the "
+          f"card, d_feat {ob.d_feat}: replicated forward "
+          f"{out['replicated'][1]:.1f} ms, peak {out['replicated'][2]:.2f} "
+          f"GB; partitioned over {GIN_SHARDS} node shards "
+          f"{out['partitioned'][1]:.1f} ms, peak {out['partitioned'][2]:.2f} "
+          f"GB (host wall of one forward, synchronized; the edge partition "
+          f"on the host not counted); partitioned vs replicated max |err| / "
+          f"max |out| {err:.3g} (tolerance {GIN_TOL}) | {smi}")
+
+
+def mesh_train(torch, smi):
+    """(f) ``launch.train.main`` for gin-tu at its published widths, as a
+    user calls it: every loss finite."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as t_train
+    from repro_torch.training.optimizer import tree_leaves
+
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        params, _ = t_train.main(["--arch", "gin-tu", "--full-config",
+                                  "--steps", str(GIN_TRAIN_STEPS),
+                                  "--log-every", "1"])
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in out.splitlines() if line.startswith("[step")]
+    check_finite(losses, "gin-tu")
+    if len(losses) != GIN_TRAIN_STEPS or not out.rstrip().endswith(
+            "[train] done"):
+        raise AssertionError(f"gin-tu launcher: {len(losses)} steps logged")
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"[train] gin-tu (launch.train.main --full-config, the sampled "
+          f"regime): {n / 1e3:.1f}K params, {GIN_TRAIN_STEPS} steps, loss "
+          f"first {losses[0]:.6f} last {losses[-1]:.6f}, host "
+          f"{wall / GIN_TRAIN_STEPS * 1e3:.2f} ms/step (mean of the call, "
+          f"set-up included), peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB | {smi}")
+
+
+def phase_mesh(torch, counts):
+    """Phase 18: the model-axis mesh and the GNN on the card."""
+    from repro_torch.distributed.sharding import constrain
+    from repro_torch.launch.mesh import ModelMesh, make_host_mesh
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    host = make_host_mesh()
+    if host.shape != {"data": 1, "model": 1} or host.device() != torch.device(
+            "cuda", 0):
+        raise AssertionError(f"make_host_mesh on one card: {host}")
+    try:
+        constrain(torch.zeros(2, 2, device="cuda"), ("batch", None),
+                  "recsys", ModelMesh((1, 2), ("data", "model"),
+                                      ("cuda:0", "cpu")))
+        raise AssertionError("a mesh over distinct devices was accepted")
+    except NotImplementedError as e:
+        print(f"[mesh] a mesh over distinct devices refused: {e}")
+    path = {"embedding_bag": mesh_wide_deep(torch, smi)}
+    free_card(torch)
+    mesh_retrieval(torch, smi)
+    free_card(torch)
+    path["flash_attention"], path["decode_attention_partials"] = \
+        mesh_decode(torch, smi)
+    free_card(torch)
+    mesh_gin(torch, smi)
+    free_card(torch)
+    mesh_train(torch, smi)
+    free_card(torch)
+    for k, v in path.items():
+        counts[k] = counts.get(k, 0) + v
+    print(f"[mesh] phase 18 launches {path} added to the kernels line; "
+          f"phase done in {time.perf_counter() - t_phase:.1f}s")
+
+
 def main() -> int:
     try:
         import torch
@@ -4235,6 +4806,9 @@ def main() -> int:
     print(f"[time] train phase done at {time.perf_counter() - t0:.1f}s")
     phase_shards(torch, counts)
     print(f"[time] shards phase done at {time.perf_counter() - t0:.1f}s")
+    free_card(torch)
+    phase_mesh(torch, counts)
+    print(f"[time] mesh phase done at {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in sorted(counts):

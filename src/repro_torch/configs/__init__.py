@@ -1,18 +1,19 @@
-"""Architecture registry: ``get_config(arch_id, smoke=False)`` + shapes.
+"""Architecture registry: ``get_config(arch_id, smoke=False)`` + shape
+sets.
 
-Holds the archs ported so far: the dense LMs (TinyLlama-1.1B, Yi-6B,
-Llama-3-8B), the MoE LMs (Arctic-480B, Granite-MoE-1B-A400M) and the four
-recsys towers (Wide&Deep, SASRec, BST, MIND). The GNN (GIN-TU) joins with
-the scale-out slice.
+Twin of ``repro/configs/__init__.py``: the dense LMs (TinyLlama-1.1B,
+Yi-6B, Llama-3-8B), the MoE LMs (Arctic-480B, Granite-MoE-1B-A400M), the
+GNN (GIN-TU) and the four recsys towers (Wide&Deep, SASRec, BST, MIND),
+with the 40 (arch, shape) cells of the reference's dry run.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List, Union
 
-from repro_torch.configs.base import (LM_SHAPES, RECSYS_SHAPES, LMConfig,
-                                      LMShape, MoEConfig, RecsysConfig,
-                                      RecsysShape)
+from repro_torch.configs.base import (GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
+                                      GNNConfig, GNNShape, LMConfig, LMShape,
+                                      MoEConfig, RecsysConfig, RecsysShape)
 
 _MODULES: Dict[str, str] = {
     "yi-6b": "yi_6b",
@@ -20,10 +21,17 @@ _MODULES: Dict[str, str] = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "arctic-480b": "arctic_480b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "gin-tu": "gin_tu",
     "wide-deep": "wide_deep",
     "sasrec": "sasrec",
     "bst": "bst",
     "mind": "mind",
+}
+
+SHAPES_BY_FAMILY = {
+    "lm": LM_SHAPES,
+    "gnn": GNN_SHAPES,
+    "recsys": RECSYS_SHAPES,
 }
 
 
@@ -32,13 +40,25 @@ def list_archs() -> List[str]:
 
 
 def get_config(arch_id: str, smoke: bool = False
-               ) -> Union[LMConfig, RecsysConfig]:
+               ) -> Union[LMConfig, GNNConfig, RecsysConfig]:
     if arch_id not in _MODULES:
-        raise ValueError(f"arch {arch_id!r} is not ported yet; ported: "
-                         f"{list_archs()}")
+        raise ValueError(f"unknown arch {arch_id!r}; archs: {list_archs()}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["LMConfig", "LMShape", "MoEConfig", "LM_SHAPES", "RecsysConfig",
-           "RecsysShape", "RECSYS_SHAPES", "list_archs", "get_config"]
+def shapes_for(cfg) -> Dict[str, object]:
+    return SHAPES_BY_FAMILY[cfg.family]
+
+
+def all_cells() -> List[tuple]:
+    """The 40 (arch, shape) cells."""
+    return [(arch, shape) for arch in list_archs()
+            for shape in shapes_for(get_config(arch))]
+
+
+__all__ = [
+    "LMConfig", "LMShape", "MoEConfig", "GNNConfig", "GNNShape",
+    "RecsysConfig", "RecsysShape", "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES",
+    "list_archs", "get_config", "shapes_for", "all_cells",
+]

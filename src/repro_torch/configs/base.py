@@ -1,9 +1,9 @@
-"""Config schema of the recsys towers and their input shapes.
+"""Config schema of the LMs, the GNN and the recsys towers, and their
+input shapes.
 
-Twin of the LM and recsys parts of ``repro/configs/base.py``: every arch
-file exports ``CONFIG`` (the published configuration) and ``SMOKE`` (a
-reduced same-family variant for CPU tests). The GNN family joins with its
-own slice.
+Twin of ``repro/configs/base.py``: every arch file exports ``CONFIG`` (the
+published configuration) and ``SMOKE`` (a reduced same-family variant for
+CPU tests).
 """
 from __future__ import annotations
 
@@ -24,6 +24,31 @@ LM_SHAPES: Dict[str, LMShape] = {
     "prefill_32k": LMShape("prefill_32k", 32_768, 32, "prefill"),
     "decode_32k": LMShape("decode_32k", 32_768, 128, "decode"),
     "long_500k": LMShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNShape:
+    name: str
+    n_nodes: int
+    n_edges: int
+    d_feat: int = 0
+    batch_nodes: int = 0          # sampled-training seeds
+    fanout: Tuple[int, ...] = ()
+    graphs_per_batch: int = 0     # batched-small-graphs
+    kind: str = "full"            # "full" | "sampled" | "batched"
+
+
+GNN_SHAPES: Dict[str, GNNShape] = {
+    "full_graph_sm": GNNShape("full_graph_sm", 2_708, 10_556, d_feat=1_433,
+                              kind="full"),
+    "minibatch_lg": GNNShape("minibatch_lg", 232_965, 114_615_892,
+                             d_feat=602, batch_nodes=1_024, fanout=(15, 10),
+                             kind="sampled"),
+    "ogb_products": GNNShape("ogb_products", 2_449_029, 61_859_140,
+                             d_feat=100, kind="full"),
+    "molecule": GNNShape("molecule", 30, 64, d_feat=16, graphs_per_batch=128,
+                         kind="batched"),
 }
 
 
@@ -100,6 +125,33 @@ class LMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    arch_id: str
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "sum"
+    learnable_eps: bool = True
+    n_classes: int = 64
+    mlp_layers: int = 2
+    norm_eps: float = 1e-5
+    dtype: str = "float32"
+    family: str = "gnn"
+    user_embed_dim: int = 64
+    # the dtype messages are gathered and aggregated in; the MLP runs in
+    # float32
+    message_dtype: str = "float32"
+
+    def param_count(self, d_feat: int) -> int:
+        per = 0
+        d_in = d_feat
+        for _ in range(self.n_layers):
+            per += d_in * self.d_hidden + self.d_hidden * self.d_hidden \
+                + 2 * self.d_hidden
+            d_in = self.d_hidden
+        return per + self.d_hidden * self.n_classes
+
+
+@dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     arch_id: str
     interaction: str                  # concat | self-attn-seq | transformer-seq | multi-interest
@@ -115,6 +167,11 @@ class RecsysConfig:
     nnz_per_field: int = 4            # multi-hot ids per sparse field
     dtype: str = "float32"
     family: str = "recsys"
+    # under a model mesh: the row-sharded bag (False: the unsharded bag)
+    sharded_bag: bool = True
+    # serving layout: the bags' partial sums scattered over the batch and
+    # the deep MLP batch-parallel (the same values as the summed form)
+    serve_scatter: bool = False
 
     @property
     def user_embed_dim(self) -> int:

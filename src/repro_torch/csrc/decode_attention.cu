@@ -58,6 +58,15 @@
 // merge (exp(-1e30 - m) = 0) and a row with valid_len <= 0 still gives
 // zeros. The JAX partials of such a split would carry l = Sl (every p =
 // exp(-1e30 + 1e30) = 1) and make that row the mean of v.
+//
+// The partials entry (ercache_decode_attention_partials) runs the same
+// split kernel on a key range of a longer cache and writes every split's
+// partials, the combine skipped: a sequence shard of
+// seq_sharded_decode_attention (repro/distributed/collectives.py:77). The
+// range is a view: its batch rows lie `kv_bstride` elements apart, and
+// its key j is position pos_off + j against valid_len. A split it leaves
+// empty writes m = -1e30 exactly (never -inf: with every shard empty,
+// exp(m - max m) would be NaN), l = 0 and acc = 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -167,8 +176,9 @@ __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kb,
 }
 
 // Grid: one CTA per (batch row, KV head, split, head group), head group
-// fastest. `part` (nullable when n_split == 1) is (B, Hq, n_split, HD + 2)
-// float32: acc, then m, then l.
+// fastest. `part` (nullable when `out` is written) is (B, Hq, n_split,
+// HD + 2) float32: acc, then m, then l. The S keys of batch row b start
+// at k + b * kv_bstride; key j is position pos_off + j.
 template <typename T, int HD, int NR>
 __global__ void __launch_bounds__(kThreads)
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -176,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
                         const int32_t* __restrict__ valid_len,
                         T* __restrict__ out, float* __restrict__ part, int S,
                         int Hq, int Hkv, int n_split, int split_len,
-                        float scale) {
+                        long long kv_bstride, int pos_off, float scale) {
   using C = Cfg<T, HD, NR>;
   constexpr int CH = C::CH, VE = C::VE, WT = C::WT, KG = C::KG;
   extern __shared__ uint4 smem_dec[];
@@ -198,10 +208,13 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   const int s0 = sp * split_len;
-  const int kend = min(min(valid_len[b], S), s0 + split_len);  // keys < kend
+  // keys < kend (a valid_len at or before pos_off leaves none)
+  const int kend =
+      (int)min(min((long long)valid_len[b] - pos_off, (long long)S),
+               (long long)s0 + split_len);
   const size_t stride = (size_t)Hkv * HD;  // elements between keys
-  const T* kb = k + ((size_t)b * S * Hkv + kvh) * HD;
-  const T* vb = v + ((size_t)b * S * Hkv + kvh) * HD;
+  const T* kb = k + (size_t)b * kv_bstride + (size_t)kvh * HD;
+  const T* vb = v + (size_t)b * kv_bstride + (size_t)kvh * HD;
   T* my = ring + (size_t)warp * kStages * 2 * C::kStage;
   const int step = kWarps * WT;  // this warp's tiles: t0, t0 + step, ...
   int t0 = s0 + warp * WT;
@@ -344,7 +357,7 @@ __global__ void __launch_bounds__(kThreads)
       ac += reinterpret_cast<const float*>(
                 ring + (size_t)w * kStages * 2 * C::kStage)[e] * corr;
     }
-    if (n_split == 1) {
+    if (part == nullptr) {
       from_f(out + ((size_t)b * Hq + h0 + h) * HD + d,
              ac / fmaxf(lc, 1e-30f));
     } else {
@@ -388,10 +401,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// part == nullptr: one split, the output written by the split kernel;
+// out == nullptr: the partials only; both set: split, then combine.
 template <typename T, int HD, int NR>
 int launch_nr(const void* q, const void* k, const void* v,
               const int32_t* valid_len, void* out, float* part, int B, int S,
-              int Hq, int Hkv, int n_split, int split_len, float scale,
+              int Hq, int Hkv, int n_split, int split_len,
+              long long kv_bstride, int pos_off, float scale,
               cudaStream_t stream) {
   const long long ctas =
       (long long)B * Hkv * n_split * ((Hq / Hkv) / NR);
@@ -409,9 +425,9 @@ int launch_nr(const void* q, const void* k, const void* v,
   decode_split_kernel<T, HD, NR><<<(unsigned)ctas, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), valid_len, static_cast<T*>(out), part, S, Hq,
-      Hkv, n_split, split_len, scale);
+      Hkv, n_split, split_len, kv_bstride, pos_off, scale);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || n_split == 1) return (int)e;
+  if (e != cudaSuccess || part == nullptr || out == nullptr) return (int)e;
   const int rows = B * Hq;
   decode_combine_kernel<T, HD>
       <<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
@@ -419,40 +435,62 @@ int launch_nr(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// The arguments every launch shares, past the template's choices.
+struct Args {
+  const void *q, *k, *v;
+  const int32_t* valid_len;
+  void* out;
+  float* part;
+  int B, S, Hq, Hkv, n_split, split_len;
+  long long kv_bstride;
+  int pos_off;
+  float scale;
+  cudaStream_t stream;
+};
+
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v,
-           const int32_t* valid_len, void* out, float* part, int B, int S,
-           int Hq, int Hkv, int n_split, int split_len, float scale,
-           cudaStream_t s) {
-  const int n_rep = Hq / Hkv;
-  if (n_rep % 8 == 0)
-    return launch_nr<T, HD, 8>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
-                               n_split, split_len, scale, s);
-  if (n_rep % 4 == 0)
-    return launch_nr<T, HD, 4>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
-                               n_split, split_len, scale, s);
-  return launch_nr<T, HD, 1>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
-                             n_split, split_len, scale, s);
+int launch(const Args& a) {
+  const int n_rep = a.Hq / a.Hkv;
+#define ERCACHE_LAUNCH_NR(NR)                                              \
+  return launch_nr<T, HD, NR>(a.q, a.k, a.v, a.valid_len, a.out, a.part,  \
+                              a.B, a.S, a.Hq, a.Hkv, a.n_split,           \
+                              a.split_len, a.kv_bstride, a.pos_off,       \
+                              a.scale, a.stream)
+  if (n_rep % 8 == 0) ERCACHE_LAUNCH_NR(8);
+  if (n_rep % 4 == 0) ERCACHE_LAUNCH_NR(4);
+  ERCACHE_LAUNCH_NR(1);
+#undef ERCACHE_LAUNCH_NR
 }
 
 template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v,
-                const int32_t* valid_len, void* out, float* part, int B,
-                int S, int Hq, int Hkv, int hd, int n_split, int split_len,
-                float scale, cudaStream_t s) {
+int dispatch_hd(const Args& a, int hd) {
   switch (hd) {
     case 8:
-      return launch<T, 8>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
-                          n_split, split_len, scale, s);
+      return launch<T, 8>(a);
     case 16:
-      return launch<T, 16>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
-                           n_split, split_len, scale, s);
+      return launch<T, 16>(a);
     case 64:
-      return launch<T, 64>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
-                           n_split, split_len, scale, s);
+      return launch<T, 64>(a);
     case 128:
-      return launch<T, 128>(q, k, v, valid_len, out, part, B, S, Hq, Hkv,
-                            n_split, split_len, scale, s);
+      return launch<T, 128>(a);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(const Args& a, int hd, int dtype_code) {
+  if (a.B <= 0 || a.S <= 0 || a.Hkv <= 0 || a.Hq % a.Hkv != 0 ||
+      a.n_split <= 0 || a.split_len <= 0 || a.split_len % kTile != 0 ||
+      (long long)a.n_split * a.split_len < a.S ||
+      (long long)(a.n_split - 1) * a.split_len >= a.S ||
+      (a.n_split > 1 && a.part == nullptr) ||
+      (a.out == nullptr && a.part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  switch (dtype_code) {
+    case 0:
+      return dispatch_hd<float>(a, hd);
+    case 1:
+      return dispatch_hd<__nv_bfloat16>(a, hd);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -471,25 +509,33 @@ int ercache_decode_attention(const void* q, const void* k, const void* v,
                              int B, int S, int Hq, int Hkv, int hd,
                              int n_split, int split_len, float scale,
                              int dtype_code, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || n_split <= 0 ||
-      split_len <= 0 || split_len % kTile != 0 ||
-      (long long)n_split * split_len < S ||
-      (long long)(n_split - 1) * split_len >= S ||
-      (n_split > 1 && part == nullptr))
+  const Args a{q, k, v, valid_len, out,
+               n_split > 1 ? static_cast<float*>(part) : nullptr, B, S, Hq,
+               Hkv, n_split, split_len, (long long)S * Hkv * hd, 0, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (out == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(a, hd, dtype_code);
+}
+
+// The partials of n_split splits of a key range, no combine: part is
+// float32 (B, Hq, n_split, hd + 2) (acc, m, l), written for every split.
+// k and v hold the range's S keys of each batch row, rows kv_bstride
+// elements apart (a view of a longer cache); key j is position
+// pos_off + j against valid_len. Same dtypes and alignment as above.
+int ercache_decode_attention_partials(const void* q, const void* k,
+                                      const void* v,
+                                      const int32_t* valid_len, void* part,
+                                      int B, int S, int Hq, int Hkv, int hd,
+                                      int n_split, int split_len,
+                                      long long kv_bstride, int pos_off,
+                                      float scale, int dtype_code,
+                                      void* stream) {
+  const Args a{q, k, v, valid_len, nullptr, static_cast<float*>(part), B, S,
+               Hq, Hkv, n_split, split_len, kv_bstride, pos_off, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (part == nullptr || kv_bstride < (long long)S * Hkv * hd)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(part);
-  switch (dtype_code) {
-    case 0:
-      return dispatch_hd<float>(q, k, v, valid_len, out, p, B, S, Hq, Hkv, hd,
-                                n_split, split_len, scale, s);
-    case 1:
-      return dispatch_hd<__nv_bfloat16>(q, k, v, valid_len, out, p, B, S, Hq,
-                                        Hkv, hd, n_split, split_len, scale,
-                                        s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(a, hd, dtype_code);
 }
 
 const char* ercache_decode_attention_strerror(int code) {

@@ -1,5 +1,5 @@
-"""Collectives of the port: the single-device decode reference and the
-bucket-sharded cache tier.
+"""Collectives of the port: the decode attention, the sharded top-k and
+the bucket-sharded cache tier.
 
 Twin of ``repro/distributed/collectives.py``:
 
@@ -8,10 +8,27 @@ Twin of ``repro/distributed/collectives.py``:
   ``transformer.decode_step`` attends through :func:`decode_attention_local`
   with ``backend="torch"``. The query heads are grouped as (B, Hkv, n_rep,
   hd) against the (B, S, Hkv, hd) cache without repeating it, so a long
-  cache never grows n_rep-fold. The sequence-sharded combine
-  (``seq_sharded_decode_attention``) joins with the model-axis sharding;
-  :func:`combine_decode_partials` is its merge, which the split decode
-  kernel (``csrc/decode_attention.cu``) runs across the splits of one card.
+  cache never grows n_rep-fold. :func:`combine_decode_partials` is the
+  online-softmax merge, which the split decode kernel
+  (``csrc/decode_attention.cu``) also runs across the splits of one card.
+* The model-axis shard loops over a
+  :class:`~repro_torch.launch.mesh.ModelMesh`. The reference runs each body
+  under one ``shard_map``; here one controller runs the shards in
+  row-major order of the named axes (:func:`_combined_axis_index`), all on
+  the mesh's one device, and combines their results in the order of the
+  reference's collectives:
+
+  - :func:`seq_sharded_decode_attention`: shard s holds keys ``[s*Sl,
+    (s+1)*Sl)`` and gives (m, l, acc) partials, ``_local_decode_partials``
+    on the torch backend or one ``decode_attention_partials`` launch on
+    the cuda backend; :func:`combine_decode_partials` merges them;
+  - :func:`sharded_topk_scores`: a local float32 product and :func:`top_k`
+    a shard, ids offset by the shard's first row, the winners concatenated
+    in the reference's gather order, then a final :func:`top_k`.
+
+  :func:`top_k` is ``jax.lax.top_k``'s result: ``torch.topk`` promises no
+  order among equal scores, so its output is repaired to put the lower
+  index first, at the k-th boundary too.
 * The cache half: the probe and the flush of a cache tier split by bucket
   range over the shards of a :class:`~repro_torch.launch.mesh.CacheMesh`
   (``distributed/sharding.py`` places the tables). The reference runs each
@@ -41,11 +58,76 @@ of a ``MultiCacheState`` leaf. ``distributed/compat.py``, the reference's
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import itertools
+import math
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 
 NEG_INF = -1e30
+BACKENDS = ("torch", "cuda")
+
+AxisNames = Union[str, Tuple[str, ...]]
+
+
+def _as_tuple(axis: AxisNames) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _combined_axis_index(mesh, axes: Sequence[str], coords) -> int:
+    """Row-major linear index over several mesh axes of the shard at
+    ``coords`` (axis name -> index), as the reference's
+    ``_combined_axis_index`` reads it inside a ``shard_map``."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + coords[a]
+    return idx
+
+
+def _shard_coords(mesh, axes: Sequence[str]) -> Iterator[dict]:
+    """The coordinates over ``axes`` of every shard, in row-major order
+    (the first axis slowest)."""
+    for idx in itertools.product(*(range(mesh.shape[a]) for a in axes)):
+        yield dict(zip(axes, idx))
+
+
+def _axes_size(mesh, axes: Sequence[str]) -> int:
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def top_k(scores: torch.Tensor, k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis of (B, N) scores: the k largest
+    descending, equal scores lower index first, and at the k-th value the
+    lowest indices taken. Returns (values, int64 ids).
+
+    ``torch.topk`` gives the right values but any of the tied ids, in any
+    order. The repair: its k + 1 largest are taken, the first k ordered by
+    (value descending, index ascending), two stable sorts of k. Where the
+    (k+1)-th value equals the k-th, more scores tie at the k-th value than
+    there are slots: only for such a batch are the scores above it
+    counted and one more ``topk`` over the tied positions picks their
+    lowest indices. No full sort of the N scores is made."""
+    n = scores.shape[-1]
+    vals, idx = torch.topk(scores, min(k + 1, n), dim=-1)
+    crowded = (bool((vals[:, k] == vals[:, k - 1]).any()) if n > k
+               else False)
+    vals, idx = vals[:, :k], idx[:, :k]
+    order = torch.argsort(idx, dim=-1)                 # ids are distinct
+    vals, idx = vals.gather(-1, order), idx.gather(-1, order)
+    order = torch.argsort(vals, dim=-1, descending=True, stable=True)
+    vals, idx = vals.gather(-1, order), idx.gather(-1, order)
+    if crowded:
+        kth = vals[:, -1:]
+        n_above = (scores > kth).sum(dim=-1, keepdim=True)
+        dt = torch.int32 if n < 2 ** 31 else torch.int64
+        rev = torch.arange(n - 1, -1, -1, dtype=dt, device=scores.device)
+        low = (n - 1) - torch.topk(torch.where(scores == kth, rev, -1), k,
+                                   dim=-1).values.long()   # ascending ids
+        j = torch.arange(k, device=scores.device)[None, :]
+        idx = torch.where(j < n_above, idx,
+                          low.gather(-1, (j - n_above).clamp(min=0)))
+    return vals, idx
 
 
 def _local_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,6 +183,114 @@ def combine_decode_partials(m: torch.Tensor, l: torch.Tensor,
     l_g = (l * corr).sum(dim=0)
     acc_g = (acc * corr[..., None]).sum(dim=0)
     return (acc_g / torch.clamp(l_g[..., None], min=1e-30)).to(dtype)
+
+
+def batch_shard_axes(mesh, seq_axes: Sequence[str],
+                     batch_axes: Optional[AxisNames], batch: int
+                     ) -> Tuple[str, ...]:
+    """The reference's rule for the axes that split the decode batch:
+    ``batch_axes`` (default every mesh axis not in ``seq_axes``), kept in
+    order while their running product divides ``batch``."""
+    if batch_axes is None:
+        batch_axes = tuple(a for a in mesh.axis_names if a not in seq_axes)
+    keep, prod = [], 1
+    for a in _as_tuple(batch_axes):
+        if batch % (prod * mesh.shape[a]) == 0:
+            keep.append(a)
+            prod *= mesh.shape[a]
+    return tuple(keep)
+
+
+def seq_sharded_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, mesh,
+                                 seq_axes: AxisNames = "model",
+                                 batch_axes: Optional[AxisNames] = None,
+                                 kv_valid_len: Optional[torch.Tensor] = None,
+                                 *, backend: str = "cuda") -> torch.Tensor:
+    """Decode attention with the KV cache sequence-sharded over
+    ``seq_axes``: q (B, Hq, hd); k, v (B, S, Hkv, hd), S split into equal
+    key ranges, shard s (row-major over ``seq_axes``) holding ``[s*Sl,
+    (s+1)*Sl)`` -> (B, Hq, hd) in q's dtype.
+
+    Each shard's float32 (m, l, acc) over its range, positions offset by
+    ``s*Sl`` against ``kv_valid_len``, then the merge in shard order
+    (:func:`combine_decode_partials`: the reference's pmax and psums).
+    ``backend="torch"`` takes ``_local_decode_partials`` (a row with
+    ``kv_valid_len == 0`` gives the mean of v, as the reference);
+    ``"cuda"`` makes one ``decode_attention_partials`` launch a shard on
+    views of the cache (no copy), whose empty ranges carry l = 0, acc = 0,
+    so such a row gives zeros. The batch axes (:func:`batch_shard_axes`)
+    split rows only, which changes no value: the one controller computes
+    every row."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    seq_axes = _as_tuple(seq_axes)
+    mesh.device()                       # refuses a mesh of distinct devices
+    batch_shard_axes(mesh, seq_axes, batch_axes, q.shape[0])
+    n = _axes_size(mesh, seq_axes)
+    S = k.shape[1]
+    if S % n:
+        raise ValueError(f"a cache of {S} positions does not split over "
+                         f"{n} sequence shards")
+    sl = S // n
+    from repro_torch.kernels.decode_attention import \
+        decode_attention_partials
+
+    parts = []
+    for s in range(n):
+        lo = s * sl
+        k_l, v_l = k[:, lo:lo + sl], v[:, lo:lo + sl]
+        if backend == "cuda":
+            parts.append(decode_attention_partials(q, k_l, v_l,
+                                                   kv_valid_len, lo))
+            continue
+        mask = None
+        if kv_valid_len is not None:
+            pos = lo + torch.arange(sl, device=k.device)
+            mask = pos[None, :] < kv_valid_len[:, None]
+        parts.append(tuple(t[None] for t in _local_decode_partials(
+            q, k_l, v_l, kv_len_mask=mask)))
+    m, l, acc = (torch.cat(t) for t in zip(*parts))
+    return combine_decode_partials(m, l, acc, q.dtype)
+
+
+def sharded_topk_scores(query: torch.Tensor, candidates: torch.Tensor,
+                        k_top: int, mesh,
+                        cand_axes: AxisNames = ("data", "model")
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Retrieval scoring with the (N, D) candidates row-sharded over
+    ``cand_axes`` (those the mesh has): shard s (row-major) scores rows
+    ``[s*Nl, (s+1)*Nl)`` against the (B, D) queries in float32 and keeps
+    its :func:`top_k`, ids offset by ``s*Nl``; then a final
+    :func:`top_k` over the winners. Returns (values (B, k) float32, ids
+    (B, k) int32).
+
+    The winners are concatenated in the order the reference's gathers
+    leave them: it all-gathers one axis after another, so the LAST axis
+    is outermost (model-major for ``("data", "model")``) while the ids
+    are offset data-major; equal scores resolve by that block order."""
+    cand_axes = tuple(a for a in _as_tuple(cand_axes)
+                      if a in mesh.axis_names)
+    mesh.device()                       # refuses a mesh of distinct devices
+    n = _axes_size(mesh, cand_axes)
+    if candidates.shape[0] % n:
+        raise ValueError(f"{candidates.shape[0]} candidates do not split "
+                         f"over {n} shards")
+    nl = candidates.shape[0] // n
+    with torch.no_grad():
+        q = query.to(torch.float32)
+        local = []
+        for s in range(n):                  # row-major over cand_axes
+            rows = candidates[s * nl:(s + 1) * nl].to(torch.float32)
+            vals, idx = top_k(q @ rows.T, k_top)
+            local.append((vals, idx + s * nl))
+        order = [_combined_axis_index(mesh, cand_axes, c)
+                 for c in _shard_coords(mesh, cand_axes[::-1])]
+        vals_g = torch.cat([local[s][0] for s in order], dim=-1)
+        idx_g = torch.cat([local[s][1] for s in order], dim=-1)
+        vals, pos = top_k(vals_g, k_top)
+    return vals, idx_g.gather(-1, pos).to(torch.int32)
 
 
 # ============================================================ cache tier

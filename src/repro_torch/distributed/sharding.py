@@ -1,6 +1,20 @@
-"""Placement of the bucket-sharded cache tier.
+"""Logical-axis sharding rules, and placement of the bucket-sharded cache
+tier.
 
-Twin of the cache-tier half of ``repro/distributed/sharding.py``: shard s
+Twin of ``repro/distributed/sharding.py``. Its first half maps the models'
+LOGICAL axis names (``"batch"``, ``"heads"``, ``"rows"``, ...) onto the
+physical axes of a :class:`~repro_torch.launch.mesh.ModelMesh` through a
+rule set a model family: :func:`logical_to_spec` gives a :class:`Spec`
+(the port's own tuple type in place of ``jax.sharding.PartitionSpec``),
+dropping axes the mesh lacks and using each mesh axis at most once;
+:func:`divisible_or_replicate` replicates a dim its axes do not divide.
+:func:`constrain` computes and checks a tensor's spec and returns the
+tensor itself: a sharding constraint never changes a value, and the
+port's model-axis functions run every shard on one device, so nothing
+moves. The shard loops that do split work (the sharded bag, top-k,
+decode and GIN forward) take their shard counts from the same mesh.
+
+In the cache-tier half, shard s
 of a 1-D ``("shard",)`` :class:`~repro_torch.launch.mesh.CacheMesh` owns
 the contiguous bucket range ``[s*nb/N, (s+1)*nb/N)`` of every table. Where
 the reference lays one ``jax.Array`` over the mesh with a
@@ -9,18 +23,172 @@ shard, each a plain ``CacheState`` (or ``MultiCacheState``, split along
 its bucket axis 1) on its shard's device. The write and touch rings and
 the admission budget exist once, on the mesh's first device: one
 controller needs one copy (the reference's "replicated" is a placement).
-
-The logical-axis rules of the model-axis sharding (the reference's
-``:22``-``:173``) are not here.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Sequence, Tuple
+from typing import (Callable, Dict, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
 from repro_torch.core import cache as cache_lib
 from repro_torch.distributed import collectives as coll
+
+Axis = Union[None, str, Tuple[str, ...]]
+
+# ---------------------------------------------------------------- rule sets
+# logical axis name -> physical mesh axis (or tuple of axes); the
+# reference's rule sets, entry for entry.
+LM_RULES: Dict[str, Axis] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "kv_seq": "model",
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "ffn": "model",
+    "vocab": "model",
+    "expert": "model",
+    "expert_ffn": "data",
+    "layers": None,
+    "pos": None,
+}
+
+RECSYS_RULES: Dict[str, Axis] = {
+    "batch": ("pod", "data"),
+    "rows": "model",
+    "embed": None,
+    "ffn": "model",
+    "seq": None,
+    "heads": None,
+    "candidates": ("data", "model"),
+    "fields": None,
+    "interests": None,
+}
+
+GNN_RULES: Dict[str, Axis] = {
+    "nodes": ("pod", "data"),
+    "edges": ("pod", "data"),
+    "batch": ("pod", "data"),
+    "feat": None,
+    "hidden": None,
+    "layers": None,
+}
+
+RULES_BY_FAMILY = {"lm": LM_RULES, "recsys": RECSYS_RULES, "gnn": GNN_RULES}
+
+
+class Spec(tuple):
+    """A partition spec: one entry a dim, each None (replicated), a mesh
+    axis name or a tuple of them. ``Spec("data", None)``; compares equal
+    to the plain tuple of its entries."""
+
+    def __new__(cls, *entries: Axis) -> "Spec":
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple.__repr__(self)}"
+
+
+class Placement(NamedTuple):
+    """Where a tensor lives: a spec over a mesh (the reference's
+    ``NamedSharding``)."""
+
+    mesh: object
+    spec: Spec
+
+
+def logical_to_spec(logical: Sequence[Optional[str]],
+                    rules: Dict[str, Axis],
+                    mesh_axes: Sequence[str]) -> Spec:
+    """Map logical axis names to a spec valid on ``mesh_axes``: a name
+    missing from the rules, or whose mesh axes the mesh lacks, is
+    replicated, and each mesh axis is used at most once a spec."""
+    used = set()
+    out = []
+    for name in logical:
+        phys = rules.get(name) if name else None
+        if phys is None:
+            out.append(None)
+            continue
+        cand = phys if isinstance(phys, tuple) else (phys,)
+        keep = tuple(a for a in cand if a in mesh_axes and a not in used)
+        used.update(keep)
+        out.append(None if not keep else keep[0] if len(keep) == 1
+                   else keep)
+    return Spec(*out)
+
+
+def _is_logical(x) -> bool:
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        a is None or isinstance(a, str) for a in x)
+
+
+def _map_logical(fn: Callable, tree):
+    """``fn`` over the logical-axis tuples of a tree of dicts, lists and
+    NamedTuples (None stays None)."""
+    if _is_logical(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_logical(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_logical(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_logical(fn, v) for v in tree)
+    if tree is None:
+        return None
+    raise TypeError(f"not a logical-axis tree leaf: {tree!r}")
+
+
+def tree_spec(logical_tree, family: str, mesh):
+    """A tree of logical-axis tuples -> the same tree of specs."""
+    rules = RULES_BY_FAMILY[family]
+    return _map_logical(
+        lambda lg: logical_to_spec(lg, rules, mesh.axis_names), logical_tree)
+
+
+def tree_sharding(logical_tree, family: str, mesh):
+    """:func:`tree_spec` with each spec placed on ``mesh``."""
+    rules = RULES_BY_FAMILY[family]
+    return _map_logical(
+        lambda lg: Placement(mesh, logical_to_spec(lg, rules,
+                                                   mesh.axis_names)),
+        logical_tree)
+
+
+def divisible_or_replicate(spec: Sequence[Axis], shape: Sequence[int],
+                           mesh) -> Spec:
+    """Replicate every dim whose mesh-axis product does not divide it
+    (e.g. 56 heads on a 16-way model axis)."""
+    out = []
+    entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+    for dim, entry in zip(shape, entries):
+        if entry is None:
+            out.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        size = 1
+        for a in axes:
+            size *= mesh.shape[a]
+        out.append(entry if dim % size == 0 else None)
+    return Spec(*out)
+
+
+def constrain(x: torch.Tensor, logical: Sequence[Optional[str]],
+              family: str, mesh=None) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` by logical names: the
+    spec is computed and checked (as many names as ``x`` has dims at
+    most, a mesh on one device) and ``x`` itself is returned. No-op when
+    ``mesh`` is None."""
+    if mesh is None:
+        return x
+    mesh.device()                       # refuses a mesh of distinct devices
+    if len(logical) > x.dim():
+        raise ValueError(f"{len(logical)} logical axes {tuple(logical)} for "
+                         f"a tensor of shape {tuple(x.shape)}")
+    spec = logical_to_spec(logical, RULES_BY_FAMILY[family], mesh.axis_names)
+    divisible_or_replicate(spec, x.shape, mesh)
+    return x
 
 
 class ShardedCacheState(NamedTuple):

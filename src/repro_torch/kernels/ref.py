@@ -164,31 +164,47 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def decode_attention_partials_ref(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  valid_len: Optional[torch.Tensor],
+                                  pos_offset: int = 0, n_split: int = 1,
+                                  split_len: Optional[int] = None):
+    """The split kernel's float32 partials, as ``decode_attention_partials``
+    returns them: key j of k, v (B, S, Hkv, hd) is position ``pos_offset +
+    j``, positions at and after ``valid_len`` masked (None: all valid); the
+    S keys cut into ``n_split`` ranges of ``split_len`` (default: one range
+    of S), each giving ``_local_decode_partials``. A range wholly at or
+    past valid_len reads nothing and gives m = -1e30, l = 0, acc = 0 (the
+    JAX partials of such a range carry l = its length and acc = the sum of
+    its v). Returns m, l (n_split, B, Hq) and acc (n_split, B, Hq, hd)."""
+    B, S = q.shape[0], k.shape[1]
+    split_len = S if split_len is None else split_len
+    valid = (torch.full((B,), pos_offset + S, dtype=torch.long,
+                        device=q.device)
+             if valid_len is None else valid_len.to(q.device, torch.long))
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        lo, hi = i * split_len, min((i + 1) * split_len, S)
+        pos = pos_offset + torch.arange(lo, hi, device=q.device)
+        mask = pos[None, :] < valid[:, None]                  # (B, hi - lo)
+        m, l, acc = _local_decode_partials(q, k[:, lo:hi], v[:, lo:hi],
+                                           kv_len_mask=mask)
+        empty = (valid <= pos_offset + lo)[:, None]
+        ms.append(torch.where(empty, NEG_INF, m))
+        ls.append(torch.where(empty, 0.0, l))
+        accs.append(torch.where(empty[..., None], 0.0, acc))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
 def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor,
                                valid_len: Optional[torch.Tensor], n_split: int,
                                split_len: int) -> torch.Tensor:
     """:func:`decode_attention_ref` computed as the split kernel does: the
     S keys cut into ``n_split`` ranges of ``split_len``, float32 partials
-    (m, l, acc) per range, merged by ``combine_decode_partials``. A range
-    wholly at or past valid_len reads nothing and gives m = -1e30, l = 0,
-    acc = 0, so it drops out of the merge and a row with ``valid_len <= 0``
-    gives zeros (the JAX partials of such a range would carry l = its
-    length)."""
-    B, Hq, hd = q.shape
-    S = k.shape[1]
-    valid = (torch.full((B,), S, dtype=torch.long, device=q.device)
-             if valid_len is None else valid_len.to(q.device, torch.long))
-    ms, ls, accs = [], [], []
-    for i in range(n_split):
-        lo, hi = i * split_len, min((i + 1) * split_len, S)
-        pos = torch.arange(lo, hi, device=q.device)
-        mask = pos[None, :] < valid[:, None]                  # (B, hi - lo)
-        m, l, acc = _local_decode_partials(q, k[:, lo:hi], v[:, lo:hi],
-                                           kv_len_mask=mask)
-        empty = (valid <= lo)[:, None]
-        ms.append(torch.where(empty, NEG_INF, m))
-        ls.append(torch.where(empty, 0.0, l))
-        accs.append(torch.where(empty[..., None], 0.0, acc))
-    return combine_decode_partials(torch.stack(ms), torch.stack(ls),
-                                   torch.stack(accs), q.dtype)
+    per range (:func:`decode_attention_partials_ref`), merged by
+    ``combine_decode_partials``. An empty range drops out of the merge,
+    so a row with ``valid_len <= 0`` gives zeros."""
+    return combine_decode_partials(
+        *decode_attention_partials_ref(q, k, v, valid_len, 0, n_split,
+                                       split_len), q.dtype)

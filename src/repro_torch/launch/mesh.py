@@ -1,24 +1,34 @@
-"""The cache tier's device mesh.
+"""Device meshes: the model-axis meshes and the cache tier's mesh.
 
-Twin of ``make_cache_mesh`` in ``repro/launch/mesh.py``: a 1-D ``"shard"``
-mesh for the bucket-sharded cache tier, each shard holding a contiguous
-range of every table's buckets (``distributed/collectives.py``). The
-reference's ``jax.sharding.Mesh`` is driven by one controller, which runs
-the shard-mapped probe and flush on every device of the mesh; here one
-Python process does the same over a tuple of torch devices, one a shard.
+Twin of ``repro/launch/mesh.py``. The reference's ``jax.sharding.Mesh`` is
+driven by one controller, which runs a ``shard_map`` body on every device
+of the mesh; here one Python process does the same over torch devices:
 
-The reference's model-axis meshes (``make_production_mesh``,
-``make_host_mesh``) are not here: they belong to the model-axis sharding.
+* :class:`ModelMesh` (``make_host_mesh``, ``make_production_mesh``): the
+  named ``("data", "model")`` or ``("pod", "data", "model")`` grid of the
+  model-axis sharding (``distributed/sharding.py`` maps logical axes onto
+  it; ``distributed/collectives.py`` and the models loop over its shards).
+  Every function that takes one computes on ONE device and refuses a grid
+  of distinct devices (:meth:`ModelMesh.device`).
+* :class:`CacheMesh` (``make_cache_mesh``): a 1-D ``"shard"`` mesh for the
+  bucket-sharded cache tier, each shard holding a contiguous range of
+  every table's buckets, one torch device a shard.
+
+The reference's v5e constants (peak FLOP/s, HBM and ICI rates) belong to
+a TPU and have no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import sys
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 SHARD_AXIS = "shard"
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -55,6 +65,89 @@ class CacheMesh:
     def shape(self) -> Dict[str, int]:
         """``{"shard": N}``, as ``jax.sharding.Mesh.shape`` reads."""
         return {SHARD_AXIS: self.n_shards}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelMesh:
+    """A named device grid: ``devices`` holds ``prod(dims)`` torch devices
+    in row-major order over ``axis_names`` (the last axis fastest), as
+    ``jax.sharding.Mesh.devices.flat``. One device may appear several
+    times (the tests lay out large meshes on the CPU so)."""
+
+    dims: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    devices: Tuple[torch.device, ...]
+
+    def __post_init__(self) -> None:
+        dims, names = tuple(self.dims), tuple(self.axis_names)
+        devs = tuple(_indexed(torch.device(d)) for d in self.devices)
+        if len(dims) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"mesh axes {names} do not name dims {dims}")
+        if any(n < 1 for n in dims) or len(devs) != math.prod(dims):
+            raise ValueError(f"{len(devs)} devices for a mesh of {dims}")
+        object.__setattr__(self, "dims", dims)
+        object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "devices", devs)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, as ``jax.sharding.Mesh.shape`` reads."""
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def device(self) -> torch.device:
+        """The one device every shard of this mesh lives on. A grid of
+        distinct devices raises: the model-axis functions run their
+        shards one after another on one device, and nothing here can
+        test a mesh across devices (the reference's are TPU pods)."""
+        if len(set(self.devices)) != 1:
+            raise NotImplementedError(
+                "a model mesh over distinct devices "
+                f"({sorted(set(map(str, self.devices)))}) is not supported: "
+                "the model-axis sharding runs every shard on one device")
+        return self.devices[0]
+
+
+def _local_devices(devices: Optional[Sequence], what: str):
+    if devices is not None:
+        devs = [torch.device(d) for d in devices]
+        if any(d.type == "cuda" for d in devs) \
+                and not torch.cuda.is_available():
+            raise RuntimeError("a cuda device but no CUDA card is available")
+        return devs
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what} places the mesh on the CUDA cards and "
+                           "none is available; pass devices=[...] to run "
+                           "on the CPU")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def make_host_mesh(devices: Optional[Sequence] = None) -> ModelMesh:
+    """All local cards (or ``devices``) on a ``("data", "model")`` mesh
+    whose model axis is the largest of 4, 2, 1 dividing the device count:
+    ``(1, 1)`` on one H100."""
+    devs = _local_devices(devices, "make_host_mesh")
+    n = len(devs)
+    model = next(m for m in (4, 2, 1) if n % m == 0)
+    return ModelMesh((n // model, model), ("data", "model"), tuple(devs))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> ModelMesh:
+    """The reference's production mesh: ``(16, 16)`` over ``("data",
+    "model")``, or ``(2, 16, 16)`` over ``("pod", "data", "model")`` with
+    ``multi_pod``. It takes the first devices of ``devices`` (or of the
+    local cards) and refuses when there are fewer than the mesh has."""
+    dims, names = PRODUCTION_SHAPES[bool(multi_pod)]
+    devs = _local_devices(devices, "make_production_mesh")
+    need = math.prod(dims)
+    if len(devs) < need:
+        raise ValueError(f"a {dims} mesh needs {need} devices, "
+                         f"{len(devs)} given")
+    return ModelMesh(dims, names, tuple(devs[:need]))
 
 
 def make_cache_mesh(n_shards: int,

@@ -1,12 +1,12 @@
 """Training launcher: config -> data -> train loop -> checkpoints.
 
-Twin of ``repro/launch/train.py``: trains a model of any ported LM or
-recsys architecture (SMOKE widths unless ``--full-config``) on synthetic
-numpy data with the whole substrate engaged (optimizer, checkpoint/resume,
-train loop), on the card unless ``--device cpu``. The port draws its own
-init from ``torch.Generator`` seed 0 (``jax.random`` cannot be matched);
-the data streams are the reference's numpy draws. ``--arch gin-tu`` is
-not ported yet and raises.
+Twin of ``repro/launch/train.py``: trains a model of any architecture
+(an LM, the GNN or a recsys tower; SMOKE widths unless ``--full-config``)
+on synthetic numpy data with the whole substrate engaged (optimizer,
+checkpoint/resume, train loop), on the card unless ``--device cpu``. The
+port draws its own init from ``torch.Generator`` seed 0 (``jax.random``
+cannot be matched); the data streams are the reference's numpy draws
+(the GNN's through the sampler copy, ``models/sampler.py``).
 
 Usage::
 
@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.cache import resolve_device
+from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.training import optimizer as opt_lib
@@ -62,6 +63,41 @@ def recsys_batches(cfg, batch: int, seed: int = 0, device="cuda"):
         yield b
 
 
+GNN_D_FEAT = 32                 # the reference launcher's feature width
+
+
+def gnn_batches(cfg, batch_nodes: int = 64, seed: int = 0, device="cuda"):
+    """The reference's sampled GIN batches, draw for draw: a 2,048-node
+    power-law graph of 8,192 edges, then per step ``batch_nodes`` seeds
+    and a (5, 5)-fanout padded subgraph (node_feats, senders, receivers,
+    labels, mask)."""
+    from repro_torch.models.sampler import (NeighborSampler,
+                                            synthetic_power_law_graph)
+
+    device = resolve_device(device)
+    g = synthetic_power_law_graph(2048, 8192, d_feat=GNN_D_FEAT,
+                                  n_classes=cfg.n_classes, seed=seed)
+    sampler = NeighborSampler(g, fanout=(5, 5), batch_nodes=batch_nodes,
+                              seed=seed)
+    rng = np.random.default_rng(seed)
+    while True:
+        seeds = rng.choice(g.n_nodes, batch_nodes, replace=False)
+        sub = sampler.sample(seeds)
+        yield {k: torch.as_tensor(v, device=device) for k, v in sub.items()
+               if k in ("node_feats", "senders", "receivers", "labels",
+                        "mask")}
+
+
+def gnn_train_state(cfg, opt, device="cuda", seed: int = 0):
+    """(params, opt_state) of a random GIN over the launcher's features."""
+    device = resolve_device(device)
+    model = gnn_lib.init_params(
+        torch.Generator(device=device).manual_seed(seed), cfg, GNN_D_FEAT,
+        device=device)
+    params = gnn_lib.param_tree(model)
+    return params, opt.init(params)
+
+
 def lm_train_state(cfg, opt, device="cuda", seed: int = 0
                    ) -> tfm.TrainState:
     """Random init (``torch.Generator`` seed on ``device``) and a fresh
@@ -84,10 +120,9 @@ def recsys_train_state(cfg, opt, device="cuda", seed: int = 0):
     return params, opt.init(params)
 
 
-def recsys_loop_step(cfg, opt):
-    """The reference's loop adapter: ``step((params, opt_state), batch)``."""
-    inner = rec_lib.make_train_step(cfg, opt)
-
+def loop_step(inner):
+    """The reference's loop adapter of a ``step(params, opt_state,
+    batch)``: ``step((params, opt_state), batch)``."""
     def step(state, batch):
         p, o, m = inner(state[0], state[1], batch)
         return (p, o), m
@@ -120,11 +155,18 @@ def main(argv=None):
         state = run_train_loop(
             tfm.make_train_step(cfg, opt), lm_train_state(cfg, opt, device),
             lm_batches(cfg, args.batch, args.seq, device=device), loop_cfg)
+    elif cfg.family == "recsys":
+        opt = opt_lib.for_config(cfg)
+        state = run_train_loop(
+            loop_step(rec_lib.make_train_step(cfg, opt)),
+            recsys_train_state(cfg, opt, device),
+            recsys_batches(cfg, args.batch, device=device), loop_cfg)
     else:
         opt = opt_lib.for_config(cfg)
         state = run_train_loop(
-            recsys_loop_step(cfg, opt), recsys_train_state(cfg, opt, device),
-            recsys_batches(cfg, args.batch, device=device), loop_cfg)
+            loop_step(gnn_lib.make_train_step(cfg, opt, kind="node")),
+            gnn_train_state(cfg, opt, device), gnn_batches(cfg, device=device),
+            loop_cfg)
     print("[train] done")
     return state
 

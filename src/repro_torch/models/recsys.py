@@ -1,9 +1,14 @@
 """RecSys towers, the ERCache-native family: Wide&Deep, SASRec, BST, MIND.
 
 Twin of ``repro/models/recsys.py``: the towers, the serve-side scores,
-``retrieval_step``, the training losses and the train step on one device
-(the row-sharded tables and the mesh branches join with the scale-out
-slice). The hot path is the sparse embedding lookup: on the card every
+``retrieval_step``, the training losses and the train step, each with the
+reference's ``mesh=`` (a ``launch.mesh.ModelMesh``): under a mesh with a
+``"model"`` axis Wide&Deep's tables are row-sharded
+(:func:`sharded_field_embedding_bag`, one bag launch a shard), the
+retrieval of the non-MIND towers is candidate-sharded
+(``collectives.sharded_topk_scores``), and the reference's sharding
+constraints are checked (``sharding.constrain``), which changes no value.
+The hot path is the sparse embedding lookup: on the card every
 serving gather runs the hand-written ``embedding_bag`` kernel
 (``kernels/embedding_bag.py``), the "TPU-target implementation" the
 reference names for it, and Wide&Deep's F field bags are ONE launch
@@ -13,7 +18,7 @@ losses run its ``jnp`` bag under ``jax.grad``: the kernel has no
 backward.
 
 The ERCache tower contract is kept as a plain function:
-    ``tower_step(params, inputs, cfg, impl) -> (B, cfg.user_embed_dim)``
+    ``tower_step(params, inputs, cfg, impl, mesh) -> (B, cfg.user_embed_dim)``
 where ``params`` is the tower's ``nn.Module`` (parameters frozen until a
 train step makes them trainable). :func:`param_tree` gives the
 reference's parameter pytree over a module's own Parameters.
@@ -28,6 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 from repro_torch.training.optimizer import leaf_grads, trainable
@@ -70,6 +77,22 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mode: str = "sum",
     return out.reshape(*lead, table.shape[1])
 
 
+def _field_rows(tables: torch.Tensor, ids: torch.Tensor):
+    """The (F*V, D) view of field tables (F, V, D), and ids (B, F, nnz)
+    as int32 with field f's ids offset by f*V. The view needs contiguous
+    tables (never copied: a Wide&Deep table stack is 10 GB at the
+    published widths)."""
+    n_fields, vocab, dim = tables.shape
+    if n_fields * vocab > _INT32_MAX:
+        raise ValueError(f"{n_fields} x {vocab} rows overflow int32 ids")
+    if not tables.is_contiguous():
+        raise ValueError("the field bags need contiguous tables")
+    ids = ids.to(torch.int32)
+    offset = torch.arange(n_fields, dtype=torch.int32,
+                          device=ids.device)[:, None] * vocab
+    return tables.view(n_fields * vocab, dim), ids, ids + offset
+
+
 def field_embedding_bag(tables: torch.Tensor, ids: torch.Tensor,
                         mode: str = "sum", impl: str = "cuda"
                         ) -> torch.Tensor:
@@ -78,19 +101,51 @@ def field_embedding_bag(tables: torch.Tensor, ids: torch.Tensor,
 
     Field f's ids are offset by f*V where they are >= 0 (pads stay -1),
     so each bag reads rows of its own field only and its sum is that
-    field's. The view needs contiguous tables (never copied: a
-    Wide&Deep table stack is 10 GB at the published widths)."""
-    n_fields, vocab, dim = tables.shape
-    if n_fields * vocab > _INT32_MAX:
-        raise ValueError(f"{n_fields} x {vocab} rows overflow int32 ids")
-    if not tables.is_contiguous():
-        raise ValueError("field_embedding_bag needs contiguous tables")
-    ids = ids.to(torch.int32)
-    offset = torch.arange(n_fields, dtype=torch.int32,
-                          device=ids.device)[:, None] * vocab
-    ids = torch.where(ids >= 0, ids + offset, ids)
-    return embedding_bag(tables.view(n_fields * vocab, dim), ids, mode,
-                         impl)
+    field's."""
+    flat, ids, rows = _field_rows(tables, ids)
+    return embedding_bag(flat, torch.where(ids >= 0, rows, ids), mode, impl)
+
+
+def sharded_field_embedding_bag(tables: torch.Tensor, ids: torch.Tensor,
+                                mesh, rows_axis: str = "model",
+                                batch_axes=("pod", "data"),
+                                scatter_batch: bool = False,
+                                impl: str = "cuda") -> torch.Tensor:
+    """The per-field bags with tables (F, V, D) row-sharded over
+    ``rows_axis``: shard s owns rows ``[s*Vl, (s+1)*Vl)`` of every field.
+    ids (B, F, nnz), -1 = padding -> (B, F, D) in the table dtype.
+
+    Shard s maps its owned ids to ``f*V + id`` in the (F*V, D) view of
+    :func:`field_embedding_bag` and every other id to -1, then makes ONE
+    bag launch that reads its rows only (the view is never copied). Its
+    partial is in the table dtype, as the reference casts it, and the
+    partials are summed in shard order, every shard added: as the
+    reference's ``psum``, a bag that reads -0.0 gives +0.0 at two shards or
+    more. ``scatter_batch`` (the reference's ``psum_scatter`` serving
+    layout) gives the same values; ``batch_axes`` split rows only. The
+    plain version (``impl="torch"``) is differentiable: a sharded train
+    step runs it into the one tables tensor."""
+    vocab = tables.shape[1]
+    n = mesh.shape[rows_axis]
+    mesh.device()                       # refuses a mesh of distinct devices
+    if vocab % n:
+        raise ValueError(f"{vocab} rows do not split over {n} shards")
+    vl = vocab // n
+    flat, ids, rows = _field_rows(tables, ids)
+    total = None
+    for s in range(n):
+        owned = (ids >= s * vl) & (ids < (s + 1) * vl)
+        part = embedding_bag(flat, torch.where(owned, rows, -1), impl=impl)
+        total = part if total is None else total + part
+    return total
+
+
+def _shardable(cfg: RecsysConfig, table: torch.Tensor, mesh) -> bool:
+    """The reference's rule for the row-sharded bag: a mesh with a model
+    axis that divides the table's rows."""
+    return (cfg.sharded_bag and mesh is not None
+            and "model" in mesh.axis_names
+            and table.shape[1] % mesh.shape["model"] == 0)
 
 
 # ============================================================== wide & deep
@@ -133,22 +188,37 @@ class WideDeep(nn.Module):
         for b in self.mlp_b:
             b.zero_()
 
-    def tower(self, inputs, cfg: RecsysConfig, impl: str = "cuda"):
+    def _bags(self, table, ids, cfg: RecsysConfig, impl: str, mesh):
+        """(bags, scatter): the field bags of ``table``, row-sharded under
+        a mesh that allows it."""
+        if not _shardable(cfg, table, mesh):
+            return field_embedding_bag(table, ids, impl=impl), False
+        scatter = cfg.serve_scatter and ids.shape[0] % mesh.size == 0
+        return sharded_field_embedding_bag(table, ids, mesh,
+                                           scatter_batch=scatter,
+                                           impl=impl), scatter
+
+    def tower(self, inputs, cfg: RecsysConfig, impl: str = "cuda",
+              mesh=None):
         """sparse_ids (B, F, nnz) -> deep-tower top (B, mlp[-1])."""
-        bags = field_embedding_bag(self.tables, inputs["sparse_ids"],
-                                   impl=impl)                # (B, F, D)
+        bags, scatter = self._bags(self.tables, inputs["sparse_ids"], cfg,
+                                   impl, mesh)               # (B, F, D)
         x = bags.reshape(bags.shape[0], -1).to(torch.float32)
+        if not scatter:
+            x = constrain(x, ("batch", None), "recsys", mesh)
         for w, b in zip(self.mlp_w, self.mlp_b):
             x = F.relu(x @ w + b)
+            if not scatter:  # scatter: batch-parallel, replicated weights
+                x = constrain(x, ("batch", "ffn"), "recsys", mesh)
         return x
 
-    def score(self, inputs, cfg: RecsysConfig, impl: str = "cuda"):
+    def score(self, inputs, cfg: RecsysConfig, impl: str = "cuda",
+              mesh=None):
         """(B,) logit: the deep head plus the wide part, whose per-field
-        scalar bags are one more one-launch field bag."""
-        deep = self.tower(inputs, cfg, impl) @ self.head
-        wide_rows = field_embedding_bag(self.wide[..., None],
-                                        inputs["sparse_ids"],
-                                        impl=impl)[..., 0]    # (B, F)
+        scalar bags are one more field bag (D = 1)."""
+        deep = self.tower(inputs, cfg, impl, mesh) @ self.head
+        wide_rows = self._bags(self.wide[..., None], inputs["sparse_ids"],
+                               cfg, impl, mesh)[0][..., 0]    # (B, F)
         return deep[:, 0] + wide_rows.sum(dim=1).to(torch.float32)
 
 
@@ -228,18 +298,20 @@ class SASRec(nn.Module):
         self.ln_b.zero_()
 
     def forward(self, seq: torch.Tensor, cfg: RecsysConfig,
-                impl: str = "cuda") -> torch.Tensor:
+                impl: str = "cuda", mesh=None) -> torch.Tensor:
         """seq (B, S) item ids (-1 pad) -> (B, D)."""
         x = embedding_bag(self.item_emb, seq[..., None], impl=impl)
         x = x + self.pos_emb[None, :seq.shape[1]]
         x = torch.where((seq >= 0)[..., None], x, 0.0)
+        x = constrain(x, ("batch", "seq", None), "recsys", mesh)
         for blk in self.blocks:
             x = blk(x, cfg.n_heads)
         x = L.layer_norm(x, self.ln_w, self.ln_b)
         return x[:, -1]
 
-    def tower(self, inputs, cfg: RecsysConfig, impl: str = "cuda"):
-        return self(inputs["seq"], cfg, impl=impl)
+    def tower(self, inputs, cfg: RecsysConfig, impl: str = "cuda",
+              mesh=None):
+        return self(inputs["seq"], cfg, impl=impl, mesh=mesh)
 
 
 # ======================================================================= bst
@@ -288,30 +360,36 @@ class BST(nn.Module):
             b.zero_()
 
     def encode(self, seq: torch.Tensor, target: torch.Tensor,
-               cfg: RecsysConfig, impl: str = "cuda") -> torch.Tensor:
+               cfg: RecsysConfig, impl: str = "cuda",
+               mesh=None) -> torch.Tensor:
         """Transformer over [behaviours ; target] -> (B, S+1, D)."""
         full = torch.cat([seq, target[:, None].to(seq.dtype)], dim=1)
         x = embedding_bag(self.item_emb, full[..., None], impl=impl)
         x = x + self.pos_emb[None]
         x = torch.where((full >= 0)[..., None], x, 0.0)
+        x = constrain(x, ("batch", "seq", None), "recsys", mesh)
         for blk in self.blocks:
             x = blk(x, cfg.n_heads)
         return x
 
-    def tower(self, inputs, cfg: RecsysConfig, impl: str = "cuda"):
+    def tower(self, inputs, cfg: RecsysConfig, impl: str = "cuda",
+              mesh=None):
         """Mean over all ``seq_len`` behaviour positions (pads included,
         as in the reference); the padded target is item 0, not -1, so it
         is gathered and attended to (target-independent: cacheable)."""
         seq = inputs["seq"]
         pad_target = torch.zeros(seq.shape[0], dtype=seq.dtype,
                                  device=seq.device)
-        return self.encode(seq, pad_target, cfg, impl)[:, :-1].mean(dim=1)
+        return self.encode(seq, pad_target, cfg, impl,
+                           mesh)[:, :-1].mean(dim=1)
 
-    def score(self, inputs, cfg: RecsysConfig, impl: str = "cuda"):
-        x = self.encode(inputs["seq"], inputs["target"], cfg, impl)
+    def score(self, inputs, cfg: RecsysConfig, impl: str = "cuda",
+              mesh=None):
+        x = self.encode(inputs["seq"], inputs["target"], cfg, impl, mesh)
         flat = x.reshape(x.shape[0], -1)
         for w, b in zip(self.mlp_w, self.mlp_b):
             flat = F.leaky_relu(flat @ w + b)
+            flat = constrain(flat, ("batch", "ffn"), "recsys", mesh)
         return (flat @ self.head)[:, 0]
 
 
@@ -349,10 +427,11 @@ class MIND(nn.Module):
         self.b_init.normal_(0.0, 0.1, generator=gen)
 
     def interests(self, seq: torch.Tensor, cfg: RecsysConfig,
-                  impl: str = "cuda") -> torch.Tensor:
+                  impl: str = "cuda", mesh=None) -> torch.Tensor:
         """Dynamic-routing capsules: seq (B, S) -> interests (B, K, D).
         The routing softmax runs over the K capsules and the padding
-        mask applies after it."""
+        mask applies after it. ``mesh`` is taken and unused, as in the
+        reference."""
         B, S = seq.shape
         e = embedding_bag(self.item_emb, seq[..., None], impl=impl)
         mask = seq >= 0
@@ -366,19 +445,25 @@ class MIND(nn.Module):
             logits = logits + torch.einsum("bke,bse->bks", u, low)
         return u
 
-    def tower(self, inputs, cfg: RecsysConfig, impl: str = "cuda"):
-        ints = self.interests(inputs["seq"], cfg, impl)
+    def tower(self, inputs, cfg: RecsysConfig, impl: str = "cuda",
+              mesh=None):
+        ints = self.interests(inputs["seq"], cfg, impl, mesh)
         return ints.reshape(ints.shape[0], -1)
 
 
 # ================================================================= retrieval
 def retrieval_step(user_repr: torch.Tensor, candidates: torch.Tensor,
-                   cfg: RecsysConfig, k_top: int = 100):
-    """(B, D') queries vs the (N, D') candidate matrix -> (scores, ids),
-    the top ``k_top`` by float32 dot product (one batched product, no
-    loop). MIND queries are (B, K*D): a candidate's score is its max over
-    the K interests. Serving only: no gradient. Ties may be ordered
-    differently from ``jax.lax.top_k``."""
+                   cfg: RecsysConfig, k_top: int = 100, mesh=None):
+    """(B, D') queries vs the (N, D') candidate matrix -> (scores, ids
+    int32), ``jax.lax.top_k`` of the float32 dot products (one batched
+    product, no loop; ``collectives.top_k``: equal scores lower id first).
+    MIND queries are (B, K*D): a candidate's score is its max over the K
+    interests. Under a mesh the other towers score candidate-sharded
+    (``collectives.sharded_topk_scores``), as the reference. Serving
+    only: no gradient."""
+    if cfg.interaction != "multi-interest" and mesh is not None:
+        return collectives.sharded_topk_scores(user_repr, candidates, k_top,
+                                               mesh)
     with torch.no_grad():
         cand = candidates.to(torch.float32)
         if cfg.interaction == "multi-interest":
@@ -387,8 +472,8 @@ def retrieval_step(user_repr: torch.Tensor, candidates: torch.Tensor,
             scores = torch.einsum("bkd,nd->bkn", q, cand).amax(dim=1)
         else:
             scores = user_repr.to(torch.float32) @ cand.T
-        top = torch.topk(scores, k_top, dim=-1)
-    return top.values, top.indices.to(torch.int32)
+        vals, ids = collectives.top_k(scores, k_top)
+    return vals, ids.to(torch.int32)
 
 
 # ================================================================== registry
@@ -453,27 +538,34 @@ def load_jax_params(np_tree: Dict, device="cuda") -> nn.Module:
     return model
 
 
+def abstract_params(cfg: RecsysConfig) -> Dict:
+    """The tower's parameter tree on the ``meta`` device: shapes and
+    dtypes, nothing allocated (the reference's ``eval_shape``)."""
+    return param_tree(get_arch_fns(cfg.arch_id).from_config(cfg, "meta"))
+
+
 def tower_step(params: nn.Module, inputs: Dict[str, torch.Tensor],
-               cfg: RecsysConfig, impl: str = "cuda") -> torch.Tensor:
+               cfg: RecsysConfig, impl: str = "cuda",
+               mesh=None) -> torch.Tensor:
     """The ERCache tower contract: ``inputs`` (``"sparse_ids"`` (B, F,
     nnz) for Wide&Deep, ``"seq"`` (B, S) otherwise) -> (B,
     cfg.user_embed_dim)."""
     with torch.no_grad():
-        return params.tower(inputs, cfg, impl)
+        return params.tower(inputs, cfg, impl, mesh)
 
 
 def wide_deep_score(params: WideDeep, inputs, cfg: RecsysConfig,
-                    impl: str = "cuda") -> torch.Tensor:
+                    impl: str = "cuda", mesh=None) -> torch.Tensor:
     """Wide&Deep's serving score (B,): deep head plus the wide part."""
     with torch.no_grad():
-        return params.score(inputs, cfg, impl)
+        return params.score(inputs, cfg, impl, mesh)
 
 
 def bst_score(params: BST, inputs, cfg: RecsysConfig,
-              impl: str = "cuda") -> torch.Tensor:
+              impl: str = "cuda", mesh=None) -> torch.Tensor:
     """BST's serving score (B,) of ``inputs["target"]`` (-1 masked)."""
     with torch.no_grad():
-        return params.score(inputs, cfg, impl)
+        return params.score(inputs, cfg, impl, mesh)
 
 
 # ================================================================ training
@@ -527,14 +619,14 @@ def _sampled_softmax(user_vec, item_table, pos_ids, neg_ids):
 
 
 def wide_deep_loss(params: WideDeep, batch, cfg: RecsysConfig,
-                   impl: str = "torch"):
-    return _bce(params.score(batch, cfg, impl), batch["labels"])
+                   impl: str = "torch", mesh=None):
+    return _bce(params.score(batch, cfg, impl, mesh), batch["labels"])
 
 
 def sasrec_loss(params: SASRec, batch, cfg: RecsysConfig,
-                impl: str = "torch"):
+                impl: str = "torch", mesh=None):
     """Standard SASRec BCE: positive next item vs one sampled negative."""
-    h = params.tower(batch, cfg, impl)                        # (B, D)
+    h = params.tower(batch, cfg, impl, mesh)                  # (B, D)
     pos = params.item_emb[batch["pos"].long()]
     neg = params.item_emb[batch["neg"].long()]
     s_pos = torch.einsum("bd,bd->b", h, pos)
@@ -543,14 +635,15 @@ def sasrec_loss(params: SASRec, batch, cfg: RecsysConfig,
     return _bce(s_pos, ones) + _bce(s_neg, 1.0 - ones)
 
 
-def bst_loss(params: BST, batch, cfg: RecsysConfig, impl: str = "torch"):
-    return _bce(params.score(batch, cfg, impl), batch["labels"])
+def bst_loss(params: BST, batch, cfg: RecsysConfig, impl: str = "torch",
+             mesh=None):
+    return _bce(params.score(batch, cfg, impl, mesh), batch["labels"])
 
 
 def mind_loss(params: MIND, batch, cfg: RecsysConfig, impl: str = "torch",
-              pow_p: float = 2.0):
+              mesh=None, pow_p: float = 2.0):
     """Label-aware attention over interests + sampled softmax."""
-    ints = params.interests(batch["seq"], cfg, impl)          # (B, K, D)
+    ints = params.interests(batch["seq"], cfg, impl, mesh)    # (B, K, D)
     tgt = params.item_emb[batch["target"].long()]
     att = torch.softmax(torch.einsum("bkd,bd->bk", ints, tgt) * pow_p,
                         dim=1)
@@ -564,16 +657,16 @@ LOSSES = {"wide-deep": wide_deep_loss, "sasrec": sasrec_loss,
 
 
 def loss_fn(params: nn.Module, batch, cfg: RecsysConfig,
-            impl: str = "torch") -> torch.Tensor:
+            impl: str = "torch", mesh=None) -> torch.Tensor:
     """The tower's training loss (a float32 scalar). The default
     ``impl="torch"`` gathers with the bag's plain version, which autograd
     differentiates; the kernel refuses inputs that need a gradient."""
     get_arch_fns(cfg.arch_id)                  # raises on a non-tower arch
     return LOSSES[cfg.arch_id.replace("-smoke", "")](params, batch, cfg,
-                                                     impl)
+                                                     impl, mesh)
 
 
-def make_train_step(cfg: RecsysConfig, optimizer):
+def make_train_step(cfg: RecsysConfig, optimizer, mesh=None):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     {"loss"})``: one gradient of :func:`loss_fn` and one optimizer
     application. ``params`` is the reference's pytree
@@ -583,7 +676,7 @@ def make_train_step(cfg: RecsysConfig, optimizer):
 
     def step(params, opt_state, batch):
         params = trainable(params)
-        loss = loss_fn(bind_tree(skeleton, params), batch, cfg)
+        loss = loss_fn(bind_tree(skeleton, params), batch, cfg, mesh=mesh)
         grads = leaf_grads(loss, params)
         opt_state = optimizer.apply(grads, opt_state, params)
         return params, opt_state, {"loss": loss.detach()}

@@ -27,6 +27,16 @@ step attends through the hand-written ``decode_attention`` kernel
 ``collectives.decode_attention_local`` (``backend="torch"``). Training
 runs the plain versions (``backend="torch"``): the hand kernels have no
 backward.
+
+Each entry point takes the reference's ``mesh=`` (a
+``launch.mesh.ModelMesh``): the logical-axis constraints are checked at
+the reference's points (``sharding.constrain``, which changes no value),
+and ``decode_step`` attends through
+``collectives.seq_sharded_decode_attention`` over ``seq_axes`` (cuda: one
+``decode_attention_partials`` launch a sequence shard and layer).
+:func:`param_logical_axes` and :func:`kv_cache_logical_axes` name every
+leaf's logical axes; :func:`abstract_params` is the parameter tree on the
+``meta`` device.
 """
 from __future__ import annotations
 
@@ -38,6 +48,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.training.optimizer import (global_norm, leaf_grads,
@@ -75,6 +88,37 @@ def layer_param_shapes(cfg: LMConfig) -> Dict[str, Tuple[tuple, str]]:
                        "moe_wu": ((E, D, F), "fan_in"),
                        "moe_wd": ((E, F, D), "fan_in")})
     return shapes
+
+
+LAYER_LOGICAL = {
+    "attn_norm": ("layers", "embed"),
+    "wq": ("layers", "embed", "heads"),
+    "wk": ("layers", "embed", "kv_heads"),
+    "wv": ("layers", "embed", "kv_heads"),
+    "wo": ("layers", "heads", "embed"),
+    "ffn_norm": ("layers", "embed"),
+    "wg": ("layers", "embed", "ffn"),
+    "wu": ("layers", "embed", "ffn"),
+    "wd": ("layers", "ffn", "embed"),
+    "router": ("layers", "embed", None),
+    # expert weights: experts on model, d_model on data (a 2nd shard)
+    "moe_wg": ("layers", "expert", "expert_ffn", None),
+    "moe_wu": ("layers", "expert", "expert_ffn", None),
+    "moe_wd": ("layers", "expert", None, "expert_ffn"),
+}
+
+TOP_LOGICAL = {
+    "embed": ("vocab", "embed"),
+    "unembed": ("embed", "vocab"),
+    "final_norm": ("embed",),
+    "user_head": ("embed", None),
+}
+
+
+def param_logical_axes(cfg: LMConfig) -> Dict:
+    """The logical axes of every leaf of :func:`param_tree`'s tree."""
+    layer_axes = {k: LAYER_LOGICAL[k] for k in layer_param_shapes(cfg)}
+    return {**TOP_LOGICAL, "layers": layer_axes}
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -125,6 +169,28 @@ def param_tree(model: LMTower) -> Dict:
     (no copy): top-level leaves and ``"layers"``, the stacked ones."""
     return {**{k: getattr(model, k) for k in TOP_KEYS},
             "layers": dict(model.stack.items())}
+
+
+def abstract_params(cfg: LMConfig) -> Dict:
+    """The parameter tree on the ``meta`` device: shapes and dtypes,
+    nothing allocated (the reference's ``eval_shape``)."""
+    return param_tree(LMTower(cfg, device="meta"))
+
+
+def _param_shardings(cfg: LMConfig, params_like: Dict, mesh) -> Dict:
+    """Each leaf's placement from the logical-axis rules, a dim its axes
+    do not divide replicated (the reference pins the gradient sums to
+    them; on the port's one-device mesh they are a checked plan)."""
+    def place(logical, p):
+        spec = sharding.logical_to_spec(logical, sharding.LM_RULES,
+                                        mesh.axis_names)
+        return sharding.Placement(
+            mesh, sharding.divisible_or_replicate(spec, p.shape, mesh))
+
+    logical = param_logical_axes(cfg)
+    return {**{k: place(logical[k], params_like[k]) for k in TOP_LOGICAL},
+            "layers": {k: place(lg, params_like["layers"][k])
+                       for k, lg in logical["layers"].items()}}
 
 
 def bind_tree(model: LMTower, tree: Dict) -> LMTower:
@@ -209,7 +275,7 @@ def _ffn_apply(lp, h, cfg: LMConfig):
 
 
 def _layer_apply(lp, x, cos, sin, cfg: LMConfig, backend: str,
-                 kv_out=None):
+                 kv_out=None, mesh=None):
     """One pre-norm layer over x (B, T, D): x + attn(norm(x)), then + the
     FFN of norm(x). Returns (x, aux or None). With ``kv_out`` = (k, v)
     buffers of shape (B, >= T, Hkv, hd), the post-RoPE k and the v of the
@@ -218,6 +284,7 @@ def _layer_apply(lp, x, cos, sin, cfg: LMConfig, backend: str,
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q = L.apply_rope((h @ lp["wq"]).reshape(B, T, Hq, hd), cos, sin)
+    q = constrain(q, ("batch", "seq", "heads", None), "lm", mesh)
     k = L.apply_rope((h @ lp["wk"]).reshape(B, T, Hkv, hd), cos, sin)
     v = (h @ lp["wv"]).reshape(B, T, Hkv, hd)
     if kv_out is not None:
@@ -228,7 +295,7 @@ def _layer_apply(lp, x, cos, sin, cfg: LMConfig, backend: str,
     x = x + o.reshape(B, T, Hq * hd) @ lp["wo"]
     f, aux = _ffn_apply(lp, L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps),
                         cfg)
-    return x + f, aux
+    return constrain(x + f, ("batch", "seq", "embed"), "lm", mesh), aux
 
 
 def _layer_views(params) -> List[Dict[str, torch.Tensor]]:
@@ -239,14 +306,25 @@ def _layer_views(params) -> List[Dict[str, torch.Tensor]]:
             for i in range(params.n_layers)]
 
 
+def _embed_tokens(params: LMTower, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embedding, a row gather with or without a mesh. Under a
+    mesh the reference takes a one-hot matmul against the vocab-sharded
+    table (``transformer.py:182``), which at 245,760 tokens x 32,000 would
+    be a 15.7 GB bf16 operand here; it gives the same values but for a
+    stored -0.0 element, which its sum over the vocabulary reads back as
+    +0.0 (the gather keeps the sign)."""
+    return params.embed[tokens.long()]
+
+
 def _forward(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
-             backend: str, kv_out=None):
+             backend: str, kv_out=None, mesh=None):
     """The layers over tokens (B, S) -> (final hidden, float32 aux loss
     summed over layers). With ``kv_out`` = (k, v) stacked (L, B, >= S,
     Hkv, hd) buffers, layer i writes its k and v into
     ``kv_out[.][i, :, :S]`` (no second copy of the cache)."""
     S = tokens.shape[1]
-    x = params.embed[tokens.long()]
+    x = constrain(_embed_tokens(params, tokens), ("batch", "seq", "embed"),
+                  "lm", mesh)
     cos, sin = L.rope_tables(torch.arange(S, device=tokens.device), cfg.hd,
                              cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -255,26 +333,27 @@ def _forward(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
         kv = None if kv_out is None else (kv_out[0][i], kv_out[1][i])
         if remat:
             x, a = checkpoint(_layer_apply, lp, x, cos, sin, cfg, backend,
-                              kv, use_reentrant=False)
+                              kv, mesh, use_reentrant=False)
         else:
-            x, a = _layer_apply(lp, x, cos, sin, cfg, backend, kv)
+            x, a = _layer_apply(lp, x, cos, sin, cfg, backend, kv, mesh)
         if a is not None:
             aux = aux + a
     return L.rms_norm(x, params.final_norm, cfg.norm_eps), aux
 
 
 def forward_hidden(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
-                   backend: str = "cuda", collect_kv: bool = False):
+                   backend: str = "cuda", collect_kv: bool = False,
+                   mesh=None):
     """tokens (B, S) -> final hidden (B, S, D): a plain embedding take, the
     layers in order, the final RMSNorm. With ``collect_kv`` returns
     ``(x, (k, v))``, k and v the stacked (L, B, S, Hkv, hd) post-RoPE keys
     and values (the reference returns them beside its MoE aux loss, which
     :func:`lm_loss` reads)."""
     if not collect_kv:
-        return _forward(params, tokens, cfg, backend)[0]
+        return _forward(params, tokens, cfg, backend, mesh=mesh)[0]
     kv = _kv_buffers(cfg, tokens.shape[0], tokens.shape[1], tokens.device,
                      torch.empty)
-    return _forward(params, tokens, cfg, backend, kv)[0], kv
+    return _forward(params, tokens, cfg, backend, kv, mesh)[0], kv
 
 
 def logits_from_hidden(params: LMTower, x: torch.Tensor) -> torch.Tensor:
@@ -291,14 +370,14 @@ def user_embedding_from_hidden(params: LMTower, x: torch.Tensor
 
 
 def user_tower_step(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
-                    backend: str = "cuda") -> torch.Tensor:
+                    backend: str = "cuda", mesh=None) -> torch.Tensor:
     """The LM as an ERCache user tower: tokens (B, S) -> (B,
     user_embed_dim). ``backend="cuda"`` runs the flash kernel and needs
     CUDA tensors; ``"torch"`` runs its plain version on any device."""
     _check_backend(backend, tokens, params.embed)
     with torch.no_grad():
         return user_embedding_from_hidden(
-            params, forward_hidden(params, tokens, cfg, backend))
+            params, forward_hidden(params, tokens, cfg, backend, mesh=mesh))
 
 
 def _check_backend(backend: str, *tensors) -> None:
@@ -312,12 +391,12 @@ def _check_backend(backend: str, *tensors) -> None:
 
 # --------------------------------------------------------------------- loss
 def lm_loss(params: LMTower, tokens: torch.Tensor, labels: torch.Tensor,
-            cfg: LMConfig, backend: str = "torch"):
+            cfg: LMConfig, backend: str = "torch", mesh=None):
     """Mean next-token CE (float32 reduction) + the weighted MoE aux loss;
     labels -1 are masked. Returns (loss, {"ce", "aux"}). The default
     ``backend="torch"`` runs the plain attention, which autograd
     differentiates."""
-    x, aux = _forward(params, tokens, cfg, backend)
+    x, aux = _forward(params, tokens, cfg, backend, mesh=mesh)
     logits = logits_from_hidden(params, x).to(torch.float32)
     mask = (labels >= 0).to(torch.float32)
     lab = labels.clamp(min=0).long()
@@ -339,7 +418,8 @@ def optimizer_grad_norm(grads) -> torch.Tensor:
     return global_norm(grads)
 
 
-def make_train_step(cfg: LMConfig, optimizer, backend: str = "torch"):
+def make_train_step(cfg: LMConfig, optimizer, backend: str = "torch",
+                    mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)``: the batch
     (``{"tokens": (B, S) int32, "labels": (B, S)}``) split
     row-contiguously into ``cfg.microbatches`` chunks, the gradients
@@ -349,9 +429,12 @@ def make_train_step(cfg: LMConfig, optimizer, backend: str = "torch"):
 
     The step updates ``state.params`` and the optimizer state IN PLACE
     and returns them (as a donated JAX state); every leaf becomes a
-    Parameter that requires grad (``optimizer.trainable``)."""
+    Parameter that requires grad (``optimizer.trainable``). Under a mesh
+    the gradient placements are planned once (:func:`_param_shardings`)."""
     n_micro = max(cfg.microbatches, 1)
     skeleton = LMTower(cfg, device="meta")
+    if mesh is not None:
+        _param_shardings(cfg, param_tree(skeleton), mesh)
 
     def step(state: TrainState, batch):
         tokens, labels = batch["tokens"], batch["labels"]
@@ -366,7 +449,7 @@ def make_train_step(cfg: LMConfig, optimizer, backend: str = "torch"):
         for c in range(n_micro):
             rows = slice(c * bm, (c + 1) * bm)
             loss, metrics = lm_loss(model, tokens[rows], labels[rows], cfg,
-                                    backend)
+                                    backend, mesh)
             grads = leaf_grads(loss, tree)
             if gsum is None:
                 gsum = grads
@@ -402,6 +485,12 @@ def _kv_buffers(cfg: LMConfig, batch: int, max_seq: int, device, alloc
             alloc(shape, dtype=_dtype(cfg), device=device))
 
 
+def kv_cache_logical_axes() -> KVCache:
+    """The cache's logical axes: the sequence on ``kv_seq``."""
+    ax = ("layers", "batch", "kv_seq", None, None)
+    return KVCache(k=ax, v=ax, length=("batch",))
+
+
 def init_kv_cache(cfg: LMConfig, batch: int, max_seq: int,
                   device="cuda") -> KVCache:
     """An empty cache of ``max_seq`` positions: zeros, length 0."""
@@ -414,8 +503,8 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_seq: int,
 
 
 def prefill_step(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
-                 backend: str = "cuda", max_seq: Optional[int] = None
-                 ) -> Tuple[torch.Tensor, KVCache]:
+                 backend: str = "cuda", max_seq: Optional[int] = None,
+                 mesh=None) -> Tuple[torch.Tensor, KVCache]:
     """tokens (B, S) -> (last-position logits (B, vocab), the filled
     KVCache of length S). The cache holds ``max_seq`` positions (default
     S; the rest zeros, as the reference's padded cache), written layer by
@@ -428,15 +517,15 @@ def prefill_step(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
     with torch.no_grad():
         k, v = _kv_buffers(cfg, B, max_seq, tokens.device,
                            torch.zeros if max_seq > S else torch.empty)
-        x = _forward(params, tokens, cfg, backend, (k, v))[0]
+        x = _forward(params, tokens, cfg, backend, (k, v), mesh)[0]
         logits = logits_from_hidden(params, x[:, -1])
     return logits, KVCache(k, v, torch.full((B,), S, dtype=torch.int32,
                                             device=tokens.device))
 
 
 def decode_step(params: LMTower, cache: KVCache, tokens: torch.Tensor,
-                cfg: LMConfig, backend: str = "cuda"
-                ) -> Tuple[torch.Tensor, KVCache]:
+                cfg: LMConfig, backend: str = "cuda", mesh=None,
+                seq_axes=("model",)) -> Tuple[torch.Tensor, KVCache]:
     """One decode step: tokens (B,) at positions ``cache.length`` ->
     (logits (B, vocab), the cache with length + 1).
 
@@ -447,8 +536,10 @@ def decode_step(params: LMTower, cache: KVCache, tokens: torch.Tensor,
     JAX drops an out-of-range ``.at[].set``; it still attends to all S
     positions. ``backend="cuda"`` attends with the hand-written
     ``decode_attention`` kernel and needs CUDA tensors; ``"torch"`` with
-    ``collectives.decode_attention_local`` on any device."""
-    from repro_torch.distributed.collectives import decode_attention_local
+    ``collectives.decode_attention_local`` on any device. Under a mesh the
+    cache is sequence-sharded over ``seq_axes``
+    (``collectives.seq_sharded_decode_attention``: one
+    ``decode_attention_partials`` launch a shard on the cuda backend)."""
     from repro_torch.kernels.decode_attention import decode_attention
 
     _check_backend(backend, tokens, params.embed, cache.k, cache.v,
@@ -463,7 +554,7 @@ def decode_step(params: LMTower, cache: KVCache, tokens: torch.Tensor,
     at = pos.clamp(max=S - 1).long()
     keep = (pos < S)[:, None, None]
     with torch.no_grad():
-        x = params.embed[tokens.long()]                         # (B, D)
+        x = _embed_tokens(params, tokens)                       # (B, D)
         # (B, hd/2) tables: apply_rope on (B, H, hd) is the reference's
         # _rope_single (one position per row, broadcast over heads)
         cos, sin = L.rope_tables(pos, hd, cfg.rope_theta)
@@ -475,11 +566,16 @@ def decode_step(params: LMTower, cache: KVCache, tokens: torch.Tensor,
             kc, vc = cache.k[i], cache.v[i]
             kc[rows, at] = torch.where(keep, k.to(kc.dtype), kc[rows, at])
             vc[rows, at] = torch.where(keep, v.to(vc.dtype), vc[rows, at])
-            if backend == "cuda":
+            if mesh is not None:
+                o = collectives.seq_sharded_decode_attention(
+                    q, kc, vc, mesh, seq_axes=seq_axes, kv_valid_len=valid,
+                    backend=backend)
+            elif backend == "cuda":
                 # one block of S: the reference's decode path takes any S
                 o = decode_attention(q, kc, vc, valid, bs=S)
             else:
-                o = decode_attention_local(q, kc, vc, kv_valid_len=valid)
+                o = collectives.decode_attention_local(q, kc, vc,
+                                                       kv_valid_len=valid)
             x = x + o.reshape(B, Hq * hd) @ lp["wo"]
             h2 = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
             if cfg.moe is None:

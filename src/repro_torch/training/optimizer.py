@@ -19,7 +19,7 @@ leaf a block of rows at a time (element-wise arithmetic: the same numbers,
 a bounded scratch; the global norm sums such a leaf block by block).
 
 A tree is a dict (keys in sorted order, as JAX flattens), list or tuple of
-tensors.
+tensors; None is an empty subtree (GIN's eps when it is not learnable).
 """
 from __future__ import annotations
 
@@ -57,6 +57,8 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
+    if tree is None:               # an empty subtree, as in JAX
+        return None
     return fn(tree, *rest)
 
 

@@ -1533,3 +1533,126 @@ def test_sharded_lookup_and_flush_dual_cuda_match_torch(cuda):
     for a, b in zip(rc, rt):
         assert_same([x for x in a], [x for x in b])
     assert_same(list(dc) + list(fc), list(dt) + list(ft))
+
+
+# ------------------------------------------- the model-axis mesh, on the card
+def _cuda_mesh(dims):
+    from repro_torch.launch.mesh import ModelMesh
+
+    return ModelMesh(dims, ("data", "model"), ("cuda",) * int(np.prod(dims)))
+
+
+@pytest.mark.parametrize("n_split", [1, 3, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,hd", [(32, 4, 64), (8, 2, 16)])
+def test_decode_attention_partials_match_plain(cuda, n_split, dtype, hq,
+                                               hkv, hd):
+    """The partials entry on the second half of a cache (a view at
+    position offset S, rows 2S apart): P = 1, 3 and the split plan's
+    count, valid_len 0, S (the range all masked), S + 1, a split
+    boundary, 2S and one inside; the raw partials against the plain
+    version's with the same splits (an empty split m = -1e30 exactly,
+    never -inf, l = acc = 0), and the two halves merged against the whole
+    cache's plain decode. One launch a call, none for the refusals."""
+    from repro_torch.distributed.collectives import combine_decode_partials
+
+    S, B = 1024, 6
+    g = torch.Generator(device=cuda).manual_seed(hd + S)
+    P, split_len = (dk.splits_of(S, n_split) if n_split else dk.split_plan(
+        B, S, hkv, torch.cuda.get_device_properties(
+            cuda).multi_processor_count))
+    lens = [0, S, S + 1, S + split_len, 2 * S, S + 333]
+    q = torch.randn((B, hq, hd), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((B, 2 * S, hkv, hd), generator=g,
+                        device=cuda).to(dtype) for _ in range(2))
+    valid = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    n0 = dk.LAUNCHES["decode_attention_partials"]
+    m, l, acc = dk.decode_attention_partials(q, k[:, S:], v[:, S:], valid, S,
+                                             n_split=n_split)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["decode_attention_partials"] == n0 + 1
+    assert m.shape == l.shape == (P, B, hq) and acc.shape == (P, B, hq, hd)
+    wm, wl, wacc = ref.decode_attention_partials_ref(
+        q, k[:, S:], v[:, S:], valid, S, P, split_len)
+    empty = wl == 0
+    assert bool((m[empty] == -1e30).all()) and not bool(l[empty].any())
+    assert bool(torch.isfinite(m).all()) and not bool(acc[empty].any())
+    assert bool(empty[:, :2].all())            # valid_len 0 and S
+    torch.testing.assert_close(m, wm, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, wl, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(acc, wacc, rtol=1e-4,
+                               atol=1e-4 * float(wacc.abs().max()))
+    m0, l0, acc0 = dk.decode_attention_partials(q, k[:, :S], v[:, :S], valid)
+    got = combine_decode_partials(torch.cat([m0, m]), torch.cat([l0, l]),
+                                  torch.cat([acc0, acc]), dtype)
+    want = ref.decode_attention_ref(q, k, v, valid)
+    assert not bool(got[0].any())              # every range empty: zeros
+    assert_attention_close(got, want, 2e-5)
+    n0 = dk.LAUNCHES["decode_attention_partials"]
+    for args in ((q.cpu(), k, v), (q, k[:, S:].contiguous().cpu(), v),
+                 (q.to(torch.float16), k, v),
+                 (q, k.transpose(1, 2), v.transpose(1, 2))):
+        with pytest.raises(ValueError):
+            dk.decode_attention_partials(*args, valid)
+    with pytest.raises(RuntimeError):
+        dk.decode_attention_partials(q.float().requires_grad_(), k.float(),
+                                     v.float(), valid)
+    assert dk.LAUNCHES["decode_attention_partials"] == n0
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seq_sharded_decode_cuda_matches_torch_backend(cuda, n, dtype):
+    """N sequence shards of a 2048-position cache: one partials launch a
+    shard; an all-masked shard and valid_len 0 (zeros on the card, the
+    mean of v on the torch backend, as the reference)."""
+    from repro_torch.distributed.collectives import \
+        seq_sharded_decode_attention
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    B, S, hq, hkv, hd = 5, 2048, 32, 4, 64
+    q = torch.randn((B, hq, hd), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((B, S, hkv, hd), generator=g,
+                        device=cuda).to(dtype) for _ in range(2))
+    valid = torch.tensor([0, 1, 700, 1536, 2048], dtype=torch.int32,
+                         device=cuda)
+    mesh = _cuda_mesh((1, n))
+    n0 = dk.LAUNCHES["decode_attention_partials"]
+    got = seq_sharded_decode_attention(q, k, v, mesh, kv_valid_len=valid,
+                                       backend="cuda")
+    assert dk.LAUNCHES["decode_attention_partials"] == n0 + n
+    want = seq_sharded_decode_attention(q, k, v, mesh, kv_valid_len=valid,
+                                        backend="torch")
+    assert not bool(got[0].any()) and bool(want[0].any())
+    assert_attention_close(got[1:], want[1:], 2e-5)
+    assert_attention_close(got, ref.decode_attention_ref(q, k, v, valid),
+                           2e-5)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("dim", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nnz", [1, 4])
+def test_sharded_field_bag_kernel_matches_plain(cuda, n, dim, dtype, nnz):
+    """The row-sharded bag: one launch a shard over the (F*V, D) view;
+    bit for bit against its plain version at nnz = 1, a few ulps at 4;
+    the serving scatter layout the same values."""
+    from repro_torch.models import recsys as R
+
+    gen = torch.Generator(device=cuda).manual_seed(n * dim + nnz)
+    tables = torch.randn(40, 4096, dim, generator=gen, device=cuda).to(dtype)
+    ids = torch.randint(0, 4096, (512, 40, nnz), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    ids[torch.rand(ids.shape, generator=gen, device=cuda) < 0.2] = -1
+    mesh = _cuda_mesh((1, n))
+    n0 = ebk.LAUNCHES["embedding_bag"]
+    got = R.sharded_field_embedding_bag(tables, ids, mesh, impl="cuda")
+    assert ebk.LAUNCHES["embedding_bag"] == n0 + n
+    want = R.sharded_field_embedding_bag(tables, ids, mesh, impl="torch")
+    assert got.dtype == dtype and got.shape == (512, 40, dim)
+    assert_bag_close(got, want, nnz)
+    assert torch.equal(R.sharded_field_embedding_bag(
+        tables, ids, mesh, scatter_batch=True, impl="cuda"), got)
+    if n == 1:
+        assert_bag_close(got, R.field_embedding_bag(tables, ids, impl="cuda"),
+                         nnz)

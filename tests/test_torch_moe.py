@@ -56,15 +56,18 @@ def _one_torch_thread():
 
 
 def test_configs_registered_and_equal_to_reference():
-    """9 archs (all but gin-tu), the MoE configs field for field."""
-    assert len(list_archs()) == 9 and "gin-tu" not in list_archs()
+    """The reference's 10 archs (gin-tu included since the GNN was
+    ported), the MoE configs field for field; an unknown arch raises."""
+    from repro.configs import list_archs as j_list_archs
+
+    assert list_archs() == j_list_archs() and len(list_archs()) == 10
     for arch in MOE_LMS:
         for smoke in (False, True):
             j, t = j_config(arch, smoke), t_config(arch, smoke)
             assert dataclasses.asdict(t) == dataclasses.asdict(j), arch
             assert t.param_count() == j.param_count()
-    with pytest.raises(ValueError, match="not ported yet"):
-        t_config("gin-tu")
+    with pytest.raises(ValueError, match="unknown arch"):
+        t_config("gin-tu-xl")
 
 
 def test_group_size_and_capacity_match_reference():

@@ -499,8 +499,6 @@ def test_launcher_trains_checkpoints_and_resumes_on_cpu(tmp_path, capsys):
     state = t_train.main(["--arch", "bst", "--steps", "2", "--batch", "16",
                           "--device", "cpu"])
     assert int(state[1]["step"]) == 2
-    with pytest.raises(ValueError, match="not ported yet"):
-        t_train.main(["--arch", "gin-tu", "--device", "cpu"])
 
 
 def test_example_config_is_the_reference_llama_100m():

@@ -246,6 +246,26 @@ Phases, each fatal on failure:
     ms and peak GB of each. (f) ``launch.train.main(["--arch", "gin-tu",
     "--full-config", ...])`` for 20 steps as a user calls it, every loss
     finite, and its ``[train]`` line.
+19. **plan**: the cell planner (``launch/specs.py``, ``launch/dryrun.py``).
+    (a) All 40 cells on both production meshes planned on meta in a pool
+    of spawned workers that never touch the card (the LM cells through
+    the linear accounting on both meshes), one terms line each, every
+    plan ``ok`` under 80 GB a device. (b) The ERCache serve cell
+    (``run_ercache_cell``: TinyLlama-1.1B at its published widths,
+    B=4096, miss budget 1024, seq 64, 2**22 x 8 x 256 float32 tiers, cut
+    to 2**21 only if the plan's peak and the graph pool do not fit the
+    free memory) planned for a (1, 1) model mesh and one cache shard of
+    ``cuda:0``, then run there through ``jit_serve_step`` on fresh keys
+    (every row a miss, the miss budget full): the plan's argument bytes
+    equal the card's tensors, the first step's computed rows equal the
+    torch tower, one dual probe a step and no flash launch (the
+    reference's naive path at seq 64), a profiled step by kernel group,
+    and the device kernel time a warm step at least 0.95 x the plan's
+    bound (the larger of its compute and memory terms); the plan's peak
+    against ``max_memory_allocated``. (c) Table 4
+    (``examples/train_ctr_tower.run`` at 2,000 users x 24 h) on the card
+    and on the CPU: each arm's NE within a relative 1e-5, each ne_diff
+    within 1e-4 points, printed beside the paper's.
 
 The launchers and the examples serve through the compiled entry points
 (``jit_serve_many``, ``jit_serve_step``, ``jit_flush``), so phases 3, 5,
@@ -287,7 +307,8 @@ each path and read just after. The sharded runs of phase 17 add their
 dual and dual-multi launches, each counted over its own run; phase 18
 adds the sharded Wide&Deep scores' bag launches, the mesh prefill's
 flash launches, and counts ``decode_attention_partials`` over its
-sharded decode steps (c) and (d). Phases 9,
+sharded decode steps (c) and (d); phase 19 adds the ERCache cell's dual
+probes. Phases 9,
 10 and 12–15 check their own counts; phase 16 checks the bag's launches
 on the trained tower.
 
@@ -4753,6 +4774,276 @@ def phase_mesh(torch, counts):
           f"phase done in {time.perf_counter() - t_phase:.1f}s")
 
 
+
+# ------------------------------------------------------------ phase 19
+PLAN_BATCH = 4096                  # run_ercache_cell's batch (miss budget /4)
+PLAN_SEQ = 64                      # its behaviour-history length
+PLAN_STEPS = 8                     # warm replays timed after the capture
+PLAN_BOUND_SHARE = 0.95            # no card beats its roofline
+CTR = dict(n_users=2000, horizon_h=24.0)  # examples/train_ctr_tower.py
+CTR_NE_RTOL = 1e-5                 # each arm's NE, card vs CPU
+CTR_DIFF_ATOL = 1e-4               # each ne_diff_pct, percentage points
+
+
+def _hide_cards():
+    """Pool initializer: the planner's workers trace on meta and never
+    touch the card (no CUDA context each)."""
+    import os
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+
+
+def plan_one(job):
+    """One dry-run plan in a worker: (result, the terms line)."""
+    import contextlib
+    import io
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    arch, shape, multi_pod = job
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = dryrun.run_cell(arch, shape, multi_pod=multi_pod,
+                              accounting=get_config(arch).family == "lm")
+    return res, buf.getvalue().strip()
+
+
+def plan_all(torch):
+    """(a) every cell on both production meshes, planned on meta in a
+    pool of workers, each held to ``ok``. The LM cells take the linear
+    accounting on both meshes (the reference's default takes it on the
+    single pod only; the solve equals the direct trace,
+    tests/test_torch_launch.py, at a fraction of its time)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import all_cells
+    from repro_torch.launch import dryrun
+
+    cap = dryrun.card_memory_bytes()
+    if cap < dryrun.CARD_MEMORY_BYTES:
+        raise AssertionError(f"the card holds {cap / 1e9:.2f} GB, less than "
+                             f"the workers' {dryrun.CARD_MEMORY_BYTES / 1e9}")
+    jobs = [(a, s, mp) for mp in (False, True) for a, s in all_cells()]
+    workers = min(8, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_hide_cards) as pool:
+        done = list(pool.map(plan_one, jobs))
+    wall = time.perf_counter() - t0
+    results, failed = {}, []
+    for (arch, shape, mp), (res, line) in zip(jobs, done):
+        print(f"[plan] {line}")
+        key = f"{arch}|{shape}|{'multipod' if mp else 'singlepod'}"
+        results[key] = res
+        if not res["ok"]:
+            failed.append(key)
+    trace_s = sum(r["compile_s"] for r in results.values())
+    out = ROOT / dryrun.DEFAULT_OUT
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(results, indent=1))
+    print(f"[plan] {len(results)} plans on meta, {len(results) - len(failed)}"
+          f" ok, in {wall:.1f}s wall on {workers} workers ({trace_s:.1f}s "
+          f"of traces; per-device memory held to "
+          f"{dryrun.CARD_MEMORY_BYTES / 1e9:.0f} GB, the card has "
+          f"{cap / 1e9:.2f} GB) -> {out.relative_to(ROOT)}")
+    if failed:
+        raise AssertionError(f"plans not ok: {failed}")
+
+
+def plan_vs_card(torch, counts, smi):
+    """(b) the ERCache serve cell planned for a (1, 1) model mesh and one
+    cache shard of cuda:0, then run there through ``jit_serve_step`` at
+    the plan's widths."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import server as srv
+    from repro_torch.core.config import HOUR_MS, MINUTE_MS, CacheConfig
+    from repro_torch.core.graph import tensors_of
+    from repro_torch.core.hashing import Key64
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import CacheMesh, ModelMesh
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device("cuda", 0)
+    mesh = ModelMesh((1, 1), ("data", "model"), (dev,))
+    cache_mesh = CacheMesh((dev,))
+    cfg = get_config("tinyllama-1.1b")
+    free, _ = torch.cuda.mem_get_info()
+    for nb in (1 << 22, 1 << 21):
+        plan = dryrun.run_ercache_cell(batch=PLAN_BATCH, n_buckets=nb,
+                                       seq=PLAN_SEQ, mesh=mesh,
+                                       cache_mesh=cache_mesh)
+        ms = plan["memory_stats"]
+        peak = (ms["argument_bytes"] + ms["output_bytes"] + ms["temp_bytes"]
+                - ms["alias_bytes"])
+        # the graph's private pool holds a second copy of the step's temps
+        if peak + ms["temp_bytes"] <= free:
+            break
+        print(f"[plan ercache] 2**{nb.bit_length() - 1} buckets need "
+              f"{(peak + ms['temp_bytes']) / 1e9:.2f} GB with the graph "
+              f"pool, {free / 1e9:.2f} GB free: cut to half")
+    else:
+        raise AssertionError("the ERCache cell does not fit the card")
+    bound_ms = max(plan["compute_s_term"], plan["memory_s_term"]) * 1e3
+    print(f"[plan ercache] TinyLlama-1.1B, B={PLAN_BATCH}, miss budget "
+          f"{PLAN_BATCH // 4}, seq {PLAN_SEQ}, 2**{nb.bit_length() - 1} x 8"
+          f" x {cfg.user_embed_dim} float32 tiers: plan "
+          f"{plan['hlo_flops_per_dev']:.4g} FLOPs, "
+          f"{plan['hlo_bytes_per_dev']:.4g} bytes -> compute "
+          f"{plan['compute_s_term'] * 1e3:.3f} ms, memory "
+          f"{plan['memory_s_term'] * 1e3:.3f} ms ({plan['dominant']}-bound"
+          f"), arguments {plan['argument_bytes']}, peak {peak / 1e9:.3f} GB,"
+          f" traced in {plan['compile_s']}s")
+
+    cache_cfg = CacheConfig(
+        model_id=1, model_type="ctr", cache_ttl_ms=5 * MINUTE_MS,
+        failover_ttl_ms=1 * HOUR_MS, n_buckets=nb, ways=8,
+        value_dim=cfg.user_embed_dim, backend="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             dev)
+    rng = np.random.default_rng(19)
+    # the capture, the timed replays, kernel_ms's warm-up and its timed
+    # and profiled replays, one step profiled by kernel group
+    n_calls = 1 + PLAN_STEPS + 1 + 2 * (PLAN_STEPS // 2) + 1
+    keys = [Key64.from_int(rng.integers(0, 2 ** 62, PLAN_BATCH), device=dev)
+            for _ in range(n_calls)]               # all new: every row misses
+    toks = [torch.as_tensor(rng.integers(0, cfg.vocab, (PLAN_BATCH,
+                                                         PLAN_SEQ)),
+                            dtype=torch.int32, device=dev)
+            for _ in range(n_calls)]
+    # the reference tower's rows now, beside the parameters only: after
+    # the tables and the graph's pool the card has no room for its temps
+    want = tfm.user_tower_step(params, toks[0][:PLAN_BATCH // 4], cfg,
+                               backend="torch").float()
+    torch.cuda.empty_cache()
+    state = srv.init_server_state(cache_cfg, dtype=torch.float32,
+                                  writebuf_capacity=PLAN_BATCH, device=dev,
+                                  mesh=cache_mesh)
+    torch.cuda.synchronize()
+    real = {"params": sum(p.nbytes for p in params.parameters()),
+            "state": sum(t.nbytes for t in tensors_of(state)),
+            "inputs": keys[0].hi.nbytes + keys[0].lo.nbytes + toks[0].nbytes}
+    print(f"[plan ercache] argument bytes plan {plan['argument_bytes']} vs "
+          f"allocated {real} (allocator: "
+          f"{torch.cuda.memory_allocated() - base} bytes for all "
+          f"{n_calls} inputs, params, state and the tower's rows)")
+    if real != plan["argument_bytes"]:
+        raise AssertionError("the plan's argument bytes differ from the "
+                             "card's tensors")
+
+    server = srv.CachedEmbeddingServer(
+        cfg=cache_cfg, miss_budget=PLAN_BATCH // 4, mesh=cache_mesh,
+        tower_fn=lambda p, t: tfm.user_tower_step(p, t, cfg, backend="cuda",
+                                                  mesh=mesh))
+    jit = server.jit_serve_step
+    calls = iter(range(n_calls))
+
+    def step():
+        i = next(calls)
+        return jit(params, state, keys[i], toks[i], 1000 * i)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()                    # this path's window
+    t0 = time.perf_counter()
+    first = step()                               # eager run, then capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    measured_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()                     # the eager run's temps
+    pool = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    err = close_errors(torch, first.embeddings[:PLAN_BATCH // 4], want)
+    stats = {k: int(v) for k, v in first.stats.items()
+             if k in ("requests", "direct_hits", "tower_inferences",
+                      "fallbacks")}
+    if (tuple(first.embeddings.shape) != (PLAN_BATCH, cfg.user_embed_dim)
+            or not bool(torch.isfinite(first.embeddings).all())
+            or stats["tower_inferences"] != PLAN_BATCH // 4
+            or stats["direct_hits"] != 0 or err[1] > LM_TOL["rel_l2"]):
+        raise AssertionError(f"ERCache step: {stats}, computed rows vs the "
+                             f"tower {err}")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(PLAN_STEPS):
+        res = step()
+    end.record()
+    end.synchronize()
+    wall_ms = start.elapsed_time(end) / PLAN_STEPS
+    busy_ms, host_ms, n_ops = kernel_ms(torch, step, reps=PLAN_STEPS // 2)
+    phase_profile(torch, "profile plan ercache", 1, step)
+    n = ops.launch_counts()
+    if n["cache_probe_dual"] != n_calls or n["flash_attention"] != 0:
+        raise AssertionError(f"ERCache launches {n}; want one dual probe a "
+                             f"step over {n_calls} steps")
+    counts["cache_probe_dual"] = (counts.get("cache_probe_dual", 0)
+                                  + n["cache_probe_dual"])
+    if int(res.stats["tower_inferences"]) != PLAN_BATCH // 4:
+        raise AssertionError("a warm step ran less than the miss budget")
+    print(f"[plan ercache] card ({smi}): capture {capture_s:.1f}s; warm "
+          f"replays {wall_ms:.3f} ms a step (events), device kernel time "
+          f"{busy_ms:.3f} ms a step ({n_ops:.0f} device ops, host wall "
+          f"{host_ms:.3f} ms) vs the plan's bound {bound_ms:.3f} ms: ratio "
+          f"{busy_ms / bound_ms:.3f}; peak plan {peak / 1e9:.3f} GB vs "
+          f"max_memory_allocated {measured_peak / 1e9:.3f} GB (ratio "
+          f"{peak / measured_peak:.3f}), the graph's pool {pool / 1e9:.3f}"
+          f" GB, {free / 1e9:.2f} GB free at the start; launches {n} (the "
+          f"tower's attention at seq {PLAN_SEQ} takes the naive path, "
+          f"Sq*Sk <= 2**20); first step's computed rows vs the torch "
+          f"tower max |err| {err[0]:.3g}, rel L2 {err[1]:.3g}")
+    if busy_ms < PLAN_BOUND_SHARE * bound_ms:
+        raise AssertionError(f"the card beat the plan's bound: {busy_ms:.3f}"
+                             f" ms < {PLAN_BOUND_SHARE} x {bound_ms:.3f} ms")
+    return nb
+
+
+def ctr_card_vs_cpu(torch, smi):
+    """(c) Table 4 at the example's settings on the card and on the CPU,
+    in this process."""
+    from repro_torch.examples import train_ctr_tower as ex
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[device] = ex.run(**CTR, device=device)
+        print(f"[table4 {device}] {time.perf_counter() - t0:.1f}s")
+    for label, c in out["cuda"].items():
+        h = out["cpu"][label]
+        print(f"[table4] {label}: card ne_diff {c['ne_diff_pct']:+.5f}% "
+              f"(ne {c['ne']:.6f}), CPU {h['ne_diff_pct']:+.5f}% "
+              f"(ne {h['ne']:.6f}), paper {c['paper']:+.3f}%")
+        if (abs(c["ne_diff_pct"] - h["ne_diff_pct"]) > CTR_DIFF_ATOL
+                or abs(c["ne"] - h["ne"]) > CTR_NE_RTOL * h["ne"]
+                or abs(c["ne_fresh"] - h["ne_fresh"])
+                > CTR_NE_RTOL * h["ne_fresh"]):
+            raise AssertionError(f"Table 4 {label}: card {c} vs CPU {h}")
+    print(f"[table4] card and CPU agree ({smi}): each arm's NE within "
+          f"{CTR_NE_RTOL} relative, each ne_diff within {CTR_DIFF_ATOL} "
+          f"points; fresh NE {out['cuda'][label]['ne_fresh']:.6f}")
+
+
+def phase_plan(torch, counts):
+    """Phase 19: the cell planner on meta, its ERCache plan against the
+    card, and Table 4 on the card against the CPU."""
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    plan_all(torch)
+    nb = plan_vs_card(torch, counts, smi)
+    free_card(torch)
+    ctr_card_vs_cpu(torch, smi)
+    print(f"[plan] phase 19 done in {time.perf_counter() - t_phase:.1f}s "
+          f"(ERCache tiers 2**{nb.bit_length() - 1} buckets)")
+
+
 def main() -> int:
     try:
         import torch
@@ -4809,6 +5100,9 @@ def main() -> int:
     free_card(torch)
     phase_mesh(torch, counts)
     print(f"[time] mesh phase done at {time.perf_counter() - t0:.1f}s")
+    free_card(torch)
+    phase_plan(torch, counts)
+    print(f"[time] plan phase done at {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in sorted(counts):

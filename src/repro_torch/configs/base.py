@@ -123,6 +123,15 @@ class LMConfig:
         per_layer = attn + ffn + 2 * d
         return self.n_layers * per_layer + 2 * self.vocab * d + d
 
+    def active_param_count(self) -> int:
+        """Parameters a token runs through: top_k of the experts."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        full_ffn = self.moe.n_experts * 3 * d * self.d_ff
+        active_ffn = self.moe.top_k * 3 * d * self.d_ff
+        return self.param_count() - self.n_layers * (full_ffn - active_ffn)
+
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:

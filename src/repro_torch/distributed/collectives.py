@@ -95,6 +95,21 @@ def _axes_size(mesh, axes: Sequence[str]) -> int:
     return math.prod(mesh.shape[a] for a in axes)
 
 
+# The planner's collective counter (``launch/dryrun.py``): a list while it
+# traces a cell, None otherwise. Each cross-shard combine of the port
+# appends ``(kind, operand bytes a device, group size)`` of the collective
+# the reference runs at that point (``kind`` in its HLO's words:
+# "all-reduce", "all-gather", "reduce-scatter").
+TRAFFIC: Optional[list] = None
+
+
+def record(kind: str, operand_bytes: float, group: int) -> None:
+    """Count one collective for the planner (nothing when it is off or
+    the group is one shard)."""
+    if TRAFFIC is not None and group > 1:
+        TRAFFIC.append((kind, float(operand_bytes), int(group)))
+
+
 def top_k(scores: torch.Tensor, k: int
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``jax.lax.top_k`` over the last axis of (B, N) scores: the k largest
@@ -107,11 +122,13 @@ def top_k(scores: torch.Tensor, k: int
     (k+1)-th value equals the k-th, more scores tie at the k-th value than
     there are slots: only for such a batch are the scores above it
     counted and one more ``topk`` over the tied positions picks their
-    lowest indices. No full sort of the N scores is made."""
+    lowest indices. No full sort of the N scores is made. Scores on the
+    ``meta`` device (the planner's trace) hold no values: they take the
+    tie-free path."""
     n = scores.shape[-1]
     vals, idx = torch.topk(scores, min(k + 1, n), dim=-1)
-    crowded = (bool((vals[:, k] == vals[:, k - 1]).any()) if n > k
-               else False)
+    crowded = (bool((vals[:, k] == vals[:, k - 1]).any())
+               if n > k and not scores.is_meta else False)
     vals, idx = vals[:, :k], idx[:, :k]
     order = torch.argsort(idx, dim=-1)                 # ids are distinct
     vals, idx = vals.gather(-1, order), idx.gather(-1, order)
@@ -227,8 +244,13 @@ def seq_sharded_decode_attention(q: torch.Tensor, k: torch.Tensor,
                          f"{backend!r}")
     seq_axes = _as_tuple(seq_axes)
     mesh.device()                       # refuses a mesh of distinct devices
-    batch_shard_axes(mesh, seq_axes, batch_axes, q.shape[0])
+    rows = q.shape[0] // _axes_size(
+        mesh, batch_shard_axes(mesh, seq_axes, batch_axes, q.shape[0]))
     n = _axes_size(mesh, seq_axes)
+    # the reference's pmax of m, psums of l and acc: float32 partials of a
+    # device's rows
+    for width in (1, 1, q.shape[-1]):
+        record("all-reduce", rows * q.shape[1] * width * 4, n)
     S = k.shape[1]
     if S % n:
         raise ValueError(f"a cache of {S} positions does not split over "
@@ -285,6 +307,11 @@ def sharded_topk_scores(query: torch.Tensor, candidates: torch.Tensor,
             rows = candidates[s * nl:(s + 1) * nl].to(torch.float32)
             vals, idx = top_k(q @ rows.T, k_top)
             local.append((vals, idx + s * nl))
+        width = k_top
+        for a in cand_axes:            # the reference's all_gathers in turn
+            for _ in ("vals", "ids"):  # float32 and int32 (B, width)
+                record("all-gather", q.shape[0] * width * 4, mesh.shape[a])
+            width *= mesh.shape[a]
         order = [_combined_axis_index(mesh, cand_axes, c)
                  for c in _shard_coords(mesh, cand_axes[::-1])]
         vals_g = torch.cat([local[s][0] for s in order], dim=-1)
@@ -330,6 +357,10 @@ def _combine_probe(results, owned, global_bucket: torch.Tensor
     masked result is returned as it is (a stored -0.0 keeps its sign);
     with more, the sum turns it into +0.0, as the reference's ``psum``."""
     dev = global_bucket.device
+    B, D = results[0].values.shape
+    for nbytes in (4 * B, B * D * results[0].values.element_size(), 4 * B,
+                   4 * B):              # psums of hit, values, age, way
+        record("all-reduce", nbytes, len(results))
     total = None
     for res, own in zip(results, owned):
         hitc = _on(res.hit & own, dev)

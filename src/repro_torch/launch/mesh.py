@@ -14,8 +14,19 @@ of the mesh; here one Python process does the same over torch devices:
   bucket-sharded cache tier, each shard holding a contiguous range of
   every table's buckets, one torch device a shard.
 
-The reference's v5e constants (peak FLOP/s, HBM and ICI rates) belong to
-a TPU and have no counterpart here.
+Hardware model of the roofline terms (``launch/dryrun.py``), under the
+reference's names: one NVIDIA H100 SXM, "NVIDIA H100 80GB HBM3, 700.00 W"
+as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+reads it (NVIDIA's data sheet, dense rates at the full 700 W):
+
+  * 989 TFLOP/s bf16 on the tensor cores (``PEAK_FLOPS_BF16``)
+  * 3.35 TB/s HBM3 (``HBM_BW``)
+  * 450 GB/s NVLink 4 per direction (``ICI_BW``)
+
+The production meshes have a 16-wide model axis. On a real HGX cluster
+one NVLink domain holds 8 GPUs, so such an axis spans two domains and
+part of its traffic crosses the slower inter-node network: there the
+collective term at the NVLink rate is a lower bound.
 """
 from __future__ import annotations
 
@@ -27,6 +38,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 SHARD_AXIS = "shard"
+# H100 SXM constants of the roofline terms (the module docstring)
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s per card, dense bf16
+HBM_BW = 3.35e12                  # bytes/s per card
+ICI_BW = 450e9                    # bytes/s per direction, NVLink 4
 PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}
 

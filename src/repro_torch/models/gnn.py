@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import GNNConfig
-from repro_torch.distributed.collectives import _axes_size
+from repro_torch.distributed.collectives import _axes_size, record
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.training.optimizer import leaf_grads, trainable
@@ -251,6 +251,9 @@ def forward_partitioned(params: GIN, g: Graph, cfg: GNNConfig, mesh,
     h_own = [g.node_feats[s * n_p:(s + 1) * n_p].to(torch.float32)
              for s in range(n_shards)]
     for lp in params.layers:
+        # the reference's tiled all_gather of every shard's own states
+        record("all-gather", n_p * h_own[0].shape[1] * mdt.itemsize,
+               n_shards)
         h_full = torch.cat([h.to(mdt) for h in h_own])   # (N, F) in mdt
         for s in range(n_shards):
             snd = g.senders[s * eb:(s + 1) * eb]

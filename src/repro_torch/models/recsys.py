@@ -25,6 +25,7 @@ reference's parameter pytree over a module's own Parameters.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -131,6 +132,13 @@ def sharded_field_embedding_bag(tables: torch.Tensor, ids: torch.Tensor,
     if vocab % n:
         raise ValueError(f"{vocab} rows do not split over {n} shards")
     vl = vocab // n
+    split = math.prod(mesh.shape[a] for a in batch_axes
+                      if a in mesh.axis_names)
+    # the reference's psum (psum_scatter) of a device's (B, F, D) partials
+    collectives.record(
+        "reduce-scatter" if scatter_batch else "all-reduce",
+        ids.shape[0] / split * ids.shape[1] * tables.shape[2]
+        * tables.element_size(), n)
     flat, ids, rows = _field_rows(tables, ids)
     total = None
     for s in range(n):

@@ -418,6 +418,13 @@ def optimizer_grad_norm(grads) -> torch.Tensor:
     return global_norm(grads)
 
 
+def _add_into(acc_tree, tree) -> None:
+    """``acc_tree += tree`` leaf by leaf, in place (a function, so that no
+    loop variable keeps a leaf of ``tree`` alive after it)."""
+    for acc, g in zip(tree_leaves(acc_tree), tree_leaves(tree)):
+        acc.add_(g)
+
+
 def make_train_step(cfg: LMConfig, optimizer, backend: str = "torch",
                     mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)``: the batch
@@ -454,8 +461,8 @@ def make_train_step(cfg: LMConfig, optimizer, backend: str = "torch",
             if gsum is None:
                 gsum = grads
             else:
-                for acc, g in zip(tree_leaves(gsum), tree_leaves(grads)):
-                    acc.add_(g)
+                _add_into(gsum, grads)
+            del grads          # freed before the next microbatch's backward
             losses.append(loss.detach())
             ces.append(metrics["ce"].detach())
         grads = gsum

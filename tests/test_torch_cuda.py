@@ -1656,3 +1656,68 @@ def test_sharded_field_bag_kernel_matches_plain(cuda, n, dim, dtype, nnz):
     if n == 1:
         assert_bag_close(got, R.field_embedding_bag(tables, ids, impl="cuda"),
                          nnz)
+
+
+def test_ercache_plan_arguments_equal_the_card_tensors(cuda):
+    """The planner's ERCache cell for a (1, 1) mesh and one cache shard of
+    the card, at a small batch and tier: its argument bytes equal the
+    tensors the card allocates, and the planned step runs there through
+    ``jit_serve_step`` with every row a miss."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import server as S
+    from repro_torch.core.config import CacheConfig, HOUR_MS, MINUTE_MS
+    from repro_torch.core.graph import tensors_of
+    from repro_torch.core.hashing import Key64
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import CacheMesh, ModelMesh
+    from repro_torch.models import transformer as T
+
+    B, seq, nb = 64, 64, 1 << 12
+    mesh = ModelMesh((1, 1), ("data", "model"), (cuda,))
+    cache_mesh = CacheMesh((cuda,))
+    cfg = get_config("tinyllama-1.1b")
+    plan = dryrun.run_ercache_cell(batch=B, n_buckets=nb, seq=seq,
+                                   mesh=mesh, cache_mesh=cache_mesh,
+                                   verbose=False)
+    assert plan["ok"] and plan["n_chips"] == 1
+    ccfg = CacheConfig(model_id=1, model_type="ctr",
+                       cache_ttl_ms=5 * MINUTE_MS, failover_ttl_ms=HOUR_MS,
+                       n_buckets=nb, ways=8, value_dim=cfg.user_embed_dim)
+    params = T.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           cuda)
+    state = S.init_server_state(ccfg, writebuf_capacity=B, device=cuda,
+                                mesh=cache_mesh)
+    rng = np.random.default_rng(0)
+    keys = Key64.from_int(rng.integers(0, 2 ** 62, B), device=cuda)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, seq)),
+                           dtype=torch.int32, device=cuda)
+    assert plan["argument_bytes"] == {
+        "params": sum(p.nbytes for p in params.parameters()),
+        "state": sum(t.nbytes for t in tensors_of(state)),
+        "inputs": keys.hi.nbytes + keys.lo.nbytes + toks.nbytes}
+    server = S.CachedEmbeddingServer(
+        cfg=ccfg, miss_budget=B // 4, mesh=cache_mesh,
+        tower_fn=lambda p, t: T.user_tower_step(p, t, cfg, backend="cuda",
+                                                mesh=mesh))
+    res = server.jit_serve_step(params, state, keys, toks, 0)
+    assert int(res.stats["tower_inferences"]) == B // 4
+    assert int(res.stats["direct_hits"]) == 0
+    want = T.user_tower_step(params, toks[:B // 4], cfg, backend="torch")
+    torch.testing.assert_close(res.embeddings[:B // 4], want.float(),
+                               atol=0, rtol=0)
+
+
+def test_table4_on_card_matches_cpu(cuda):
+    """The Table 4 experiment at a small size on the card and on the CPU:
+    each arm's NE within a relative 1e-5, each ne_diff within 1e-4
+    points (float32 products summed in another order)."""
+    from repro_torch.examples import train_ctr_tower as ex
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    card = ex.run(n_users=300, horizon_h=3.0, device=cuda)
+    cpu = ex.run(n_users=300, horizon_h=3.0, device="cpu")
+    for label, c in card.items():
+        h = cpu[label]
+        assert c["ne"] == pytest.approx(h["ne"], rel=1e-5), label
+        assert c["ne_diff_pct"] == pytest.approx(h["ne_diff_pct"],
+                                                 abs=1e-4), label

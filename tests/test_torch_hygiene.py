@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro.core import metrics as j_metrics  # noqa: E402
 from repro.data import access_patterns as j_ap  # noqa: E402
+from repro.data import clickstream as j_click  # noqa: E402
 from repro.ft import failure as j_failure  # noqa: E402
 from repro_torch.core import cache as TC  # noqa: E402
 from repro_torch.core import combiner as TG  # noqa: E402
@@ -21,7 +22,9 @@ from repro_torch.core.config import (CacheConfig,  # noqa: E402
                                      multi_model_tier_configs)
 from repro_torch.core.hashing import Key64  # noqa: E402
 from repro_torch.data import access_patterns as t_ap  # noqa: E402
+from repro_torch.data import clickstream as t_click  # noqa: E402
 from repro_torch.examples import serve_lm_tower as t_lm_example  # noqa: E402
+from repro_torch.examples import train_ctr_tower as t_ctr  # noqa: E402
 from repro_torch.ft import checkpoint as t_ckpt  # noqa: E402
 from repro_torch.ft import elastic as t_elastic  # noqa: E402
 from repro_torch.ft import failure as t_failure  # noqa: E402
@@ -103,6 +106,36 @@ def test_access_patterns_copy_matches_original(knots):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("seed", [0, 5])
+def test_clickstream_copy_matches_original(seed):
+    kw = dict(n_users=64, n_ads=32, dim=8, seed=seed)
+    jw, tw = j_click.ClickWorld(**kw), t_click.ClickWorld(**kw)
+    js, ts = j_click.ClickSimulator(jw), t_click.ClickSimulator(tw)
+    np.testing.assert_array_equal(ts.theta, js.theta)
+    np.testing.assert_array_equal(ts.ads, js.ads)
+    users = np.random.default_rng(seed).integers(0, 64, 200)
+    times = np.sort(np.random.default_rng(seed + 1).integers(0, 10**7, 200))
+    for lo in (0, 50):
+        uid = users[lo:lo + 50]
+        js.advance_to(uid, int(times[lo + 49]))
+        ts.advance_to(uid, int(times[lo + 49]))
+        np.testing.assert_array_equal(ts.theta, js.theta)
+        np.testing.assert_array_equal(ts.behavior_features(uid),
+                                      js.behavior_features(uid))
+        for a, b in zip(ts.impressions(uid), js.impressions(uid)):
+            np.testing.assert_array_equal(a, b)
+    n = 0
+    for a, b in zip(t_click.training_batches(ts, times[100:], users[100:],
+                                             16),
+                    j_click.training_batches(js, times[100:], users[100:],
+                                             16)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        n += 1
+    assert n == 6
+    np.testing.assert_array_equal(ts.last_t_ms, js.last_t_ms)
+
+
 def test_failure_copy_matches_original():
     kw = dict(base_rate=0.05, burst_rate=0.5,
               burst_windows_ms=((1000, 5000),), seed=4)
@@ -141,7 +174,8 @@ def _skip_with_card():
                                    "checkpoint_manager_restore_latest",
                                    "make_cache_mesh",
                                    "init_server_state_mesh",
-                                   "run_serving_shards"])
+                                   "run_serving_shards",
+                                   "train_ctr_tower_main"])
 def test_default_device_entry_points_raise_without_card(entry, tmp_path):
     _skip_with_card()
     cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=16)
@@ -183,6 +217,8 @@ def test_default_device_entry_points_raise_without_card(entry, tmp_path):
             cfg, mesh=t_mesh.CacheMesh((torch.device("cuda", 0),) * 2)),
         "run_serving_shards": lambda: t_launch.run_serving(
             minutes=1, users=10, n_shards=2),
+        "train_ctr_tower_main": lambda: t_ctr.main(["--users", "10",
+                                                   "--hours", "0.1"]),
         "decode_attention": lambda: TDA.decode_attention(
             torch.zeros((1, 4, 8), device="cuda"),
             torch.zeros((1, 16, 2, 8), device="cuda"),

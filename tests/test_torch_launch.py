@@ -1,0 +1,421 @@
+"""repro_torch's cell planner (``launch/specs.py``, ``launch/dryrun.py``)
+against the JAX package, on the CPU.
+
+Every one of the 40 cells on both production meshes is built by both
+packages (JAX's on an ``AbstractMesh``, which needs no devices; the
+port's on a mesh of meta devices): spec trees, argument shapes and
+dtypes, donation and notes equal leaf for leaf, ``model_flops`` to a
+relative 1e-12. The dry-run is held to what it promises: argument bytes
+exact from the local shard shapes, the linear accounting equal to the
+direct trace, the collective counter equal to its formula, the
+reference's result keys.
+"""
+import dataclasses
+import json
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import AbstractMesh, PartitionSpec  # noqa: E402
+
+from repro.configs import all_cells as j_all_cells  # noqa: E402
+from repro.core import config as j_config  # noqa: E402
+from repro.core import server as j_server  # noqa: E402
+from repro.distributed import sharding as JSH  # noqa: E402
+from repro.launch import dryrun as j_dryrun  # noqa: E402
+from repro.launch import specs as j_specs  # noqa: E402
+from repro_torch.configs import all_cells, get_config, list_archs  # noqa: E402
+from repro_torch.core import config as t_config  # noqa: E402
+from repro_torch.core import server as t_server  # noqa: E402
+from repro_torch.distributed import collectives as coll  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
+from repro_torch.distributed.sharding import Spec  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import specs as specs_lib  # noqa: E402
+from repro_torch.launch.mesh import (CacheMesh, ModelMesh,  # noqa: E402
+                                     PRODUCTION_SHAPES,
+                                     make_production_mesh)
+from repro_torch.models import recsys as TR  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+
+MESHES = [False, True]
+
+
+def meta_mesh(multi_pod):
+    dims, _ = PRODUCTION_SHAPES[multi_pod]
+    return make_production_mesh(multi_pod=multi_pod,
+                                devices=["meta"] * math.prod(dims))
+
+
+def _flat(tree, path=""):
+    """(path, leaf) pairs in JAX's order: specs as tuples, arrays as
+    (shape, dtype name); dict keys sorted, None an empty subtree."""
+    if isinstance(tree, (PartitionSpec, Spec)):
+        yield path, tuple(tree)
+    elif isinstance(tree, jax.ShapeDtypeStruct):
+        yield path, (tuple(tree.shape), np.dtype(tree.dtype).name)
+    elif isinstance(tree, torch.Tensor):
+        yield path, (tuple(tree.shape), str(tree.dtype).split(".")[1])
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat(v, f"{path}/{i}")
+    elif tree is not None:
+        yield path, tree
+
+
+# -------------------------------------------------------------- the cells
+def test_all_cells_is_40():
+    assert all_cells() == j_all_cells()
+    assert len(all_cells()) == 40
+    assert len({a for a, _ in all_cells()}) == 10
+
+
+@pytest.mark.parametrize("multi_pod", MESHES,
+                         ids=["singlepod", "multipod"])
+@pytest.mark.parametrize("arch,shape", all_cells(),
+                         ids=[f"{a}|{s}" for a, s in all_cells()])
+def test_build_cell_matches_reference(arch, shape, multi_pod):
+    dims, names = PRODUCTION_SHAPES[multi_pod]
+    jc = j_specs.build_cell(arch, shape, AbstractMesh(dims, names))
+    tc = specs_lib.build_cell(arch, shape, meta_mesh(multi_pod))
+    assert list(_flat(tc.in_specs)) == list(_flat(jc.in_specs))
+    assert list(_flat(tc.args)) == list(_flat(jc.args))
+    assert all(t.is_meta for t in dryrun._tensors(tc.args))
+    assert tc.donate_argnums == jc.donate_argnums
+    assert tc.note == jc.note
+    assert tc.model_flops == pytest.approx(jc.model_flops, rel=1e-12)
+
+
+# ----------------------------------------------- test_launch.py's cases
+def test_logical_to_spec_respects_mesh_axes():
+    for axes in (("data", "model"), ("pod", "data", "model")):
+        got = shd.logical_to_spec(("batch", "seq", "heads"), shd.LM_RULES,
+                                  axes)
+        want = JSH.logical_to_spec(("batch", "seq", "heads"), JSH.LM_RULES,
+                                   axes)
+        assert tuple(got) == tuple(want)
+    assert shd.logical_to_spec(("batch", "seq", "heads"), shd.LM_RULES,
+                               ("data", "model")) == Spec("data", None,
+                                                          "model")
+    # expert and ffn both map to model: the second one drops
+    assert shd.logical_to_spec(("expert", "ffn"), shd.LM_RULES,
+                               ("data", "model")) == Spec("model", None)
+
+
+def test_divisible_or_replicate_56_heads():
+    fake = type("M", (), {"shape": {"data": 16, "model": 16}})()
+    assert shd.divisible_or_replicate(Spec(None, "model"), (100, 56),
+                                      fake) == Spec(None, None)
+    assert shd.divisible_or_replicate(Spec(None, "model"), (100, 64),
+                                      fake) == Spec(None, "model")
+
+
+def test_opt_state_specs_shape_matching():
+    params = {"w": torch.empty((256, 512), device="meta")}
+    pspecs = {"w": Spec("model", "data")}
+    opt_state = {"step": torch.empty((), dtype=torch.int32, device="meta"),
+                 "v": {"w": {"vr": torch.empty((256,), device="meta"),
+                             "vc": torch.empty((512,), device="meta")}},
+                 "m": {"w": torch.empty((256, 512), device="meta")}}
+    specs = specs_lib._opt_state_specs(opt_state, params, pspecs)
+    assert specs["m"]["w"] == Spec("model", "data")
+    assert specs["v"]["w"]["vr"] == Spec("model")  # row factor drops last
+    assert specs["v"]["w"]["vc"] == Spec("data")   # col factor drops -2
+    assert specs["step"] == Spec()
+    j_params = {"w": jax.ShapeDtypeStruct((256, 512), jnp.float32)}
+    j_opt = {"step": jax.ShapeDtypeStruct((), jnp.int32),
+             "v": {"w": {"vr": jax.ShapeDtypeStruct((256,), jnp.float32),
+                         "vc": jax.ShapeDtypeStruct((512,), jnp.float32)}},
+             "m": {"w": jax.ShapeDtypeStruct((256, 512), jnp.float32)}}
+    want = j_specs._opt_state_specs(j_opt, j_params,
+                                    {"w": PartitionSpec("model", "data")})
+    assert list(_flat(specs)) == list(_flat(want))
+
+
+@pytest.mark.parametrize("kind", dryrun._COLLECTIVES)
+@pytest.mark.parametrize("n", [1, 2, 4, 16, 512])
+def test_wire_factor_matches_reference(kind, n):
+    assert dryrun._wire_factor(kind, n) == j_dryrun._wire_factor(kind, n)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_lm_flops_positive_and_scaled(arch):
+    cfg = get_config(arch)
+    if cfg.family != "lm":
+        assert cfg.family in ("gnn", "recsys")
+        return
+    f_train = specs_lib._lm_flops(cfg, 1024, True, 2048)
+    f_inf = specs_lib._lm_flops(cfg, 1024, False, 2048)
+    assert f_train > f_inf > 0
+    assert f_train / f_inf == pytest.approx(3.0, rel=0.01)
+    assert cfg.active_param_count() <= cfg.param_count()
+
+
+# -------------------------------------------------------------- cache tier
+def test_cache_tier_specs_match_reference():
+    kw = dict(model_id=1, model_type="ctr", n_buckets=64, ways=4,
+              value_dim=8)
+    j_state = jax.eval_shape(lambda: j_server.init_server_state(
+        j_config.CacheConfig(**kw), writebuf_capacity=16))
+    t_state = t_server.init_server_state(t_config.CacheConfig(**kw),
+                                         writebuf_capacity=16,
+                                         device="meta")
+    want = list(_flat(j_specs.cache_tier_specs(j_state)))
+    assert list(_flat(specs_lib.cache_tier_specs(t_state))) == want
+    assert want[0][1] == ("shard",)
+    # a sharded state gets its unsharded type's specs
+    sharded = t_server.init_server_state(
+        t_config.CacheConfig(**kw), writebuf_capacity=16, device="meta",
+        mesh=CacheMesh(("meta",) * 4))
+    assert list(_flat(specs_lib.cache_tier_specs(sharded))) == want
+    # the multi-model tier (M=2): the bucket axis behind the model axis
+    j_cfgs = j_config.multi_model_tier_configs(value_dim=8,
+                                               n_buckets=64)[:2]
+    t_cfgs = t_config.multi_model_tier_configs(value_dim=8,
+                                               n_buckets=64)[:2]
+    j_multi = jax.eval_shape(lambda: j_server.init_multi_server_state(
+        j_cfgs, writebuf_capacity=16))
+    t_multi = t_server.init_multi_server_state(t_cfgs, writebuf_capacity=16,
+                                               device="meta")
+    want = list(_flat(j_specs.cache_tier_specs(j_multi)))
+    assert list(_flat(specs_lib.cache_tier_specs(t_multi))) == want
+    assert want[0][1] == (None, "shard")
+
+
+def test_to_shardings_and_local_shape():
+    mesh = meta_mesh(False)
+    tree = {"a": Spec("data", None), "b": [Spec(), Spec(("data", "model"))]}
+    placed = specs_lib.to_shardings(mesh, tree)
+    assert placed["a"] == shd.Placement(mesh, Spec("data", None))
+    assert placed["b"][1].spec == Spec(("data", "model"))
+    assert specs_lib.local_shape((512, 7), Spec(("data", "model"), None),
+                                 mesh) == (2, 7)
+    assert specs_lib.local_shape((32, 64), Spec(None, "model"),
+                                 mesh) == (32, 4)
+    with pytest.raises(ValueError):
+        specs_lib.local_shape((8, 3), Spec("data"), mesh)
+
+
+# ------------------------------------------------------------- the dry-run
+def test_counter_moves_rows_not_tables():
+    """A gather reads the rows it takes and an in-place scatter writes the
+    rows it writes, not the (meta) table; a view moves nothing; an
+    element-wise op reads its inputs and writes its output; the peak
+    counts the storages the trace creates while they live."""
+    table = torch.empty((1 << 20, 8, 256), device="meta")      # 8.6 GB
+    idx = torch.empty((64,), dtype=torch.int64, device="meta")
+    rows = torch.empty((64, 8, 256), device="meta")
+
+    def fn(table, idx, rows):
+        got = table[idx]                            # 64 rows read, written
+        table[idx] = rows                           # 64 rows written
+        view = got.view(64, -1)                     # nothing moves
+        return (view * 2.0).sum()
+
+    res = dryrun.trace(fn, (table, idx, rows))
+    row = 8 * 256 * 4
+    assert res["bytes"] == (2 * 64 * row + 64 * 8            # gather
+                            + 64 * row + 64 * 8 + 64 * row   # index_put_
+                            + 2 * 64 * row                   # mul
+                            + 64 * row + 4)                  # sum
+    assert res["flops"] == 0
+    assert res["peak"] == 2 * 64 * row + 4           # got, got * 2, the sum
+    assert res["output_bytes"] == 4 and res["alias_bytes"] == 0
+
+
+def smoke_overrides(arch):
+    """The SMOKE config's widths as overrides of the published config."""
+    full, smoke = get_config(arch), get_config(arch, smoke=True)
+    return {f.name: getattr(smoke, f.name)
+            for f in dataclasses.fields(full)
+            if f.name != "arch_id"
+            and getattr(smoke, f.name) != getattr(full, f.name)}
+
+
+def expected_argument_bytes(cell, mesh):
+    """Each argument leaf's bytes over the product of its spec's axes."""
+    total = 0
+    for t, spec in dryrun._pairs(cell.args, cell.in_specs):
+        n = 1
+        for e in spec:
+            for a in (() if e is None else e if isinstance(e, tuple)
+                      else (e,)):
+                n *= mesh.shape[a]
+        total += t.numel() * t.element_size() // n
+    return total
+
+
+SMOKE_CELLS = [("tinyllama-1.1b", "train_4k"),
+               ("granite-moe-1b-a400m", "prefill_32k"),
+               ("tinyllama-1.1b", "decode_32k"),
+               ("gin-tu", "full_graph_sm"), ("gin-tu", "minibatch_lg"),
+               ("gin-tu", "molecule"),
+               ("wide-deep", "train_batch"), ("bst", "serve_p99"),
+               ("mind", "retrieval_cand")]
+
+
+@pytest.mark.parametrize("arch,shape", SMOKE_CELLS,
+                         ids=[f"{a}|{s}" for a, s in SMOKE_CELLS])
+def test_run_cell_plans_each_family_and_kind(arch, shape):
+    ov = smoke_overrides(arch)
+    res = dryrun.run_cell(arch, shape, verbose=False, overrides=ov)
+    assert res["ok"], res
+    for k in ("compute_s_term", "memory_s_term", "collective_s_term",
+              "hlo_flops_per_dev", "hlo_bytes_per_dev"):
+        assert math.isfinite(res[k]) and res[k] >= 0, (k, res[k])
+    assert res["memory_s_term"] > 0
+    assert res["dominant"] in ("compute", "memory", "collective")
+    cell = specs_lib.build_cell(arch, shape, meta_mesh(False), ov)
+    assert res["memory_stats"]["argument_bytes"] == expected_argument_bytes(
+        cell, meta_mesh(False))
+
+
+def test_run_cell_argument_bytes_by_hand():
+    """GIN's parameters and optimizer state are replicated; its node and
+    edge arrays split over the 16 data shards."""
+    res = dryrun.run_cell("gin-tu", "molecule", verbose=False)
+    cfg = get_config("gin-tu")
+    n_params = cfg.param_count(16) + cfg.n_layers             # + each eps
+    N, E = specs_lib._pad_to(128 * 30), specs_lib._pad_to(128 * 64)
+    want = (3 * 4 * n_params + 4                      # params, m, v, step
+            + (N * 16 * 4 + 2 * E * 4 + N * 4) // 16   # feats, edges, ids
+            + 128 * 4)                                  # labels, replicated
+    assert res["memory_stats"]["argument_bytes"] == want
+
+
+def test_run_cell_fails_a_spec_that_cannot_divide():
+    res = dryrun.run_cell("tinyllama-1.1b", "prefill_32k", verbose=False,
+                          overrides=dict(smoke_overrides("tinyllama-1.1b"),
+                                         global_batch=8))
+    assert res["ok"] is False
+    assert "sharding mismatch" in res["error"] and "16" in res["error"]
+
+
+def test_run_cell_fails_above_the_card_memory(monkeypatch):
+    monkeypatch.setattr(dryrun, "card_memory_bytes", lambda: 1e3)
+    res = dryrun.run_cell("gin-tu", "molecule", verbose=False)
+    assert res["ok"] is False and "exceeds one card's" in res["error"]
+
+
+@pytest.mark.parametrize("shape,ov", [
+    ("train_4k", {"n_layers": 3, "microbatches": 2}),
+    ("prefill_32k", {"n_layers": 3}),
+    ("decode_32k", {"n_layers": 3})], ids=["train", "prefill", "decode"])
+def test_lm_accounting_equals_direct_trace(shape, ov):
+    """The solve from L in {1, 2} (x M in {1, 2}) extrapolated to L = 3
+    equals the direct trace: FLOPs, bytes, collectives and counts exactly
+    (to float rounding), the traced peak within 1% (the first layer's
+    allocation order differs by a few scalars to 1 MB)."""
+    ov = dict(smoke_overrides("tinyllama-1.1b"), **ov)
+    mesh = meta_mesh(False)
+    acct = dryrun.lm_accounting("tinyllama-1.1b", shape, mesh, ov)
+    cell = specs_lib.build_cell("tinyllama-1.1b", shape, mesh, ov)
+    direct = dryrun._trace_cell(cell, mesh, shape == "train_4k")
+    for k in dryrun._ACCT_KEYS + ("output_bytes", "alias_bytes"):
+        assert acct[k] == pytest.approx(direct[k], rel=1e-12, abs=1e-6), k
+    assert acct["peak"] == pytest.approx(direct["peak"], rel=1e-2)
+    assert direct["flops"] > 0 and direct["bytes"] > 0
+
+
+def test_lm_accounting_counts_the_gradient_division_per_microbatch():
+    """At M = 4 the solve counts the one division of the summed gradients
+    M - 1 times: its bytes exceed the direct trace's by 2 (M - 2) x the
+    gradients' bytes; FLOPs and collectives stay exact."""
+    ov = dict(smoke_overrides("tinyllama-1.1b"), n_layers=2)
+    mesh = meta_mesh(False)
+    acct = dryrun.lm_accounting("tinyllama-1.1b", "train_4k", mesh, ov)
+    cell = specs_lib.build_cell("tinyllama-1.1b", "train_4k", mesh, ov)
+    direct = dryrun._trace_cell(cell, mesh, True)
+    M = specs_lib.TRAIN_MICRO["tinyllama-1.1b"]
+    grad_bytes = sum(t.numel() * t.element_size()
+                     for t in dryrun._tensors(cell.args[0].params))
+    assert acct["flops"] == direct["flops"]
+    assert acct["coll"] == pytest.approx(direct["coll"], rel=1e-12)
+    assert acct["bytes"] - direct["bytes"] == 2 * (M - 2) * grad_bytes
+
+
+def test_collective_counter_sharded_bag_formula():
+    mesh = ModelMesh((1, 4), ("data", "model"), ("meta",) * 4)
+    B, F, V, D, nnz = 64, 6, 1024, 8, 4
+    tables = torch.empty((F, V, D), device="meta")
+    ids = torch.empty((B, F, nnz), dtype=torch.int32, device="meta")
+    coll.TRAFFIC = []
+    try:
+        TR.sharded_field_embedding_bag(tables, ids, mesh, impl="torch")
+        TR.sharded_field_embedding_bag(tables, ids, mesh, impl="torch",
+                                       scatter_batch=True)
+        got = coll.TRAFFIC
+    finally:
+        coll.TRAFFIC = None
+    assert got == [("all-reduce", B * F * D * 4, 4),
+                   ("reduce-scatter", B * F * D * 4, 4)]
+    # and nothing is recorded when the counter is off
+    TR.sharded_field_embedding_bag(tables, ids, mesh, impl="torch")
+    assert coll.TRAFFIC is None
+
+
+def test_collective_counter_gradient_all_reduce():
+    """GIN's parameters are replicated: each gradient is all-reduced over
+    the 16 data shards, 2 x 15/16 of its bytes on the wire."""
+    res = dryrun.run_cell("gin-tu", "full_graph_sm", verbose=False)
+    cfg = get_config("gin-tu")
+    n = cfg.param_count(1433) + cfg.n_layers
+    assert res["collective_counts"]["all-reduce"] == 1 + 5 * cfg.n_layers
+    assert res["collective_breakdown"]["all-reduce"] == pytest.approx(
+        4 * n * 2 * 15 / 16, rel=1e-12)
+    assert res["collective_bytes_per_dev"] == pytest.approx(
+        4 * n * 2 * 15 / 16, rel=1e-12)
+
+
+REFERENCE_KEYS = {"arch", "shape", "mesh", "n_chips", "compile_s",
+                  "hlo_flops_per_dev", "hlo_bytes_per_dev",
+                  "collective_bytes_per_dev", "collective_breakdown",
+                  "collective_counts", "compute_s_term", "memory_s_term",
+                  "collective_s_term", "dominant", "model_flops_total",
+                  "useful_flops_ratio", "memory_stats", "note", "ok"}
+
+
+def test_main_writes_the_reference_keys(tmp_path, capsys):
+    out = tmp_path / "plans.json"
+    dryrun.main(["--arch", "gin-tu", "--shape", "molecule", "--out",
+                 str(out)])
+    results = json.loads(out.read_text())
+    assert list(results) == ["gin-tu|molecule|singlepod"]
+    res = results["gin-tu|molecule|singlepod"]
+    assert set(res) == REFERENCE_KEYS and res["ok"]
+    assert set(res["memory_stats"]) == {
+        "argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
+        "peak_estimate_gb"}
+    assert res["mesh"] == "16x16 (data,model)" and res["n_chips"] == 256
+    assert "gin-tu x molecule" in capsys.readouterr().out
+    dryrun.main(["--arch", "gin-tu", "--shape", "molecule", "--out",
+                 str(out)])                       # an ok cell is kept
+    assert "[skip] gin-tu|molecule|singlepod" in capsys.readouterr().out
+
+
+def test_run_ercache_cell_plans_the_reference_tier():
+    """The reference's 2**22 x 8 x 256 float32 tables, planned on meta
+    (a (1, 4) model mesh and 4 cache shards keep the trace short)."""
+    mesh = ModelMesh((1, 4), ("data", "model"), ("cpu",) * 4)
+    res = dryrun.run_ercache_cell(verbose=False, mesh=mesh,
+                                  cache_mesh=CacheMesh(("cpu",) * 4))
+    assert res["ok"] and res["note"] == "n_buckets=4194304 seq=64"
+    nb, W, D, B = 1 << 22, 8, 256, 4096
+    table = nb * W * (4 * 4 + D * 4)                 # 4 int32 planes + values
+    rings = B * (4 * 3 + D * 4 + 4) + 4 + B * 5 * 4 + 4 + 4
+    assert res["argument_bytes"]["state"] == 2 * table // 4 + rings
+    assert res["argument_bytes"]["inputs"] == B * 2 * 4 + B * 64 * 4
+    params = sum(t.numel() * t.element_size() for t in dryrun._tensors(
+        TT.abstract_params(get_config("tinyllama-1.1b"))))
+    assert res["argument_bytes"]["params"] < params        # sharded
+    assert res["hlo_flops_per_dev"] > 0
+    # the probe's combine: 4 psums per tier over the 4 cache shards
+    assert res["collective_counts"]["all-reduce"] == 8

@@ -95,19 +95,68 @@ def _axes_size(mesh, axes: Sequence[str]) -> int:
     return math.prod(mesh.shape[a] for a in axes)
 
 
-# The planner's collective counter (``launch/dryrun.py``): a list while it
-# traces a cell, None otherwise. Each cross-shard combine of the port
-# appends ``(kind, operand bytes a device, group size)`` of the collective
-# the reference runs at that point (``kind`` in its HLO's words:
-# "all-reduce", "all-gather", "reduce-scatter").
-TRAFFIC: Optional[list] = None
+# The planner's counter (``launch/layout.py``'s ``LayoutCounter``) while it
+# traces a cell, None otherwise. It keeps the collectives ``record`` logs
+# and the layouts the hooks below give; none of them does anything
+# without it, and none imports the planner.
+TRACER = None
 
 
 def record(kind: str, operand_bytes: float, group: int) -> None:
-    """Count one collective for the planner (nothing when it is off or
-    the group is one shard)."""
-    if TRAFFIC is not None and group > 1:
-        TRAFFIC.append((kind, float(operand_bytes), int(group)))
+    """Count, for the planner, the collective the reference runs where a
+    cross-shard combine of the port stands: ``kind`` in its HLO's words
+    ("all-reduce", "all-gather", "reduce-scatter"), the operand's bytes a
+    device, the group's size. Nothing when the planner is off or the group
+    is one shard."""
+    if TRACER is not None and group > 1:
+        TRACER.traffic.append((kind, float(operand_bytes), int(group)))
+
+
+def shard_range(n: int) -> Iterator[int]:
+    """The shards of a model-axis shard loop, in order: ``range(n)``, or
+    under the planner's trace the first shard only (one device's share
+    of the work, the SPMD program the reference compiles)."""
+    if TRACER is None:
+        yield from range(n)
+        return
+    with TRACER.shard_loop():
+        yield 0
+
+
+def placed(x: torch.Tensor, spec) -> torch.Tensor:
+    """``x`` itself; under the planner's trace ``x`` is laid out by
+    ``spec`` (a shard loop's combined result, whose collective the loop
+    records itself)."""
+    if TRACER is not None:
+        TRACER.place(x, spec)
+    return x
+
+
+class _Reshard(torch.autograd.Function):
+    """Under the planner's trace: a view of ``x`` resharded to ``spec``,
+    whose gradient the backward reshards to ``spec`` too (a sharding
+    constraint and its transpose; ``LayoutCounter.reshard`` records what
+    each takes)."""
+
+    @staticmethod
+    def forward(ctx, x, spec):
+        ctx.spec = spec
+        y = x.view_as(x)
+        TRACER.reshard(x, y, spec)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.view_as(grad)
+        if TRACER is not None:
+            TRACER.reshard(grad, g, ctx.spec)
+        return g, None
+
+
+def reshard(x: torch.Tensor, spec) -> torch.Tensor:
+    """``x`` itself, or under the planner's trace a view of it resharded
+    to ``spec`` (``sharding.constrain``'s constraint)."""
+    return x if TRACER is None else _Reshard.apply(x, spec)
 
 
 def top_k(scores: torch.Tensor, k: int
@@ -260,7 +309,7 @@ def seq_sharded_decode_attention(q: torch.Tensor, k: torch.Tensor,
         decode_attention_partials
 
     parts = []
-    for s in range(n):
+    for s in shard_range(n):
         lo = s * sl
         k_l, v_l = k[:, lo:lo + sl], v[:, lo:lo + sl]
         if backend == "cuda":
@@ -274,7 +323,9 @@ def seq_sharded_decode_attention(q: torch.Tensor, k: torch.Tensor,
         parts.append(tuple(t[None] for t in _local_decode_partials(
             q, k_l, v_l, kv_len_mask=mask)))
     m, l, acc = (torch.cat(t) for t in zip(*parts))
-    return combine_decode_partials(m, l, acc, q.dtype)
+    out = combine_decode_partials(m, l, acc, q.dtype)
+    baxes = batch_shard_axes(mesh, seq_axes, batch_axes, q.shape[0])
+    return placed(out, (baxes or None,))
 
 
 def sharded_topk_scores(query: torch.Tensor, candidates: torch.Tensor,
@@ -302,11 +353,11 @@ def sharded_topk_scores(query: torch.Tensor, candidates: torch.Tensor,
     nl = candidates.shape[0] // n
     with torch.no_grad():
         q = query.to(torch.float32)
-        local = []
-        for s in range(n):                  # row-major over cand_axes
+        local = {}
+        for s in shard_range(n):            # row-major over cand_axes
             rows = candidates[s * nl:(s + 1) * nl].to(torch.float32)
             vals, idx = top_k(q @ rows.T, k_top)
-            local.append((vals, idx + s * nl))
+            local[s] = (vals, idx + s * nl)
         width = k_top
         for a in cand_axes:            # the reference's all_gathers in turn
             for _ in ("vals", "ids"):  # float32 and int32 (B, width)
@@ -314,6 +365,7 @@ def sharded_topk_scores(query: torch.Tensor, candidates: torch.Tensor,
             width *= mesh.shape[a]
         order = [_combined_axis_index(mesh, cand_axes, c)
                  for c in _shard_coords(mesh, cand_axes[::-1])]
+        order = [s for s in order if s in local]   # one under the planner
         vals_g = torch.cat([local[s][0] for s in order], dim=-1)
         idx_g = torch.cat([local[s][1] for s in order], dim=-1)
         vals, pos = top_k(vals_g, k_top)
@@ -346,8 +398,8 @@ def _on(x, dev: torch.device):
     return x
 
 
-def _combine_probe(results, owned, global_bucket: torch.Tensor
-                   ) -> cache_lib.LookupResult:
+def _combine_probe(results, owned, global_bucket: torch.Tensor,
+                   n_shards: int) -> cache_lib.LookupResult:
     """Per-shard probe results -> one result on the first shard's device.
     At most one shard owns a query's bucket, so masking each shard's
     result to its owned hits and summing over the shards in shard order
@@ -360,7 +412,7 @@ def _combine_probe(results, owned, global_bucket: torch.Tensor
     B, D = results[0].values.shape
     for nbytes in (4 * B, B * D * results[0].values.element_size(), 4 * B,
                    4 * B):              # psums of hit, values, age, way
-        record("all-reduce", nbytes, len(results))
+        record("all-reduce", nbytes, n_shards)
     total = None
     for res, own in zip(results, owned):
         hitc = _on(res.hit & own, dev)
@@ -396,10 +448,11 @@ def _probe_shards(mesh, direct, failover, g_d, g_f, probe):
     """Probe every shard at its local buckets: ``probe(d, f, dev, loc_d,
     loc_f)`` gives one shard's (direct, failover) results; the combine
     reassembles them with the global buckets ``g_d`` / ``g_f``."""
-    _, nbl_d = _shards(mesh, direct)
+    n, nbl_d = _shards(mesh, direct)
     _, nbl_f = _shards(mesh, failover)
     res_d, res_f, own_d, own_f = [], [], [], []
-    for s, (d, f) in enumerate(zip(direct.shards, failover.shards)):
+    for s in shard_range(n):
+        d, f = direct.shards[s], failover.shards[s]
         dev = d.key_hi.device
         od, ld = cache_lib.route_buckets(_on(g_d, dev), s,
                                          direct.n_buckets, nbl_d)
@@ -410,8 +463,8 @@ def _probe_shards(mesh, direct, failover, g_d, g_f, probe):
         res_f.append(rf)
         own_d.append(od)
         own_f.append(of)
-    return (_combine_probe(res_d, own_d, g_d),
-            _combine_probe(res_f, own_f, g_f))
+    return (_combine_probe(res_d, own_d, g_d, n),
+            _combine_probe(res_f, own_f, g_f, n))
 
 
 def sharded_lookup_dual(mesh, direct, failover, keys: Key64, now_ms,

@@ -11,8 +11,10 @@ dropping axes the mesh lacks and using each mesh axis at most once;
 :func:`constrain` computes and checks a tensor's spec and returns the
 tensor itself: a sharding constraint never changes a value, and the
 port's model-axis functions run every shard on one device, so nothing
-moves. The shard loops that do split work (the sharded bag, top-k,
-decode and GIN forward) take their shard counts from the same mesh.
+moves (the planner's trace alone records what the constraint would move,
+``launch/layout.py``). The shard loops that do split work (the sharded
+bag, top-k, decode and GIN forward) take their shard counts from the same
+mesh.
 
 In the cache-tier half, shard s
 of a 1-D ``("shard",)`` :class:`~repro_torch.launch.mesh.CacheMesh` owns
@@ -179,7 +181,14 @@ def constrain(x: torch.Tensor, logical: Sequence[Optional[str]],
     """The reference's ``with_sharding_constraint`` by logical names: the
     spec is computed and checked (as many names as ``x`` has dims at
     most, a mesh on one device) and ``x`` itself is returned. No-op when
-    ``mesh`` is None."""
+    ``mesh`` is None. Under the planner's trace (only there) a view of
+    ``x`` resharded to the spec is returned instead, its collectives and
+    those of its backward recorded (``collectives.reshard``). There a
+    dimension that its axes do not divide stays split over the minor ones
+    that do, where ``divisible_or_replicate`` gives it whole: GSPMD keeps
+    the split its inputs carry (the reference's compile of Arctic's
+    training on the (2, 16, 16) mesh runs one row of each 16-row
+    microbatch a device)."""
     if mesh is None:
         return x
     mesh.device()                       # refuses a mesh of distinct devices
@@ -188,7 +197,7 @@ def constrain(x: torch.Tensor, logical: Sequence[Optional[str]],
                          f"a tensor of shape {tuple(x.shape)}")
     spec = logical_to_spec(logical, RULES_BY_FAMILY[family], mesh.axis_names)
     divisible_or_replicate(spec, x.shape, mesh)
-    return x
+    return coll.reshard(x, spec)
 
 
 class ShardedCacheState(NamedTuple):

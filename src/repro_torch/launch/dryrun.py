@@ -2,38 +2,43 @@
 device: it needs no card and allocates nothing.
 
 Twin of ``repro/launch/dryrun.py``, which lowers and compiles each cell
-on the 256- or 512-chip production mesh. Here each cell
-(``launch/specs.py``) is checked spec by spec against its shapes (a spec
-that does not divide its dimension fails the cell, as a sharding mismatch
-fails the reference's compile) and its step is traced once on meta
-tensors under a counter: ``torch.utils.flop_counter.FlopCounterMode``
-for the FLOPs, and a dispatch mode of its own that sums the bytes each
-aten op reads and writes (views move nothing; index ops move the rows
-they read or write, not the whole table) and tracks the peak of the live
-meta storages the trace creates. A cell whose per-device estimate exceeds
-one card's memory fails, as the reference's compile-time OOM does. The
-roofline terms use the H100's constants (``launch/mesh.py``):
+on the 256- or 512-chip production mesh and reads one device's SPMD
+module. Here each cell (``launch/specs.py``) is checked spec by spec
+against its shapes (a spec that does not divide its dimension fails the
+cell, as a sharding mismatch fails the reference's compile; so does a
+``shard_map`` of the port's that cannot split its batch) and its step is
+traced once on meta tensors under ``launch/layout.py``'s
+``LayoutCounter``. It lays every argument out by the cell's specs,
+propagates the layouts through each aten op, and counts one device's
+share: its FLOPs (XLA's count: products, and one an element-wise output
+or reduced input element), its bytes (each op unfused; views move
+nothing; index ops move the rows they read or write, not the whole
+table), the peak of the live storages the trace creates, and the
+collectives the layouts ask for. Those are the reference's derived ones
+(a partial sum resolved at a sharding constraint, in its backward, and
+again in a checkpointed layer's recompute; the gradients reduced to
+their parameters' layouts; the gathers a conflicting layout needs, those
+GSPMD calls involuntary counted apart) beside the port's explicit
+cross-shard combines (``collectives.record``: the sequence-sharded
+decode's merge, the sharded top-k's gathers, the sharded probe's
+combine, the row-sharded bag's sum), each through the reference's wire
+model (``_wire_factor``). Arguments the step never reads are left out of
+the argument bytes, as the reference's ``jit`` prunes them. A cell whose
+per-device estimate exceeds one card's memory fails, as the reference's
+compile-time OOM does. The roofline terms use the H100's constants
+(``launch/mesh.py``):
 
-    compute    = FLOPs / (chips x peak)
-    memory     = bytes / (chips x HBM rate)
+    compute    = FLOPs a device / peak
+    memory     = bytes a device / HBM rate
     collective = collective bytes a device / link rate
 
-The port runs every shard on one device, so its FLOPs and bytes are the
-global counts over ``n_chips``: the ideal split. The reference's figures
-come from one device's SPMD module and also carry the work it
-replicates. ``FlopCounterMode`` counts the matrix products (and
-attention) only, not the element-wise ops. Collective bytes come from the
-port's explicit cross-shard combines (each records its operand bytes and
-group size, ``collectives.record``: the sequence-sharded decode's merge,
-the sharded top-k's gathers, the sharded probe's combine, the row-sharded
-bag's sum, the partitioned GIN's gathers) and, for a train cell, the
-all-reduce of each gradient over the batch axes its spec leaves it
-replicated on; each goes through the reference's wire model
-(``_wire_factor``). The activation all-reduces that GSPMD derives from
-the reference's sharding constraints exist only in its partitioned HLO:
-the port's ``constrain`` is a checked no-op, and its collective term
-leaves them out. The reference's HLO-text parser and its ``XLA_FLAGS``
-device-count re-exec have no counterpart.
+Where the counts differ from the reference's by design: XLA counts the
+body of the reference's KV-chunk attention scan once, the port all of
+it; XLA fuses element-wise chains and reads a gather's whole table; the
+reference's decode takes the KV cache through its layer scan where the
+port writes it in place. ``scripts/plan_parity.py`` tabulates both. The
+reference's HLO-text parser and its ``XLA_FLAGS`` device-count re-exec
+have no counterpart.
 
 Usage::
 
@@ -49,18 +54,15 @@ import math
 import os
 import time
 import traceback
-import weakref
 from typing import Dict, Optional
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import all_cells, get_config, shapes_for
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharding import Spec
 from repro_torch.launch import specs as specs_lib
+from repro_torch.launch.layout import LayoutCounter, _key, _tensors
 from repro_torch.launch.mesh import (HBM_BW, ICI_BW, PEAK_FLOPS_BF16,
                                      CacheMesh, ModelMesh,
                                      make_production_mesh)
@@ -96,114 +98,6 @@ def card_memory_bytes() -> float:
 
 
 # ------------------------------------------------------------ the counter
-aten = torch.ops.aten
-# ops that allocate or relabel without touching memory
-_FREE = {aten._unsafe_view, aten.detach, aten.alias, aten.empty,
-         aten.empty_like, aten.empty_strided, aten.new_empty}
-# row reads: the output's elements are read from the table once
-_GATHERS = {aten.index, aten.gather, aten.index_select}
-# row writes (index_put_ in place; the others also copy their first
-# argument whole); scatter_reduce is GIN's max aggregation
-_SCATTERS = {aten.index_put_, aten.index_put, aten.index_add,
-             aten.scatter_add, aten.scatter_reduce}
-
-
-def _tensors(tree):
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
-
-
-def _nbytes(t: torch.Tensor) -> int:
-    """Bytes a read of ``t`` touches: its elements, or its storage when a
-    broadcast view repeats them."""
-    return min(t.numel() * t.element_size(),
-               t.untyped_storage().nbytes())
-
-
-def _key(t: torch.Tensor) -> int:
-    return t.untyped_storage()._cdata
-
-
-def _written(packet, args) -> int:
-    """Elements a row-writing op writes into its first argument."""
-    if packet is aten.index_add:
-        return args[3].numel()                      # the source rows
-    if packet in (aten.scatter_add, aten.scatter_reduce):
-        return args[2].numel()                      # the index
-    self, idx = args[0], args[1]                    # index_put(_)
-    n = 1
-    for d in torch.broadcast_shapes(*(i.shape for i in idx if i is not None)):
-        n *= d
-    for d in range(self.dim()):
-        if d >= len(idx) or idx[d] is None:
-            n *= self.shape[d]
-    return n
-
-
-def op_bytes(func, args, kwargs, out) -> float:
-    """Bytes one aten op reads and writes: each input read once, each
-    output written once; views and allocations none; a gather the rows it
-    reads, a scatter the rows it writes (read too where it accumulates)
-    beside its index and source, an out-of-place one also copying its
-    first argument."""
-    packet = func.overloadpacket
-    if packet in _FREE or func.is_view:
-        return 0.0
-    ins = _tensors((args, kwargs))
-    outs = _tensors(out)
-    if packet in _GATHERS:
-        return (2.0 * sum(_nbytes(t) for t in outs)
-                + sum(_nbytes(t) for t in ins[1:]))
-    if packet in _SCATTERS:
-        accumulate = True
-        if packet in (aten.index_put_, aten.index_put):
-            accumulate = bool(args[3] if len(args) > 3
-                              else kwargs.get("accumulate", False))
-        moved = ((2.0 if accumulate else 1.0)
-                 * _written(packet, args) * args[0].element_size()
-                 + sum(_nbytes(t) for t in ins[1:]))
-        if packet is not aten.index_put_:   # the copy of the first argument
-            moved += _nbytes(args[0]) + sum(_nbytes(t) for t in outs)
-        return moved
-    if packet is aten.copy_:                # writes its first argument only
-        return float(sum(_nbytes(t) for t in ins[1:])
-                     + sum(_nbytes(t) for t in outs))
-    return float(sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs))
-
-
-class TraceCounter(TorchDispatchMode):
-    """Sums :func:`op_bytes` over every aten op and tracks the live bytes
-    of the storages the trace creates (not those of ``args``): each new
-    storage is counted from its creating op until it dies."""
-
-    def __init__(self, args=()):
-        super().__init__()
-        self.bytes = 0.0
-        self.live = 0
-        self.peak = 0
-        self._seen = {_key(t) for t in _tensors(args)}
-
-    def _dead(self, key: int, n: int) -> None:
-        self.live -= n
-        self._seen.discard(key)          # a new storage may reuse the address
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        self.bytes += op_bytes(func, args, kwargs, out)
-        if not func.is_view:
-            owned = {_key(t) for t in _tensors((args, kwargs))}
-            for t in _tensors(out):
-                st = t.untyped_storage()
-                k = st._cdata
-                if k in self._seen or k in owned:  # an argument's storage
-                    continue
-                self._seen.add(k)
-                self.live += st.nbytes()
-                self.peak = max(self.peak, self.live)
-                weakref.finalize(st, self._dead, k, st.nbytes())
-        return out
-
-
 def _pairs(args, specs):
     """(tensor, spec) for every tensor leaf of ``args`` under the spec
     tree ``specs`` (a Spec over a subtree applies to each of its
@@ -223,49 +117,50 @@ def _local_bytes(t: torch.Tensor, spec, mesh) -> int:
         * t.element_size()
 
 
-def argument_bytes(args, specs, mesh) -> int:
+def argument_bytes(args, specs, mesh, unused=()) -> int:
     """Per-device argument bytes: every leaf at its local shard shape
-    (raises where a spec does not divide its dimension)."""
-    return sum(_local_bytes(t, spec, mesh) for t, spec in _pairs(args, specs))
+    (raises where a spec does not divide its dimension), but the leaves
+    (by position) in ``unused``, which the compiled step never reads and
+    the reference's ``jit`` prunes."""
+    return sum(_local_bytes(t, spec, mesh)
+               for i, (t, spec) in enumerate(_pairs(args, specs))
+               if i not in set(unused))
 
 
-def _grad_all_reduces(params, param_specs, mesh) -> None:
-    """Record the all-reduce of each gradient over the batch axes its spec
-    leaves it replicated on (operand: its local shard in the parameter's
-    dtype)."""
-    batch_axes = [a for a in ("pod", "data") if a in mesh.axis_names]
-    for t, spec in _pairs(params, param_specs):
-        used = {a for e in spec if e is not None
-                for a in (e if isinstance(e, tuple) else (e,))}
-        coll.record("all-reduce", _local_bytes(t, spec, mesh),
-                    math.prod(mesh.shape[a] for a in batch_axes
-                              if a not in used))
-
-
-def trace(fn, args, grads=None) -> Dict:
-    """Trace ``fn(*args)`` once: FLOPs, bytes, collective traffic (the
-    combines' records plus ``grads``' all-reduces, ``(params, specs,
-    mesh)``), the traced peak of new storages, the outputs' bytes and
-    those aliasing an argument, and the seconds the trace took."""
+def trace(fn, args, specs=None, mesh_shape=None) -> Dict:
+    """Trace ``fn(*args)`` once under a :class:`LayoutCounter` whose
+    arguments are laid out by the spec tree ``specs`` over a mesh of
+    ``mesh_shape`` (axis -> size; none: every argument replicated): one
+    device's FLOPs, bytes, collective traffic and peak of new storages,
+    the outputs' bytes and those aliasing an argument, the involuntary
+    gathers, and the seconds the trace took. Partial sums left in the
+    outputs are all-reduced, as the reference's replicated outputs."""
+    placed = _pairs(args, specs) if specs is not None else []
     arg_keys = {_key(t) for t in _tensors(args)}
     t0 = time.perf_counter()
-    coll.TRAFFIC = []
+    counter = LayoutCounter(mesh_shape or {}, placed)
+    coll.TRACER = counter
     try:
-        if grads is not None:
-            _grad_all_reduces(*grads)
-        with FlopCounterMode(display=False) as flops, \
-                TraceCounter(args) as counter:
+        with counter, counter.layer_slices():
             out = fn(*args)
-        traffic = coll.TRAFFIC
+            outs = _tensors(out)
+            for t in outs:
+                counter.set_layout(t, counter.resolve(
+                    t, counter.layout(t)._replace(partial=frozenset())))
     finally:
-        coll.TRAFFIC = None
-    outs = {}
-    for t in _tensors(out):
-        outs.setdefault(_key(t), t.untyped_storage().nbytes())
-    res = {"flops": float(flops.get_total_flops()),
-           "bytes": counter.bytes, "peak": counter.peak,
-           "output_bytes": sum(outs.values()),
-           "alias_bytes": sum(n for k, n in outs.items() if k in arg_keys),
+        coll.TRACER = None
+        counter.remove_hooks()
+    traffic = counter.traffic
+    sizes = {}
+    for t in outs:
+        sizes.setdefault(_key(t), t.untyped_storage().nbytes()
+                         / counter.split(counter.layout(t)))
+    res = {"flops": counter.flops, "bytes": counter.bytes,
+           "peak": counter.peak, "output_bytes": sum(sizes.values()),
+           "alias_bytes": sum(n for k, n in sizes.items() if k in arg_keys),
+           "involuntary": counter.involuntary, "traffic": list(traffic),
+           "unused": [i for i, (t, _) in enumerate(placed)
+                      if _key(t) not in counter.read],
            "seconds": time.perf_counter() - t0}
     res["coll"] = 0.0
     for k in _COLLECTIVES:
@@ -289,19 +184,8 @@ def _production_mesh(multi_pod: bool) -> ModelMesh:
     return make_production_mesh(multi_pod=multi_pod, devices=["meta"] * n)
 
 
-def _is_train(arch: str, shape_name: str) -> bool:
-    cfg = get_config(arch)
-    return cfg.family == "gnn" or shapes_for(cfg)[shape_name].kind == "train"
-
-
-def _trace_cell(cell, mesh, train: bool) -> Dict:
-    grads = None
-    if train:
-        params, pspecs = cell.args[0], cell.in_specs[0]
-        if hasattr(params, "opt_state"):            # an LM TrainState
-            params, pspecs = params.params, pspecs.params
-        grads = (params, pspecs, mesh)
-    return trace(cell.fn, cell.args, grads)
+def _trace_cell(cell, mesh) -> Dict:
+    return trace(cell.fn, cell.args, cell.in_specs, mesh.shape)
 
 
 def _combine(terms, coeffs) -> Dict[str, float]:
@@ -311,7 +195,7 @@ def _combine(terms, coeffs) -> Dict[str, float]:
             for k in keys}
 
 
-_ACCT_KEYS = ("flops", "bytes", "coll") + tuple(
+_ACCT_KEYS = ("flops", "bytes", "coll", "involuntary") + tuple(
     f"{p}_{k}" for p in ("coll", "count") for k in _COLLECTIVES)
 _MEM_KEYS = ("peak", "output_bytes", "alias_bytes")
 
@@ -329,13 +213,14 @@ def lm_accounting(arch: str, shape_name: str, mesh,
     because XLA counts a scan's body once; the port's layers and
     microbatches are Python loops, so the solve reproduces the direct
     trace where the cost is affine, in a fraction of its time: FLOPs,
-    collectives and bytes, except that from M = 2 on the step divides the
-    summed gradients once, which the solve counts M - 1 times. The traced
-    peak, outputs and aliases are affine in L at a fixed microbatch
-    (from M = 2 on a train step's peak holds the summed gradients beside
-    one microbatch's and no longer grows with M): they come from the two
-    points at min(M, 2) microbatches. Also returns ``seconds``, the
-    variants' trace time."""
+    collectives, involuntary gathers and bytes, except that from M = 2 on
+    the step divides the summed gradients once (its bytes and FLOPs),
+    which the solve counts M - 1 times. The traced peak, outputs and
+    aliases are affine in L at a fixed microbatch (from M = 2 on a train
+    step's peak holds the summed gradients beside one microbatch's and no
+    longer grows with M): they come from the two points at min(M, 2)
+    microbatches. Also returns ``seconds``, the variants' trace time, and
+    ``unused``, the argument leaves the step never reads."""
     overrides = dict(overrides or {})
     cfg = get_config(arch)
     L = overrides.get("n_layers", cfg.n_layers)
@@ -350,7 +235,7 @@ def lm_accounting(arch: str, shape_name: str, mesh,
         if batch is not None:
             ov["global_batch"] = batch
         cell = specs_lib.build_cell(arch, shape_name, mesh, ov)
-        res = _trace_cell(cell, mesh, shape.kind == "train")
+        res = _trace_cell(cell, mesh)
         seconds.append(res["seconds"])
         return res
 
@@ -377,6 +262,7 @@ def lm_accounting(arch: str, shape_name: str, mesh,
         one, two = pick(_MEM_KEYS, *pts)
     out.update(_combine([one, _combine([two, one], [1, -1])], [1, L - 1]))
     out["seconds"] = sum(seconds)
+    out["unused"] = pts[0]["unused"]
     return out
 
 
@@ -387,10 +273,10 @@ def _mesh_label(mesh) -> str:
 
 def _result(arch, shape_name, mesh_label, n_chips, meas, arg_bytes,
             model_flops, note) -> Dict:
-    """The reference's result keys from one cell's measurements (global
-    FLOPs, bytes and traced peak; per-device arguments and collectives)."""
-    flops = meas["flops"] / n_chips
-    bytes_accessed = meas["bytes"] / n_chips
+    """The reference's result keys from one cell's per-device
+    measurements, and the count of involuntary gathers."""
+    flops = meas["flops"]
+    bytes_accessed = meas["bytes"]
     coll_total = meas["coll"]
     compute_s = flops / PEAK_FLOPS_BF16
     memory_s = bytes_accessed / HBM_BW
@@ -398,11 +284,11 @@ def _result(arch, shape_name, mesh_label, n_chips, meas, arg_bytes,
     dominant = max(
         (("compute", compute_s), ("memory", memory_s),
          ("collective", collective_s)), key=lambda kv: kv[1])[0]
-    out_b = meas["output_bytes"] / n_chips
-    alias_b = meas["alias_bytes"] / n_chips
+    out_b = meas["output_bytes"]
+    alias_b = meas["alias_bytes"]
     # the traced peak holds the new outputs too: temp is the rest of it,
     # so arguments + outputs + temp - aliases = arguments + peak
-    temp_b = max(meas["peak"] / n_chips - (out_b - alias_b), 0.0)
+    temp_b = max(meas["peak"] - (out_b - alias_b), 0.0)
     peak_b = arg_bytes + out_b + temp_b - alias_b
     cap = card_memory_bytes()
     result = {
@@ -421,6 +307,7 @@ def _result(arch, shape_name, mesh_label, n_chips, meas, arg_bytes,
         "model_flops_total": model_flops,
         "useful_flops_ratio": (model_flops / n_chips / flops
                                if flops else 0.0),
+        "involuntary_gathers": int(meas["involuntary"]),
         "memory_stats": {
             "argument_bytes": arg_bytes,
             "output_bytes": out_b,
@@ -457,20 +344,22 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     mesh = _production_mesh(multi_pod)
     n_chips = mesh.size
     cell = specs_lib.build_cell(arch, shape_name, mesh, overrides)
-    try:
-        arg_bytes = argument_bytes(cell.args, cell.in_specs, mesh)
-    except ValueError as e:
-        return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
-                "mesh": _mesh_label(mesh), "ok": False,
-                "error": f"sharding mismatch: {e}"}
     # LM cells on the single pod (the reference's default): the variants'
     # linear decomposition stands for the direct trace, which it equals
     if accounting is None:
         accounting = get_config(arch).family == "lm" and not multi_pod
-    if accounting:
-        meas = lm_accounting(arch, shape_name, mesh, overrides)
-    else:
-        meas = _trace_cell(cell, mesh, _is_train(arch, shape_name))
+    try:
+        argument_bytes(cell.args, cell.in_specs, mesh)
+        if accounting:
+            meas = lm_accounting(arch, shape_name, mesh, overrides)
+        else:
+            meas = _trace_cell(cell, mesh)
+        arg_bytes = argument_bytes(cell.args, cell.in_specs, mesh,
+                                   meas["unused"])
+    except ValueError as e:     # a spec or a shard_map that cannot divide
+        return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
+                "mesh": _mesh_label(mesh), "ok": False,
+                "error": f"sharding mismatch: {e}"}
     result = _result(arch, shape_name, _mesh_label(mesh), n_chips, meas,
                      arg_bytes, cell.model_flops, cell.note)
     if verbose:
@@ -544,7 +433,11 @@ def run_ercache_cell(arch: str = "tinyllama-1.1b", batch: int = 4096,
         res = server.serve_step(params, state, keys, tokens, 0)
         return res.embeddings, res.source, res.stats, res.state
 
-    meas = trace(fn, (params_abs, state_abs, keys_abs, toks_abs))
+    # each table slab is one cache shard's local share: replicated
+    meas = trace(fn, (params_abs, state_abs, keys_abs, toks_abs),
+                 (param_specs, Spec(),
+                  Key64(hi=Spec(bspec), lo=Spec(bspec)), Spec(bspec, None)),
+                 mesh.shape)
     # useful work: the tower over the miss budget's rows
     useful = specs_lib._lm_flops(cfg, batch // 4 * seq, False, seq // 2)
     result = _result(f"ercache-serve[{arch}]", f"batch{batch}",

@@ -125,27 +125,39 @@ def sharded_field_embedding_bag(tables: torch.Tensor, ids: torch.Tensor,
     more. ``scatter_batch`` (the reference's ``psum_scatter`` serving
     layout) gives the same values; ``batch_axes`` split rows only. The
     plain version (``impl="torch"``) is differentiable: a sharded train
-    step runs it into the one tables tensor."""
-    vocab = tables.shape[1]
+    step runs it into the one tables tensor.
+
+    Raises ``ValueError`` where the reference's ``shard_map`` does: a batch
+    B that the batch axes present in the mesh do not divide, and with
+    ``scatter_batch`` one that those axes times ``rows_axis`` do not
+    divide (its tiled ``psum_scatter``)."""
+    vocab, batch = tables.shape[1], ids.shape[0]
     n = mesh.shape[rows_axis]
     mesh.device()                       # refuses a mesh of distinct devices
     if vocab % n:
         raise ValueError(f"{vocab} rows do not split over {n} shards")
     vl = vocab // n
-    split = math.prod(mesh.shape[a] for a in batch_axes
-                      if a in mesh.axis_names)
+    baxes = tuple(a for a in batch_axes if a in mesh.axis_names)
+    split = math.prod(mesh.shape[a] for a in baxes)
+    if batch % split:
+        raise ValueError(f"batch {batch} does not split over the {split} "
+                         f"shards of {baxes}")
+    if scatter_batch and batch % (split * n):
+        raise ValueError(f"batch {batch} does not scatter over the "
+                         f"{split * n} shards of {baxes + (rows_axis,)}")
     # the reference's psum (psum_scatter) of a device's (B, F, D) partials
     collectives.record(
         "reduce-scatter" if scatter_batch else "all-reduce",
-        ids.shape[0] / split * ids.shape[1] * tables.shape[2]
+        batch // split * ids.shape[1] * tables.shape[2]
         * tables.element_size(), n)
     flat, ids, rows = _field_rows(tables, ids)
     total = None
-    for s in range(n):
+    for s in collectives.shard_range(n):
         owned = (ids >= s * vl) & (ids < (s + 1) * vl)
         part = embedding_bag(flat, torch.where(owned, rows, -1), impl=impl)
         total = part if total is None else total + part
-    return total
+    out_axes = baxes + (rows_axis,) if scatter_batch else baxes
+    return collectives.placed(total, (out_axes or None, None, None))
 
 
 def _shardable(cfg: RecsysConfig, table: torch.Tensor, mesh) -> bool:

@@ -524,6 +524,10 @@ def prefill_step(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
     with torch.no_grad():
         k, v = _kv_buffers(cfg, B, max_seq, tokens.device,
                            torch.zeros if max_seq > S else torch.empty)
+        if mesh is not None:          # the reference's out_specs of the cache
+            ax = kv_cache_logical_axes()
+            k, v = (constrain(k, ax.k, "lm", mesh),
+                    constrain(v, ax.v, "lm", mesh))
         x = _forward(params, tokens, cfg, backend, (k, v), mesh)[0]
         logits = logits_from_hidden(params, x[:, -1])
     return logits, KVCache(k, v, torch.full((B,), S, dtype=torch.int32,

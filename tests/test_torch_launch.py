@@ -10,6 +10,7 @@ exact from the local shard shapes, the linear accounting equal to the
 direct trace, the collective counter equal to its formula, the
 reference's result keys.
 """
+import collections
 import dataclasses
 import json
 import math
@@ -226,9 +227,90 @@ def test_counter_moves_rows_not_tables():
                             + 64 * row + 64 * 8 + 64 * row   # index_put_
                             + 2 * 64 * row                   # mul
                             + 64 * row + 4)                  # sum
-    assert res["flops"] == 0
+    # XLA's count: one FLOP an output element of the mul, one an input
+    # element of the sum; the gather and the scatter none
+    assert res["flops"] == 2 * 64 * 8 * 256
     assert res["peak"] == 2 * 64 * row + 4           # got, got * 2, the sum
     assert res["output_bytes"] == 4 and res["alias_bytes"] == 0
+
+
+# ------------------------------------------------- placements (layout.py)
+MESH_24 = ModelMesh((2, 4), ("data", "model"), ("meta",) * 8)
+B_, D_, F_ = 8, 16, 32
+
+
+def _megatron(x, w1, w2):
+    """Column- then row-parallel MLP under the reference's constraints."""
+    x = shd.constrain(x, ("batch", None), "recsys", MESH_24)
+    h = torch.relu(x @ w1)
+    h = shd.constrain(h, ("batch", "ffn"), "recsys", MESH_24)
+    return shd.constrain(h @ w2, ("batch", None), "recsys", MESH_24)
+
+
+def _megatron_args(grad=False):
+    x = torch.empty((B_, D_), device="meta", requires_grad=grad)
+    w1 = torch.empty((D_, F_), device="meta", requires_grad=grad)
+    w2 = torch.empty((F_, D_), device="meta", requires_grad=grad)
+    return (x, w1, w2), (Spec("data", None), Spec(None, "model"),
+                         Spec("model", None))
+
+
+def _on(traffic, group):
+    return [(k, b) for k, b, n in traffic if n == group]
+
+
+def test_megatron_mlp_forward_all_reduces_its_output_once():
+    """The row-parallel product leaves a partial sum over ``model``; its
+    constraint all-reduces the output's local (B/2, D) float32 bytes, the
+    one collective of the forward."""
+    args, specs = _megatron_args()
+    res = dryrun.trace(_megatron, args, specs, MESH_24.shape)
+    assert res["traffic"] == [("all-reduce", B_ // 2 * D_ * 4, 4)]
+    assert res["involuntary"] == 0
+    # per device: each product over its (B/2) rows and (F/4) columns
+    mm = 2 * B_ * D_ * F_ / 8
+    relu = B_ * F_ / 8
+    assert res["flops"] == 2 * mm + relu
+
+
+def test_megatron_mlp_train_step_adds_the_transposed_all_reduce():
+    """In a train step the input's gradient is the transposed partial sum
+    over ``model``, all-reduced by its constraint's backward; the weights'
+    gradients are partial over ``data`` and all-reduced to their layout."""
+    from repro_torch.training.optimizer import leaf_grads
+
+    def step(x, w1, w2):
+        loss = _megatron(x, w1, w2).sum()
+        return leaf_grads(loss, {"x": x, "w1": w1, "w2": w2})
+
+    args, specs = _megatron_args(grad=True)
+    res = dryrun.trace(step, args, specs, MESH_24.shape)
+    row = ("all-reduce", B_ // 2 * D_ * 4)
+    assert _on(res["traffic"], 4) == [row, row]
+    assert sorted(_on(res["traffic"], 2)) == [
+        ("all-reduce", D_ * F_ // 4 * 4)] * 2
+
+
+def test_constrain_to_replicated_all_gathers_the_split_dim():
+    x = torch.empty((B_, F_), device="meta")
+
+    def fn(x):
+        return shd.constrain(x, (None, None), "recsys", MESH_24) * 1.0
+
+    res = dryrun.trace(fn, (x,), (Spec(None, "model"),), MESH_24.shape)
+    assert res["traffic"] == [("all-gather", B_ * F_ // 4 * 4, 4)]
+
+
+@pytest.mark.parametrize("spec,share", [(Spec(), 1), (Spec("data", "model"),
+                                                       8)])
+def test_elementwise_op_counts_one_devices_share(spec, share):
+    """Replicated, every device computes the whole op: one FLOP an output
+    element, its bytes read and written whole."""
+    x = torch.empty((B_, D_), device="meta")
+    res = dryrun.trace(lambda x: x * 2.0, (x,), (spec,), MESH_24.shape)
+    assert res["flops"] == B_ * D_ / share
+    assert res["bytes"] == 2 * B_ * D_ * 4 / share
+    assert res["traffic"] == []
 
 
 def smoke_overrides(arch):
@@ -240,10 +322,29 @@ def smoke_overrides(arch):
             and getattr(smoke, f.name) != getattr(full, f.name)}
 
 
+def unread_leaves(cell):
+    """The argument leaves a cell's step never reads, which the
+    reference's ``jit`` prunes: an LM's user head outside training (only
+    the ERCache tower reads it) and the inputs a retrieval tower ignores
+    (MIND's target and negatives)."""
+    skip = []
+    params = cell.args[0]
+    if isinstance(params, dict) and "user_head" in params \
+            and cell.shape_name != "train_4k":
+        skip.append(params["user_head"])
+    if cell.shape_name == "retrieval_cand" and cell.arch.startswith("mind"):
+        skip += [cell.args[1]["target"], cell.args[1]["neg"]]
+    return skip
+
+
 def expected_argument_bytes(cell, mesh):
-    """Each argument leaf's bytes over the product of its spec's axes."""
+    """Each argument leaf's bytes over the product of its spec's axes,
+    but the leaves the step never reads."""
     total = 0
+    skip = unread_leaves(cell)
     for t, spec in dryrun._pairs(cell.args, cell.in_specs):
+        if any(t is u for u in skip):
+            continue
         n = 1
         for e in spec:
             for a in (() if e is None else e if isinstance(e, tuple)
@@ -259,7 +360,9 @@ SMOKE_CELLS = [("tinyllama-1.1b", "train_4k"),
                ("gin-tu", "full_graph_sm"), ("gin-tu", "minibatch_lg"),
                ("gin-tu", "molecule"),
                ("wide-deep", "train_batch"), ("bst", "serve_p99"),
-               ("mind", "retrieval_cand")]
+               ("mind", "retrieval_cand"), ("wide-deep", "retrieval_cand")]
+# the reference's shard_map refuses Wide&Deep's row-sharded bag at B = 1
+REFUSED_CELLS = {("wide-deep", "retrieval_cand"): "batch 1 "}
 
 
 @pytest.mark.parametrize("arch,shape", SMOKE_CELLS,
@@ -267,6 +370,11 @@ SMOKE_CELLS = [("tinyllama-1.1b", "train_4k"),
 def test_run_cell_plans_each_family_and_kind(arch, shape):
     ov = smoke_overrides(arch)
     res = dryrun.run_cell(arch, shape, verbose=False, overrides=ov)
+    if (arch, shape) in REFUSED_CELLS:
+        assert res["ok"] is False
+        assert "sharding mismatch" in res["error"]
+        assert REFUSED_CELLS[arch, shape] in res["error"]
+        return
     assert res["ok"], res
     for k in ("compute_s_term", "memory_s_term", "collective_s_term",
               "hlo_flops_per_dev", "hlo_bytes_per_dev"):
@@ -318,7 +426,7 @@ def test_lm_accounting_equals_direct_trace(shape, ov):
     mesh = meta_mesh(False)
     acct = dryrun.lm_accounting("tinyllama-1.1b", shape, mesh, ov)
     cell = specs_lib.build_cell("tinyllama-1.1b", shape, mesh, ov)
-    direct = dryrun._trace_cell(cell, mesh, shape == "train_4k")
+    direct = dryrun._trace_cell(cell, mesh)
     for k in dryrun._ACCT_KEYS + ("output_bytes", "alias_bytes"):
         assert acct[k] == pytest.approx(direct[k], rel=1e-12, abs=1e-6), k
     assert acct["peak"] == pytest.approx(direct["peak"], rel=1e-2)
@@ -328,16 +436,21 @@ def test_lm_accounting_equals_direct_trace(shape, ov):
 def test_lm_accounting_counts_the_gradient_division_per_microbatch():
     """At M = 4 the solve counts the one division of the summed gradients
     M - 1 times: its bytes exceed the direct trace's by 2 (M - 2) x the
-    gradients' bytes; FLOPs and collectives stay exact."""
+    gradients' bytes on one device, its FLOPs by (M - 2) x their elements;
+    collectives stay exact."""
     ov = dict(smoke_overrides("tinyllama-1.1b"), n_layers=2)
     mesh = meta_mesh(False)
     acct = dryrun.lm_accounting("tinyllama-1.1b", "train_4k", mesh, ov)
     cell = specs_lib.build_cell("tinyllama-1.1b", "train_4k", mesh, ov)
-    direct = dryrun._trace_cell(cell, mesh, True)
+    direct = dryrun._trace_cell(cell, mesh)
     M = specs_lib.TRAIN_MICRO["tinyllama-1.1b"]
-    grad_bytes = sum(t.numel() * t.element_size()
-                     for t in dryrun._tensors(cell.args[0].params))
-    assert acct["flops"] == direct["flops"]
+    pairs = dryrun._pairs(cell.args[0].params, cell.in_specs[0].params)
+    grad_bytes = dryrun.argument_bytes(cell.args[0].params,
+                                       cell.in_specs[0].params, mesh)
+    grad_elems = sum(math.prod(specs_lib.local_shape(t.shape, sp, mesh))
+                     for t, sp in pairs)
+    # and its FLOPs, one an element of the division, M - 2 times too many
+    assert acct["flops"] - direct["flops"] == (M - 2) * grad_elems
     assert acct["coll"] == pytest.approx(direct["coll"], rel=1e-12)
     assert acct["bytes"] - direct["bytes"] == 2 * (M - 2) * grad_bytes
 
@@ -347,32 +460,53 @@ def test_collective_counter_sharded_bag_formula():
     B, F, V, D, nnz = 64, 6, 1024, 8, 4
     tables = torch.empty((F, V, D), device="meta")
     ids = torch.empty((B, F, nnz), dtype=torch.int32, device="meta")
-    coll.TRAFFIC = []
-    try:
+
+    def both(tables, ids):
         TR.sharded_field_embedding_bag(tables, ids, mesh, impl="torch")
         TR.sharded_field_embedding_bag(tables, ids, mesh, impl="torch",
                                        scatter_batch=True)
-        got = coll.TRAFFIC
-    finally:
-        coll.TRAFFIC = None
+
+    got = dryrun.trace(both, (tables, ids), None, mesh.shape)["traffic"]
     assert got == [("all-reduce", B * F * D * 4, 4),
                    ("reduce-scatter", B * F * D * 4, 4)]
     # and nothing is recorded when the counter is off
+    assert coll.TRACER is None
     TR.sharded_field_embedding_bag(tables, ids, mesh, impl="torch")
-    assert coll.TRAFFIC is None
 
 
 def test_collective_counter_gradient_all_reduce():
     """GIN's parameters are replicated: each gradient is all-reduced over
-    the 16 data shards, 2 x 15/16 of its bytes on the wire."""
-    res = dryrun.run_cell("gin-tu", "full_graph_sm", verbose=False)
+    the 16 data shards once a leaf (its partial sum over the batch), 2 x
+    15/16 of its bytes on the wire. Beside them, exactly: each layer
+    all-gathers the (N/16, width) node rows its messages read and
+    all-reduces its partial (N, width) aggregate at its constraint; the
+    backward all-gathers each aggregate's row-split gradient there, but
+    the first layer's (its input needs none); and the loss all-reduces
+    its count of labelled nodes and its sum, 4 bytes each."""
+    mesh = meta_mesh(False)
+    cell = specs_lib.build_cell("gin-tu", "full_graph_sm", mesh)
+    res = dryrun._trace_cell(cell, mesh)
     cfg = get_config("gin-tu")
-    n = cfg.param_count(1433) + cfg.n_layers
-    assert res["collective_counts"]["all-reduce"] == 1 + 5 * cfg.n_layers
-    assert res["collective_breakdown"]["all-reduce"] == pytest.approx(
-        4 * n * 2 * 15 / 16, rel=1e-12)
-    assert res["collective_bytes_per_dev"] == pytest.approx(
-        4 * n * 2 * 15 / 16, rel=1e-12)
+    leaves = dryrun._tensors(cell.args[0])
+    assert sum(t.numel() for t in leaves) == cfg.param_count(1433) \
+        + cfg.n_layers
+    N, feat = cell.args[2].shape
+    widths = [feat] + [cfg.d_hidden] * (cfg.n_layers - 1)
+    grads = collections.Counter(("all-reduce", float(t.numel() * 4), 16)
+                                for t in leaves)
+    layers = collections.Counter()
+    for i, w in enumerate(widths):
+        layers["all-gather", float(N // 16 * w * 4), 16] += 1 + (i > 0)
+        layers["all-reduce", float(N * w * 4), 16] += 1
+    layers["all-reduce", 4.0, 16] += 2
+    assert collections.Counter(res["traffic"]) == grads + layers
+    assert res["count_all-reduce"] == len(leaves) + cfg.n_layers + 2
+    assert res["coll_all-reduce"] == pytest.approx(
+        sum(b * n for (k, b, _), n in (grads + layers).items()
+            if k == "all-reduce") * 2 * 15 / 16, rel=1e-12)
+    assert res["coll"] == pytest.approx(
+        sum(b * dryrun._wire_factor(k, g) * n
+            for (k, b, g), n in (grads + layers).items()), rel=1e-12)
 
 
 REFERENCE_KEYS = {"arch", "shape", "mesh", "n_chips", "compile_s",
@@ -381,6 +515,7 @@ REFERENCE_KEYS = {"arch", "shape", "mesh", "n_chips", "compile_s",
                   "collective_counts", "compute_s_term", "memory_s_term",
                   "collective_s_term", "dominant", "model_flops_total",
                   "useful_flops_ratio", "memory_stats", "note", "ok"}
+PORT_KEYS = {"involuntary_gathers"}      # the port's count, beside them
 
 
 def test_main_writes_the_reference_keys(tmp_path, capsys):
@@ -390,7 +525,7 @@ def test_main_writes_the_reference_keys(tmp_path, capsys):
     results = json.loads(out.read_text())
     assert list(results) == ["gin-tu|molecule|singlepod"]
     res = results["gin-tu|molecule|singlepod"]
-    assert set(res) == REFERENCE_KEYS and res["ok"]
+    assert set(res) == REFERENCE_KEYS | PORT_KEYS and res["ok"]
     assert set(res["memory_stats"]) == {
         "argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
         "peak_estimate_gb"}
@@ -401,10 +536,17 @@ def test_main_writes_the_reference_keys(tmp_path, capsys):
     assert "[skip] gin-tu|molecule|singlepod" in capsys.readouterr().out
 
 
-def test_run_ercache_cell_plans_the_reference_tier():
+def test_run_ercache_cell_plans_the_reference_tier(monkeypatch):
     """The reference's 2**22 x 8 x 256 float32 tables, planned on meta
     (a (1, 4) model mesh and 4 cache shards keep the trace short)."""
     mesh = ModelMesh((1, 4), ("data", "model"), ("cpu",) * 4)
+    combines = []
+    combine = coll._combine_probe
+
+    def spy(results, owned, bucket, n_shards):
+        combines.append(n_shards)
+        return combine(results, owned, bucket, n_shards)
+    monkeypatch.setattr(coll, "_combine_probe", spy)
     res = dryrun.run_ercache_cell(verbose=False, mesh=mesh,
                                   cache_mesh=CacheMesh(("cpu",) * 4))
     assert res["ok"] and res["note"] == "n_buckets=4194304 seq=64"
@@ -417,5 +559,13 @@ def test_run_ercache_cell_plans_the_reference_tier():
         TT.abstract_params(get_config("tinyllama-1.1b"))))
     assert res["argument_bytes"]["params"] < params        # sharded
     assert res["hlo_flops_per_dev"] > 0
-    # the probe's combine: 4 psums per tier over the 4 cache shards
-    assert res["collective_counts"]["all-reduce"] == 8
+    # the probe's combine: 4 psums per tier over the 4 cache shards; the
+    # tower's vocab-split embedding all-reduces its partial rows once; each
+    # layer all-gathers four weight splits of its products (cheaper than
+    # all-reducing the miss budget's activations), which leaves its output
+    # split over model by rows, and those rows at its closing constraint
+    assert combines == [4, 4]
+    n_layers = get_config("tinyllama-1.1b").n_layers
+    assert res["collective_counts"] == {
+        "all-reduce": 8 + 1, "all-gather": 5 * n_layers,
+        "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}

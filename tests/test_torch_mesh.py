@@ -54,6 +54,10 @@ LAYOUTS = {"(1, 1)": ((1, 1), ("data", "model")),
            "(4, 2)": ((4, 2), ("data", "model")),
            "(2, 16, 16)": ((2, 16, 16), ("pod", "data", "model"))}
 BAG_ATOL, DECODE_ATOL = 1e-5, 2e-5
+# (B, scatter_batch) on the (4, 2) pin: the batch axes (4) do not divide
+# 1, 3, 6; with the scatter 4 x 2 do not divide 4; 4 and 8 split
+BAG_BATCHES = [(1, False), (3, False), (6, False), (4, True), (4, False),
+               (8, True)]
 TOPK = 8
 MINUS_ZERO = np.int32(-0x80000000)     # the bits of float32 -0.0
 
@@ -84,6 +88,7 @@ from repro.distributed import collectives as C
 from repro.models import recsys as R
 x = dict(np.load(sys.argv[1]))
 mesh = jax.make_mesh((4, 2), ("data", "model"))
+BAG_BATCHES = [(int(b), bool(s)) for b, s in x["bag_batches"]]
 bag = jax.jit(lambda t, i, s: R.sharded_field_embedding_bag(
     t, i, mesh, scatter_batch=s), static_argnums=2)
 t, i = jnp.asarray(x["bag_tables"]), jnp.asarray(x["bag_ids"])
@@ -91,6 +96,12 @@ out = {"bag_f32": bag(t, i, False), "bag_f32_scatter": bag(t, i, True),
        "bag_bf16": bag(t.astype(jnp.bfloat16), i, False).astype(jnp.float32),
        "bag_nz": bag(jnp.asarray(x["nz_tables"]), jnp.asarray(x["nz_ids"]),
                      False)}
+# the batches the shard_map (psum_scatter) refuses: 1 where it raises
+for b, s in BAG_BATCHES:
+    try:
+        out[f"bag_b{b}_{int(s)}"] = bag(t, i[:b], s)
+    except ValueError:
+        out[f"bag_b{b}_{int(s)}_refused"] = np.int32(1)
 k = int(x["k"])
 out["topk_vals"], out["topk_ids"] = jax.jit(
     lambda q, c: C.sharded_topk_scores(q, c, k, mesh))(
@@ -134,6 +145,7 @@ def pin(tmp_path_factory):
     d = tmp_path_factory.mktemp("pin")
     x = {"bag_tables": rng.standard_normal((5, 64, 8)).astype(np.float32),
          "bag_ids": rng.integers(-1, 64, (16, 5, 3)).astype(np.int32),
+         "bag_batches": np.asarray(BAG_BATCHES, np.int32),
          "k": np.int32(TOPK)}
     nz = np.ones((2, 64, 4), np.float32)
     nz[0, 3, 1] = nz[1, 40, 2] = -0.0
@@ -446,6 +458,31 @@ def test_sharded_bag_reads_minus_zero_back_plus_zero(n, pin):
     kernel = np.asarray(JK.embedding_bag(jnp.asarray(x["nz_tables"][0]),
                                          jnp.asarray(x["nz_ids"][:, 0])))
     assert_exact(bits[:, 0], kernel.view(np.int32))
+
+
+@pytest.mark.parametrize("b,scatter", BAG_BATCHES,
+                         ids=[f"B{b}{'-scatter' if s else ''}"
+                              for b, s in BAG_BATCHES])
+def test_sharded_bag_refuses_the_batches_the_reference_refuses(b, scatter,
+                                                               pin):
+    """Where the reference's shard_map (or its tiled psum_scatter)
+    raises on the (4, 2) mesh, the port raises and names B and the
+    divisor; where it returns, the port's bags are its bags bit for bit."""
+    x, out = pin
+    tables = torch.tensor(x["bag_tables"])
+    ids = torch.tensor(x["bag_ids"][:b])
+    mesh = cpu_mesh((4, 2))
+    key = f"bag_b{b}_{int(scatter)}"
+    if key + "_refused" in out:
+        split = 4 * 2 if scatter else 4
+        with pytest.raises(ValueError, match=f"batch {b} .*{split} shards"):
+            TR.sharded_field_embedding_bag(tables, ids, mesh,
+                                           scatter_batch=scatter,
+                                           impl="torch")
+        return
+    got = TR.sharded_field_embedding_bag(tables, ids, mesh,
+                                         scatter_batch=scatter, impl="torch")
+    assert_exact(to_np(got).view(np.int32), out[key].view(np.int32))
 
 
 def test_sharded_bag_refusals():

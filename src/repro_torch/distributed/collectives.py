@@ -95,6 +95,10 @@ def _axes_size(mesh, axes: Sequence[str]) -> int:
     return math.prod(mesh.shape[a] for a in axes)
 
 
+# A logical name and spec entry that leaves its dim as the tensor has it
+# (``jax.sharding.PartitionSpec.UNCONSTRAINED``).
+UNCONSTRAINED = "unconstrained"
+
 # The planner's counter (``launch/layout.py``'s ``LayoutCounter``) while it
 # traces a cell, None otherwise. It keeps the collectives ``record`` logs
 # and the layouts the hooks below give; none of them does anything
@@ -108,8 +112,9 @@ def record(kind: str, operand_bytes: float, group: int) -> None:
     ("all-reduce", "all-gather", "reduce-scatter"), the operand's bytes a
     device, the group's size. Nothing when the planner is off or the group
     is one shard."""
-    if TRACER is not None and group > 1:
-        TRACER.traffic.append((kind, float(operand_bytes), int(group)))
+    if TRACER is not None:
+        TRACER.op = "explicit combine"
+        TRACER.explicit(kind, operand_bytes, int(group))
 
 
 def shard_range(n: int) -> Iterator[int]:

@@ -79,6 +79,9 @@ GNN_RULES: Dict[str, Axis] = {
 
 RULES_BY_FAMILY = {"lm": LM_RULES, "recsys": RECSYS_RULES, "gnn": GNN_RULES}
 
+# ``constrain``'s entry that leaves a dim as the tensor has it
+UNCONSTRAINED = coll.UNCONSTRAINED
+
 
 class Spec(tuple):
     """A partition spec: one entry a dim, each None (replicated), a mesh
@@ -109,6 +112,9 @@ def logical_to_spec(logical: Sequence[Optional[str]],
     used = set()
     out = []
     for name in logical:
+        if name == UNCONSTRAINED:
+            out.append(UNCONSTRAINED)
+            continue
         phys = rules.get(name) if name else None
         if phys is None:
             out.append(None)
@@ -165,8 +171,8 @@ def divisible_or_replicate(spec: Sequence[Axis], shape: Sequence[int],
     out = []
     entries = tuple(spec) + (None,) * (len(shape) - len(spec))
     for dim, entry in zip(shape, entries):
-        if entry is None:
-            out.append(None)
+        if entry is None or entry == UNCONSTRAINED:
+            out.append(entry)
             continue
         axes = entry if isinstance(entry, tuple) else (entry,)
         size = 1

@@ -127,23 +127,25 @@ def argument_bytes(args, specs, mesh, unused=()) -> int:
                if i not in set(unused))
 
 
-def trace(fn, args, specs=None, mesh_shape=None) -> Dict:
+def trace(fn, args, specs=None, mesh_shape=None, tally=False) -> Dict:
     """Trace ``fn(*args)`` once under a :class:`LayoutCounter` whose
     arguments are laid out by the spec tree ``specs`` over a mesh of
     ``mesh_shape`` (axis -> size; none: every argument replicated): one
     device's FLOPs, bytes, collective traffic and peak of new storages,
     the outputs' bytes and those aliasing an argument, the involuntary
     gathers, and the seconds the trace took. Partial sums left in the
-    outputs are all-reduced, as the reference's replicated outputs."""
+    outputs are all-reduced, as the reference's replicated outputs. With
+    ``tally``, ``counter`` is the counter, holding its diagnosis view."""
     placed = _pairs(args, specs) if specs is not None else []
     arg_keys = {_key(t) for t in _tensors(args)}
     t0 = time.perf_counter()
-    counter = LayoutCounter(mesh_shape or {}, placed)
+    counter = LayoutCounter(mesh_shape or {}, placed, tally)
     coll.TRACER = counter
     try:
         with counter, counter.layer_slices():
             out = fn(*args)
             outs = _tensors(out)
+            counter.op = "output"
             for t in outs:
                 counter.set_layout(t, counter.resolve(
                     t, counter.layout(t)._replace(partial=frozenset())))
@@ -162,6 +164,8 @@ def trace(fn, args, specs=None, mesh_shape=None) -> Dict:
            "unused": [i for i, (t, _) in enumerate(placed)
                       if _key(t) not in counter.read],
            "seconds": time.perf_counter() - t0}
+    if tally:
+        res["counter"] = counter
     res["coll"] = 0.0
     for k in _COLLECTIVES:
         res[f"coll_{k}"] = 0.0

@@ -14,15 +14,31 @@ cell's specs; every op derives its outputs' layouts from its inputs':
 * products (``mm``, ``bmm``, ``addmm``; ``einsum`` and ``linear`` lower to
   them): a contracted dimension split over an axis gives a partial sum
   over it; a contracted dimension split over an axis that the output is
-  also split over is all-gathered first (GSPMD's dot partitioning);
+  also split over is all-gathered first (GSPMD's dot partitioning); a
+  contraction split on one operand only is all-gathered instead where
+  that moves less than all-reducing the output (a small operand of a
+  large product); an operand's partial sum is all-reduced first where the
+  output splits over its axes, or where the product would grow it (GSPMD
+  reduces a partial dot output at the dot); where both operands split
+  their free dims over one axis, the smaller is gathered;
 * element-wise ops: operands are aligned (a replicated operand is sliced
-  for free); a partial sum passes only a linear op (a sum, a difference,
-  a product or quotient by a non-partial operand, a cast), any other op
-  all-reduces it first;
+  for free); an operand split over an axis that the output splits another
+  of its dims over moves it there in one all-to-all (GSPMD's reshard of
+  an axis between dims); a partial sum passes only a linear op (a sum, a
+  difference, a product or quotient by a non-partial operand, a cast),
+  any other op all-reduces it first, and every view of the reduced value
+  reads it reduced;
 * sums and means over a split dimension give a partial sum; other
   reductions all-reduce their output; softmax, sorts, top-k and scans
   all-gather a split dimension first;
-* views keep or regroup each dimension's axes; a gather from a table
+* views keep or regroup each dimension's axes; where dims merge with a
+  split on a minor one (an einsum's merged batch or contraction, separate
+  dims to GSPMD), the merge is remembered on the merged tensor's storage
+  and carried by products to their output's dims, and splitting that dim
+  back puts each axis on the dim it came from; a dim cut into parts
+  (``split``, ``chunk``: RoPE's halves) costs a collective-permute a part,
+  each lying on some of the dim's devices, and joining parts split alike
+  along the joined dim (``cat``) one all-to-all a part; a gather from a table
   split along the gathered dimension gives a partial sum (the masked
   local gather GSPMD emits), or all-gathers the table where the indices
   are split over the same axes; scatters and index-adds of split sources
@@ -30,14 +46,26 @@ cell's specs; every op derives its outputs' layouts from its inputs':
 * operands whose layouts conflict (one dimension split over different
   axes, an axis used twice), and ops with no rule, are all-gathered to
   replicated, as GSPMD's "involuntary full rematerialization" does; each
-  such event counts in ``involuntary``.
+  such event counts in ``involuntary``;
+* a copy that repeats its source (the broadcast dims of GQA's repeated KV)
+  or widens it (a cast to float32) is all-gathered at its source's bytes:
+  XLA gathers before the broadcast and the cast, and the reference gathers
+  its KV chunks before its repeat.
 
 :func:`~repro_torch.distributed.sharding.constrain` resolves a tensor to
 its constraint's spec under this counter (``resolve``): a partial sum over
 an axis becomes an all-reduce, or a reduce-scatter where the target
 splits a dimension over that axis; a dimension split over an axis that
-the target leaves whole is all-gathered; a whole dimension that the
-target splits costs nothing. A dimension that the spec's axes do not
+the target leaves whole is all-gathered, or moved in one all-to-all where
+the target splits another dimension over it; a whole dimension that the
+target splits costs nothing; an ``UNCONSTRAINED`` entry keeps the
+tensor's axes on its dimension, less those the spec puts elsewhere
+(``jax.sharding.PartitionSpec.UNCONSTRAINED``). Where the tensor gathered
+is a product's
+output, GSPMD carries the constraint back to the product, which then runs
+with that dimension whole: its operand is gathered and its FLOPs counted
+for the whole dimension (the replicated node gradients of GIN's
+backward). A dimension that the spec's axes do not
 divide keeps the minor ones that do, where the reference's
 ``divisible_or_replicate`` leaves it whole: GSPMD keeps the split the
 inputs carry. It does so as an autograd function whose backward
@@ -59,7 +87,11 @@ whole: the reference counts the body of its KV-chunk scan once.
 
 Under this counter a model-axis shard loop (``collectives.shard_range``)
 runs its first shard only: the one device's share, whose slices of a
-split dimension are that device's local block.
+split dimension are that device's local block. GSPMD also lays tensors
+out by their users, which a forward count cannot see; where that matters
+the model code states the layout by a constraint (``sharding.constrain``:
+the MoE dispatch's experts on the expert axis; a prefill's queries'
+sequence on the cache's axis where the heads leave it free).
 """
 from __future__ import annotations
 
@@ -73,6 +105,8 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.weak import WeakTensorKeyDictionary
+
+from repro_torch.distributed.collectives import UNCONSTRAINED
 
 aten = torch.ops.aten
 Axes = Tuple[str, ...]
@@ -199,6 +233,8 @@ _WRITES = {aten.index_put, aten.index_put_, aten._index_put_impl_,
 _GATHERS = {aten.index, aten.gather, aten.index_select}
 _SCATTERS = {aten.index_put_, aten.index_put, aten.index_add,
              aten.scatter_add, aten.scatter_reduce}
+# copies of one tensor that may repeat or widen it (``_widened``)
+_WIDENING = {aten.clone, aten._to_copy, aten.copy, aten.expand_copy}
 _FREE = {aten._unsafe_view, aten.detach, aten.alias, aten.empty,
          aten.empty_like, aten.empty_strided, aten.new_empty}
 
@@ -258,10 +294,24 @@ class LayoutCounter(TorchDispatchMode):
     ``(kind, operand bytes a device, group size)``. ``placed`` gives
     (tensor, spec) pairs for the arguments; a tensor without a layout is
     replicated. The model code reaches it through ``collectives.TRACER``
-    (``record``, ``shard_range``, ``placed``, ``reshard``)."""
+    (``record``, ``shard_range``, ``placed``, ``reshard``).
 
-    def __init__(self, mesh_shape: Dict[str, int], placed=()):
+    With ``tally`` it also keeps the diagnosis view of
+    ``scripts/plan_parity.py --ops``: ``flops_by_op`` (aten op -> FLOPs),
+    ``records`` (each collective as ``(kind, operand bytes, group, the op
+    that made it, involuntary, the global shape)``) and ``at_peak`` (each
+    storage live at the peak as ``(bytes a device, shape, dtype, the op
+    that made it)``)."""
+
+    def __init__(self, mesh_shape: Dict[str, int], placed=(),
+                 tally: bool = False):
         super().__init__()
+        self.tally = tally
+        self.op = ""                     # what is resolving or dispatching
+        self.flops_by_op: Dict[str, float] = {}
+        self.records: List[Tuple[str, float, int, str, bool, tuple]] = []
+        self.at_peak: List[Tuple[float, Tuple[int, ...], str, str]] = []
+        self._made: Dict[int, Tuple[Tuple[int, ...], str, str]] = {}
         self.sizes = dict(mesh_shape)
         self.layouts = WeakTensorKeyDictionary()
         self.flops = 0.0
@@ -287,6 +337,21 @@ class LayoutCounter(TorchDispatchMode):
         # the last split layout an op gave each shape: a buffer of that
         # shape made later (a gradient's zeros) is laid out like it
         self._recent: Dict[Tuple[int, ...], Layout] = {}
+        # a product's output storage -> (its shape, its FLOPs a device, its
+        # operands' bytes a device)
+        self._dots: Dict[int, Tuple[Tuple[int, ...], float,
+                                    Tuple[float, float]]] = {}
+        # storage -> {the size of a dim merged with a split on a minor
+        # part: the parts' sizes and axes}; products carry it to their
+        # output's dims
+        self._merges: Dict[int, Dict[int, Tuple[Tuple[int, ...],
+                                                List[Axes]]]] = {}
+        # storage -> the partial axes all-reduced on it (its views' too)
+        self._reduced: Dict[int, FrozenSet[str]] = {}
+        # storage -> its source's bytes over its own, where it is a local
+        # copy that repeats or widens its source (GQA's repeated KV, cast
+        # to float32): gathered, it costs its source's bytes
+        self._narrow: Dict[int, float] = {}
 
     # ---------------------------------------------------------- helpers
     def n(self, axes) -> int:
@@ -309,6 +374,9 @@ class LayoutCounter(TorchDispatchMode):
         lay = self.layouts.get(t)
         if lay is None or len(lay.dims) != t.dim():
             return replicated(t.dim())
+        done = self._reduced.get(_key(t))
+        if done and lay.partial & done:   # a view of a value reduced since
+            lay = lay._replace(partial=lay.partial - done)
         return lay
 
     def split(self, lay: Layout) -> int:
@@ -319,11 +387,21 @@ class LayoutCounter(TorchDispatchMode):
         return _nbytes(t) / self.split(lay or self.layout(t))
 
     def _record(self, kind: str, operand: float, axes,
-                involuntary: bool = False) -> None:
-        group = self.n(axes)
+                involuntary: bool = False, t=None) -> None:
+        self.explicit(kind, operand, self.n(axes), involuntary, t)
+
+    def explicit(self, kind: str, operand: float, group: int,
+                 involuntary: bool = False, t=None) -> None:
+        """Count one collective: ``kind``, its operand's bytes a device,
+        its group's size (the model code's explicit combines come here
+        through ``collectives.record``)."""
         if group > 1:
             self.traffic.append((kind, float(operand), group))
             self.involuntary += involuntary
+            if self.tally:
+                self.records.append((kind, float(operand), group, self.op,
+                                     bool(involuntary),
+                                     () if t is None else tuple(t.shape)))
 
     # ------------------------------------------------------- resharding
     def _all_reduce(self, t, lay: Layout) -> Layout:
@@ -331,17 +409,27 @@ class LayoutCounter(TorchDispatchMode):
         reads the reduced value."""
         held = self.layout(t).partial
         if lay.partial and held:        # not yet reduced for another use
-            self._record("all-reduce", self.local(t, lay), sorted(lay.partial))
+            self._record("all-reduce", self.local(t, lay), sorted(lay.partial),
+                         t=t)
             self.layouts[t] = self.layout(t)._replace(partial=frozenset())
+            k = _key(t)                 # and none of its views
+            self._reduced[k] = self._reduced.get(k, frozenset()) | held
         return lay._replace(partial=frozenset())
+
+    def gathered(self, t: torch.Tensor, lay: Layout) -> float:
+        """The bytes a device all-gathers of ``t`` laid out by ``lay``: a
+        local copy that repeats or widens its source (GQA's repeated KV
+        chunks, cast to float32) is gathered as its source, before the
+        repeat and the cast, as the reference gathers its KV chunks."""
+        return self.local(t, lay) * self._narrow.get(_key(t), 1.0)
 
     def _gather(self, t, lay: Layout, dims, involuntary=False) -> Layout:
         """All-gather ``dims`` of ``t`` to whole."""
         new = list(lay.dims)
         for d in dims:
             if new[d]:
-                self._record("all-gather", self.local(t, lay), new[d],
-                             involuntary)
+                self._record("all-gather", self.gathered(t, lay), new[d],
+                             involuntary, t)
                 new[d] = ()
                 lay = lay._replace(dims=tuple(new))
         return lay
@@ -359,9 +447,10 @@ class LayoutCounter(TorchDispatchMode):
                           in zip(target.dims, lay.dims))]
         reduce = sorted(partial - set(scatter))
         if reduce:
-            self._record("all-reduce", self.local(t, lay), reduce)
+            self._record("all-reduce", self.local(t, lay), reduce, t=t)
         if scatter:
-            self._record("reduce-scatter", self.local(t, lay), scatter)
+            self._record("reduce-scatter", self.local(t, lay), scatter,
+                         t=t)
             dims = list(lay.dims)
             for a in scatter:
                 d = next(i for i, ax in enumerate(target.dims) if a in ax)
@@ -371,11 +460,41 @@ class LayoutCounter(TorchDispatchMode):
         for d, (cur, want) in enumerate(zip(lay.dims, target.dims)):
             drop = tuple(a for a in cur if a not in want)
             if drop:
-                self._record("all-gather", self.local(t, lay), drop)
+                # an axis the target splits another dimension over, which
+                # that dimension does not hold yet, moves there: one
+                # all-to-all over it; the rest is all-gathered
+                moved = tuple(a for a in drop if any(
+                    a in w and a not in c for k, (c, w) in enumerate(
+                        zip(lay.dims, target.dims)) if k != d))
+                gathered = tuple(a for a in drop if a not in moved)
+                if moved:
+                    self._record("all-to-all", self.local(t, lay), moved,
+                                 t=t)
+                if gathered:
+                    self._record("all-gather", self._regather(t, lay, d,
+                                                              gathered),
+                                 gathered, t=t)
                 dims = list(lay.dims)
                 dims[d] = tuple(a for a in cur if a in want)
+                for a in moved:
+                    k = next(k for k, w in enumerate(target.dims)
+                             if a in w and k != d)
+                    dims[k] = dims[k] + (a,)
                 lay = lay._replace(dims=tuple(dims))
         return target
+
+    def _regather(self, t, lay: Layout, d: int, axes) -> float:
+        """The bytes a device all-gathers to make ``t``'s dim ``d`` whole
+        over ``axes``. Where ``t`` is a product's output, GSPMD carries the
+        constraint back to the product, which then runs with that dim
+        whole: its operand gathered (rows of the first, columns of the
+        second) and its FLOPs counted for the whole dim."""
+        dot = self._dots.get(_key(t))
+        if dot is None or dot[0] != tuple(t.shape):
+            return self.gathered(t, lay)
+        self._dots.pop(_key(t))
+        self.flops += dot[1] * (self.n(axes) - 1)
+        return dot[2][1] if d == t.dim() - 1 else dot[2][0]
 
     def set_layout(self, t: torch.Tensor, lay: Layout) -> None:
         """Give ``t`` a layout. A storage that ``t`` covers whole is counted
@@ -412,8 +531,19 @@ class LayoutCounter(TorchDispatchMode):
 
     def reshard(self, src: torch.Tensor, out: torch.Tensor, spec) -> None:
         """Resolve ``src`` to ``spec`` (recording what that takes) and lay
-        ``out``, a view of it, out so."""
-        self.set_layout(out, self.resolve(src, spec_layout(spec, src.dim())))
+        ``out``, a view of it, out so. An ``UNCONSTRAINED`` entry keeps
+        ``src``'s axes on its dim, less those the spec puts elsewhere."""
+        self.op = "constrain"
+        entries = tuple(spec) + (None,) * (src.dim() - len(tuple(spec)))
+        free = [e == UNCONSTRAINED for e in entries]
+        target = spec_layout(tuple(None if f else e for e, f
+                                   in zip(entries, free)), src.dim())
+        used = {a for ax in target.dims for a in ax}
+        target = target._replace(dims=tuple(
+            tuple(a for a in cur if a not in used) if f else want
+            for f, cur, want in zip(free, self.layout(src).dims,
+                                    target.dims)))
+        self.set_layout(out, self.resolve(src, target))
 
     def _hook_grads(self, ins) -> None:
         """The first time an op reads a parameter (an argument that
@@ -430,6 +560,7 @@ class LayoutCounter(TorchDispatchMode):
 
     def _resolver(self, lay: Layout):
         def hook(grad):
+            self.op = "gradient constraint"
             self.set_layout(grad, self.resolve(grad, lay))
         return hook
 
@@ -455,12 +586,17 @@ class LayoutCounter(TorchDispatchMode):
 
     def _dead(self, key: int) -> None:
         self.live -= self._store.pop(key, 0.0)
+        self._dots.pop(key, None)
+        self._reduced.pop(key, None)
+        self._narrow.pop(key, None)
+        self._merges.pop(key, None)
         self._seen.discard(key)          # a new storage may reuse the address
         self._fresh.pop(key, None)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         packet = func.overloadpacket
+        self.op = f"aten.{packet.__name__}"
         ins = _tensors((args, kwargs))
         self._hook_grads(ins)
         outs_lay, flops = self._rule(func, packet)(func, args, kwargs)
@@ -475,6 +611,8 @@ class LayoutCounter(TorchDispatchMode):
             lay = replicated(t.dim()) if lay is None or \
                 len(lay.dims) != t.dim() else self._valid(lay, t)
             self.layouts[t] = lay
+            if lay.partial and not func.is_view:    # a new partial value
+                self._reduced.pop(_key(t), None)
             if any(lay.dims) and not func.is_view:
                 self._recent[tuple(t.shape)] = lay
         self.flops += flops
@@ -489,6 +627,8 @@ class LayoutCounter(TorchDispatchMode):
             if k in self._fresh:
                 self._count(k, t.untyped_storage().nbytes(),
                             self._fresh.pop(k))
+        if packet in _WIDENING and len(ins) == 1 and len(outs) == 1:
+            self._widened(ins[0], outs[0])
         factory = packet in _FACTORIES
         for t in outs:
             st = t.untyped_storage()
@@ -496,14 +636,49 @@ class LayoutCounter(TorchDispatchMode):
             if k in self._seen or k in owned:  # an argument's storage
                 continue
             self._seen.add(k)
+            if self.tally:
+                self._made[k] = (tuple(t.shape),
+                                 str(t.dtype).replace("torch.", ""), self.op)
             if factory:
                 self._fresh[k] = self.layout(t)
             else:
                 self._count(k, st.nbytes(), self.layout(t))
             weakref.finalize(st, self._dead, k)
-        if not factory:
-            self.peak = max(self.peak, self.live)
+        if self.tally:
+            self.flops_by_op[self.op] = self.flops_by_op.get(self.op, 0.0) \
+                + flops
+        if not factory and self.live > self.peak:
+            self.peak = self.live
+            if self.tally:
+                self.at_peak = [(n,) + self._made.get(k, ((), "?", "?"))
+                                for k, n in self._store.items()]
         return out
+
+    def _carry_merges(self, a, b, out) -> None:
+        """A product's output dims (batch, rows of ``a``, columns of
+        ``b``) keep the merges their operands' dims remember."""
+        got = {}
+        for t, dims in ((a, (0, -2) if a.dim() == 3 else (-2,)),
+                        (b, (-1,))):
+            held = self._merges.get(_key(t), {})
+            for d in dims:
+                if t.shape[d] in held:
+                    got[t.shape[d]] = held[t.shape[d]]
+        if got:
+            self._merges.setdefault(_key(out), {}).update(got)
+
+    def _widened(self, src: torch.Tensor, out: torch.Tensor) -> None:
+        """Remember what of ``out``, a copy of ``src``, repeats (``src``'s
+        broadcast dims, stride 0) or widens (a cast to more bytes) it."""
+        ratio = self._narrow.get(_key(src), 1.0) * src.element_size() \
+            / out.element_size()
+        for size, stride in zip(src.shape, src.stride()):
+            if stride == 0 and size > 1:
+                ratio /= size
+        if ratio < 1.0:
+            self._narrow[_key(out)] = ratio
+        else:
+            self._narrow.pop(_key(out), None)
 
     def _rule(self, func, packet):
         if func.is_view or packet in (aten._unsafe_view, aten.view,
@@ -596,18 +771,22 @@ class LayoutCounter(TorchDispatchMode):
             return None, 0.0
 
         def reshape(outs):                  # view, squeeze, _unsafe_view...
-            out = self._reshape(src, lay, tuple(outs[0].shape))
+            out = self._reshape(src, lay, tuple(outs[0].shape), outs[0])
             if _key(src) in self._args:
                 self._shapes.setdefault(tuple(outs[0].shape), out)
             return out
         return reshape, 0.0
 
-    def _reshape(self, src, lay: Layout, oshape) -> Layout:
-        """Regroup the axes of ``src``'s dims onto ``oshape``: dims that
-        merge or split together pool their axes, which the output dims
-        take major first while they divide them (GSPMD's contiguous
-        tiles)."""
+    def _reshape(self, src, lay: Layout, oshape, dst) -> Layout:
+        """Regroup the axes of ``src``'s dims onto ``oshape`` (``dst``'s
+        shape): dims that merge or split together pool their axes, which
+        the output dims take major first while they divide them (GSPMD's
+        contiguous tiles). A merge whose split sits on a minor part (an
+        einsum's merged batch or contraction, separate dims to GSPMD) is
+        remembered on ``dst``'s storage, and splitting that dim back puts
+        each axis on the part it came from."""
         ishape = tuple(src.shape)
+        merged = self._merges.get(_key(src), {})
         out: List[Axes] = [()] * len(oshape)
         i = j = 0
         lost: List[str] = []
@@ -634,17 +813,29 @@ class LayoutCounter(TorchDispatchMode):
                 else:
                     break
             pool = [a for d in ii for a in lay.dims[d]]
-            for d in jj:                  # contiguous tiles: major first
-                rem, take = oshape[d], []
-                while pool and rem % self.sizes.get(pool[0], 1) == 0:
-                    rem //= self.sizes.get(pool[0], 1)
-                    take.append(pool.pop(0))
-                out[d] = tuple(take)
+            if len(jj) == 1 and any(lay.dims[d] for d in ii[1:]):
+                self._merges.setdefault(_key(dst), {})[oshape[jj[0]]] = (
+                    tuple(ishape[d] for d in ii), [lay.dims[d] for d in ii])
+            back = merged.get(ishape[ii[0]]) if len(ii) == 1 else None
+            if back is not None and back[0] == tuple(oshape[d] for d in jj) \
+                    and sorted(a for ax in back[1] for a in ax) \
+                    == sorted(pool):
+                for d, ax in zip(jj, back[1]):
+                    out[d] = ax
+                pool = []
+            else:
+                for d in jj:              # contiguous tiles: major first
+                    rem, take = oshape[d], []
+                    while pool and rem % self.sizes.get(pool[0], 1) == 0:
+                        rem //= self.sizes.get(pool[0], 1)
+                        take.append(pool.pop(0))
+                    out[d] = tuple(take)
             lost += pool
             i += 1
             j += 1
         if lost:                          # axes no output dim could take
-            self._record("all-gather", self.local(src, lay), lost, True)
+            self._record("all-gather", self.gathered(src, lay), lost, True,
+                         src)
         return Layout(tuple(out), lay.partial)
 
     def _slicing(self, func, args, kwargs, lay: Layout):
@@ -661,6 +852,8 @@ class LayoutCounter(TorchDispatchMode):
         axes = lay.dims[d]
         full = src.shape[d]
         drop = packet in (aten.select, aten.unbind)
+        cut = packet in (aten.split, aten.split_with_sizes, aten.chunk,
+                         aten.unsafe_split)
 
         def each(outs):
             res = []
@@ -671,6 +864,14 @@ class LayoutCounter(TorchDispatchMode):
                 elif axes and self.loop and \
                         o.shape[d] * self.n(axes) == full:
                     dims[d] = ()            # a shard's local block
+                elif cut and axes and not self.loop and o.shape[d] != full \
+                        and o.shape[d] % self.n(axes) == 0:
+                    # a part of a dim cut into parts (RoPE's halves) lies
+                    # on some of its devices: GSPMD spreads it over all of
+                    # them again (a row slice, as a microbatch, is counted
+                    # spread already)
+                    self._record("collective-permute",
+                                 _nbytes(o) / self.split(lay), axes, t=o)
                 res.append(lay._replace(dims=tuple(dims)))
             return res
         return each
@@ -709,8 +910,32 @@ class LayoutCounter(TorchDispatchMode):
                 else:
                     gather.append(i)
             if gather:
-                self._gather(t, lay, gather, involuntary=True)
+                self._realign(t, lay, gather, dims, off, out_shape)
         return tuple(ax or () for ax in dims)
+
+    def _realign(self, t, lay: Layout, gather, dims, off, out_shape) -> None:
+        """Reshard ``t``'s dims ``gather``, whose axes conflict with the
+        output ``dims`` of an element-wise op: where the output splits
+        another dimension of ``t`` (held whole) over exactly such an axis
+        set, the axes move there in one all-to-all (GSPMD's reshard of a
+        mesh axis from one dimension to another); the rest are gathered,
+        GSPMD's involuntary rematerialization."""
+        rest = []
+        for i in gather:
+            axes = lay.dims[i]
+            to = [k - off for k, ax in enumerate(dims)
+                  if ax == axes and k - off != i and 0 <= k - off < t.dim()
+                  and t.shape[k - off] == out_shape[k]
+                  and not lay.dims[k - off]]
+            if to:
+                self._record("all-to-all", self.local(t, lay), axes, t=t)
+                new = list(lay.dims)
+                new[i], new[to[0]] = (), axes
+                lay = lay._replace(dims=tuple(new))
+            else:
+                rest.append(i)
+        if rest:
+            self._gather(t, lay, rest, involuntary=True)
 
     def _pointwise(self, func, args, kwargs):
         packet = func.overloadpacket
@@ -854,9 +1079,41 @@ class LayoutCounter(TorchDispatchMode):
                 bdim = la.dims[0]
         m, ka = la.dims[-2], la.dims[-1]
         kb, n = lb.dims[-2], lb.dims[-1]
-        if set(m) & set(n) or set(bdim) & (set(m) | set(n)):
+        if set(bdim) & (set(m) | set(n)) or (
+                set(m) & set(n) and self.local(b, lb) < self.local(a, la)):
             lb = self._gather(b, lb, [b.dim() - 1], involuntary=True)
             n = ()
+        elif set(m) & set(n):           # the smaller operand is gathered
+            la = self._gather(a, la, [a.dim() - 2], involuntary=True)
+            m = ()
+        # a partial sum over an axis that the output splits over (the
+        # other operand's free or batch dims) is all-reduced first, as is
+        # one the product would grow (GSPMD reduces a partial dot output
+        # at the dot, where it is smaller)
+        grown = math.prod(a.shape[:-1]) * b.shape[-1] * a.element_size() \
+            / self.n({x for y in (bdim, m, n) for x in y})
+        if la.partial & (set(n) | set(bdim)) or (
+                la.partial and self.local(a, la) < grown):
+            la = self._all_reduce(a, la)
+        if lb.partial & (set(m) | set(bdim)) or (
+                lb.partial and self.local(b, lb) < grown):
+            lb = self._all_reduce(b, lb)
+        if bool(ka) != bool(kb):
+            # a contraction split on one operand only: slice the other
+            # (the output a partial sum, all-reduced later) or gather it,
+            # whichever moves less (GSPMD gathers a small operand of a
+            # large product, as the unembedding's hidden state)
+            t, lt, d, ax = (a, la, a.dim() - 1, ka) if ka else \
+                (b, lb, b.dim() - 2, kb)
+            reduce = 2.0 * math.prod(a.shape[:-1]) * b.shape[-1] \
+                * a.element_size() / self.n(
+                    {x for y in (bdim, m, n) for x in y} | set(ax))
+            if (self.n(ax) - 1) * self.local(t, lt) < reduce \
+                    and not lt.partial:
+                if t is a:
+                    la, ka = self._gather(a, la, [d]), ()
+                else:
+                    lb, kb = self._gather(b, lb, [d]), ()
         if ka == kb or not kb:
             kc = ka
         elif not ka:
@@ -921,7 +1178,14 @@ class LayoutCounter(TorchDispatchMode):
                 return out, flops + math.prod(
                     (a.shape[0], b.shape[-1])) / self.split(lay)
             flops += math.prod(a.shape[:-1]) * b.shape[-1] / self.split(lay)
-        return lay, flops
+        operands = (self.local(a, la), self.local(b, lb))
+
+        def made(outs):                   # remembered for ``resolve``
+            self._dots[_key(outs[0])] = (tuple(outs[0].shape), flops,
+                                         operands)
+            self._carry_merges(a, b, outs[0])
+            return lay
+        return made, flops
 
     # ............................................................ index
     def _index(self, func, args, kwargs):
@@ -1056,9 +1320,17 @@ class LayoutCounter(TorchDispatchMode):
         nd = tens[0].dim()
         d = _dim(d, nd + 1 if stack else nd)
         lays = []
+        cut = () if stack else self.layout(tens[0]).dims[d]
+        if cut and all(self.layout(t).dims[d] == cut for t in tens):
+            # parts split alike along the joined dim: GSPMD re-tiles
+            # them, one all-to-all a part, and the result keeps the split
+            for t in tens:
+                self._record("all-to-all", self.local(t), cut, t=t)
+        else:
+            cut = ()
         for t in tens:
             lay = self.layout(t)
-            if not stack and lay.dims[d]:
+            if not stack and lay.dims[d] and not cut:
                 lay = self._gather(t, lay, [d])
             lays.append((t, lay))
         parts = {lay.partial for _, lay in lays}
@@ -1079,6 +1351,8 @@ class LayoutCounter(TorchDispatchMode):
         dims = [ax or () for ax in dims]
         if stack:
             dims.insert(d, ())
+        elif cut:
+            dims[d] = cut
         return Layout(tuple(dims), partial), 0.0
 
 
@@ -1093,6 +1367,7 @@ class _GradTo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        ctx.counter.op = "gradient constraint"
         ctx.counter.set_layout(grad, ctx.counter.resolve(grad, ctx.lay))
         return grad, None, None
 

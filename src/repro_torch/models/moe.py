@@ -11,6 +11,12 @@ Routing: softmax router in float32, top-k (ties to the lower expert id, as
 capacity dropping (a dropped token's slot contributes 0: it passes through
 the residual only). Plain torch ops throughout, so autograd differentiates
 the block; the one-host-device run has no all-to-all.
+
+The dispatch and combine tensors are built one top-k slot at a time, each
+slot a (G, T, E, C) tensor: the reference writes them as a (G, T, K, E, C)
+product summed over K, which XLA fuses and never holds, and a token's K
+experts are distinct, so at most one slot is non-zero at each (g, t, e,
+c) and the sums are the same bit for bit.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed.sharding import UNCONSTRAINED, constrain
 
 
 def pick_group_size(n_tokens: int, max_group: int = 512) -> int:
@@ -62,32 +69,36 @@ def dispatch_combine_tensors(idx: torch.Tensor, gates: torch.Tensor,
     the running count of earlier assignments to that expert, every token's
     slot 0 counted before any slot 1. Positions are float32 and compared
     with ``arange(C)`` in float32, as ``jax.nn.one_hot`` does; a position
-    at or past the capacity matches no column (the token is dropped)."""
+    at or past the capacity matches no column (the token is dropped).
+    Each slot adds its (G, T, E, C) share in turn (module docstring)."""
     K = idx.shape[-1]
     oh = F.one_hot(idx, n_experts).to(torch.float32)      # (G, T, K, E)
+    cols = torch.arange(capacity, dtype=torch.float32, device=idx.device)
     prev = torch.zeros_like(oh[:, :1, 0])                  # (G, 1, E)
-    slots = []
+    disp = comb = None
     for s in range(K):
         m = oh[:, :, s]                                    # (G, T, E)
         within = torch.cumsum(m, dim=1) - m                # tokens before me
-        slots.append(within + prev)
+        pos = within + prev
         prev = prev + m.sum(dim=1, keepdim=True)
-    pos = torch.stack(slots, dim=2)                        # (G, T, K, E)
-    keep = (pos < capacity).to(torch.float32) * oh         # dropped -> 0
-    cols = torch.arange(capacity, dtype=torch.float32, device=idx.device)
-    pos_c = (pos[..., None] == cols).to(torch.float32)     # (G,T,K,E,C)
-    kept = keep[..., None] * pos_c
-    disp = kept.sum(dim=2)                                 # (G, T, E, C)
-    comb = (gates[..., None, None] * kept).sum(dim=2)
+        keep = (pos < capacity).to(torch.float32) * m      # dropped -> 0
+        kept = keep[..., None] * (pos[..., None] == cols).to(torch.float32)
+        gated = gates[:, :, s, None, None] * kept          # (G, T, E, C)
+        disp = kept if disp is None else disp + kept
+        comb = gated if comb is None else comb + gated
     return disp, comb
 
 
 def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor],
-            cfg: MoEConfig, group_size: int = 512
+            cfg: MoEConfig, group_size: int = 512, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (same, float32 aux loss scalar).
 
-    params: router (D, E) float32; wg / wu (E, D, F); wd (E, F, D)."""
+    params: router (D, E) float32; wg / wu (E, D, F); wd (E, F, D).
+    ``mesh`` (a ModelMesh, or None): the dispatch and combine tensors'
+    experts are constrained to the expert axis, the layout GSPMD gives
+    them from the expert weights, their groups and tokens left as they
+    are (``sharding.constrain``: checked, no value changes)."""
     B, S, D = x.shape
     T_all = B * S
     g = pick_group_size(T_all, group_size)
@@ -99,6 +110,9 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor],
                           params["router"].to(torch.float32))
     gates, idx, probs = top_k_gating(logits, cfg.top_k)
     disp, comb = dispatch_combine_tensors(idx, gates, cfg.n_experts, C)
+    free = UNCONSTRAINED
+    disp, comb = (constrain(t, (free, free, "expert", None), "lm", mesh)
+                  for t in (disp, comb))
     disp = disp.to(x.dtype)
     comb = comb.to(x.dtype)
 

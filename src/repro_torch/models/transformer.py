@@ -261,14 +261,15 @@ def load_jax_params(np_tree: Dict, cfg: LMConfig, device="cuda") -> LMTower:
 
 
 # ------------------------------------------------------------------ forward
-def _ffn_apply(lp, h, cfg: LMConfig):
+def _ffn_apply(lp, h, cfg: LMConfig, mesh=None):
     """Dense SwiGLU and/or the MoE block -> (out, aux loss or None). MoE
     first, then ``+ swiglu`` with ``dense_residual`` (Arctic)."""
     if cfg.moe is None:
         return L.swiglu(h, lp["wg"], lp["wu"], lp["wd"]), None
     y, aux = moe_lib.moe_ffn(
         h, {"router": lp["router"], "wg": lp["moe_wg"], "wu": lp["moe_wu"],
-            "wd": lp["moe_wd"]}, cfg.moe, group_size=cfg.moe_group_size)
+            "wd": lp["moe_wd"]}, cfg.moe, group_size=cfg.moe_group_size,
+        mesh=mesh)
     if cfg.moe.dense_residual:
         y = y + L.swiglu(h, lp["wg"], lp["wu"], lp["wd"])
     return y, aux
@@ -287,6 +288,13 @@ def _layer_apply(lp, x, cos, sin, cfg: LMConfig, backend: str,
     q = constrain(q, ("batch", "seq", "heads", None), "lm", mesh)
     k = L.apply_rope((h @ lp["wk"]).reshape(B, T, Hkv, hd), cos, sin)
     v = (h @ lp["wv"]).reshape(B, T, Hkv, hd)
+    if kv_out is not None and mesh is not None \
+            and Hq % mesh.shape.get(sharding.LM_RULES["heads"], 1):
+        # the heads leave the model axis free (Arctic's 56 on 16): GSPMD
+        # splits the queries' sequence over it, as the cache's (the
+        # reference's scores are f32[2,56,2048,1024])
+        q = constrain(q, (sharding.UNCONSTRAINED, "kv_seq", None, None),
+                      "lm", mesh)
     if kv_out is not None:
         kv_out[0][:, :T] = k
         kv_out[1][:, :T] = v
@@ -294,7 +302,7 @@ def _layer_apply(lp, x, cos, sin, cfg: LMConfig, backend: str,
                     kv_chunk=cfg.kv_chunk, backend=backend)
     x = x + o.reshape(B, T, Hq * hd) @ lp["wo"]
     f, aux = _ffn_apply(lp, L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps),
-                        cfg)
+                        cfg, mesh)
     return constrain(x + f, ("batch", "seq", "embed"), "lm", mesh), aux
 
 
@@ -593,7 +601,8 @@ def decode_step(params: LMTower, cache: KVCache, tokens: torch.Tensor,
                 x = x + L.swiglu(h2, lp["wg"], lp["wu"], lp["wd"])
             else:
                 # B tokens route as one group of B: dropless up to 64
-                x = x + _ffn_apply(lp, h2[:, None, :], cfg)[0][:, 0, :]
+                x = x + _ffn_apply(lp, h2[:, None, :], cfg,
+                                   mesh)[0][:, 0, :]
         x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
         logits = logits_from_hidden(params, x)
     return logits, KVCache(cache.k, cache.v, cache.length + 1)

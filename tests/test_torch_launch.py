@@ -41,6 +41,7 @@ from repro_torch.launch import specs as specs_lib  # noqa: E402
 from repro_torch.launch.mesh import (CacheMesh, ModelMesh,  # noqa: E402
                                      PRODUCTION_SHAPES,
                                      make_production_mesh)
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import recsys as TR  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 
@@ -299,6 +300,156 @@ def test_constrain_to_replicated_all_gathers_the_split_dim():
 
     res = dryrun.trace(fn, (x,), (Spec(None, "model"),), MESH_24.shape)
     assert res["traffic"] == [("all-gather", B_ * F_ // 4 * 4, 4)]
+
+
+def _moved_to_dim1(x, y):
+    return shd.constrain(x, (None, "batch"), "recsys", MESH_24) * 1.0
+
+
+def _added_to_dim1(x, y):
+    return y + x                       # y, the larger, lays the output out
+
+
+@pytest.mark.parametrize("fn", [_moved_to_dim1, _added_to_dim1],
+                         ids=["constrain", "elementwise"])
+def test_moving_an_axis_to_another_dim_is_one_all_to_all(fn):
+    """A (B, F) float32 tensor split on dim 0 over ``data`` and resharded
+    to dim 1 (by a constraint, or by an element-wise op with an operand
+    split so) moves ``data`` in one all-to-all of its local B*F/2*4 bytes
+    over the 2 devices of ``data``, as GSPMD does; nothing is gathered."""
+    x = torch.empty((B_, F_), device="meta")
+    y = torch.empty((2 * B_, B_, F_), device="meta")
+    res = dryrun.trace(fn, (x, y), (Spec("data", None),
+                                    Spec(None, None, "data")),
+                       MESH_24.shape)
+    assert res["traffic"] == [("all-to-all", B_ * F_ // 2 * 4, 2)]
+    assert res["count_all-gather"] == 0 and res["involuntary"] == 0
+
+
+@pytest.mark.parametrize("spec,moved", [
+    (Spec("data", None), 0), (Spec("model", None), 1)],
+    ids=["kept", "moved"])
+def test_unconstrained_entry_keeps_the_dims_split(spec, moved):
+    """``constrain(x, (UNCONSTRAINED, "ffn"))`` on a (B, F) float32 tensor:
+    dim 0 keeps its split and dim 1 takes ``model`` for free; where dim 0
+    held ``model`` itself, ``model`` moves to dim 1 in one all-to-all of
+    the local B*F/4*4 bytes over its 4 devices."""
+    x = torch.empty((B_, F_), device="meta")
+
+    def fn(x):
+        return shd.constrain(x, (shd.UNCONSTRAINED, "ffn"), "recsys",
+                             MESH_24) * 1.0
+
+    res = dryrun.trace(fn, (x,), (spec,), MESH_24.shape)
+    assert res["traffic"] == [("all-to-all", B_ * F_ // 4 * 4, 4)] * moved
+    split = 2 * 4 if not moved else 4
+    assert res["flops"] == B_ * F_ / split
+
+
+def test_repeated_and_widened_copy_is_gathered_as_its_source():
+    """GQA's repeat: a (B, S, H, d) bf16 tensor split on d over ``model``,
+    repeated 4 times over its heads and cast to float32, then gathered
+    whole: one all-gather over the 4 devices of ``model`` of the source's
+    local B*S*H*d/4*2 bytes (the reference gathers its KV chunks before
+    the repeat and the cast), not the copy's 4*2 times that."""
+    from repro_torch.models.layers import repeat_kv
+    B, S, H, d = 2, 8, 2, 16
+    x = torch.empty((B, S, H, d), device="meta", dtype=torch.bfloat16)
+
+    def fn(x):
+        y = repeat_kv(x, 4).to(torch.float32)
+        return shd.constrain(y, (None, None, None, None), "lm", MESH_24)
+
+    res = dryrun.trace(fn, (x,), (Spec(None, None, None, "model"),),
+                       MESH_24.shape)
+    assert res["traffic"] == [("all-gather", B * S * H * d // 4 * 2, 4)]
+
+
+def test_kv_chunks_are_gathered_before_the_gqa_repeat():
+    """Chunked attention of 8 query heads over 2 KV heads on the (2, 4)
+    mesh, bf16, the queries' heads and the KV's hd over ``model`` (as
+    their projections leave them): each of the 4 chunks of K and of V is
+    all-gathered over ``model`` at its own bf16 bytes, B*16*Hkv*hd/8*2,
+    before the repeat and the cast, so the gathers sum to K's and V's
+    local bytes (the reference gathers them once, before its chunk scan),
+    not 4*2 times that."""
+    from repro_torch.models.layers import chunked_attention
+    B, S, Hq, Hkv, hd, ch = 2, 64, 8, 2, 16, 16
+    q, k, v = (torch.empty((B, S, h, hd), device="meta",
+                           dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    res = dryrun.trace(
+        lambda q, k, v: chunked_attention(q, k, v, causal=True,
+                                          kv_chunk=ch), (q, k, v),
+        (Spec("data", None, "model", None),
+         Spec("data", None, None, "model"),
+         Spec("data", None, None, "model")), MESH_24.shape, tally=True)
+    gathers = [(b, g) for kind, b, g, *_ in res["counter"].records
+               if kind == "all-gather"]
+    assert gathers == [(B * ch * Hkv * hd // 8 * 2, 4)] * (2 * S // ch)
+    assert res["coll_all-gather"] == 2 * B * S * Hkv * hd // 8 * 2 * 3
+
+
+def test_split_back_of_a_merge_is_kept_on_its_own_storage():
+    """A (4, 8) tensor split on dim 1 over ``model`` and merged to (32,)
+    splits back to (4, 8) with ``model`` on dim 1, where it came from; an
+    unrelated (32,) tensor split over ``model`` splits to (4, 8) with it
+    on dim 0 (contiguous tiles), whatever the merge of the other."""
+    from repro_torch.launch.layout import LayoutCounter
+    x = torch.empty((4, 8), device="meta")
+    z = torch.empty((32,), device="meta")
+    counter = LayoutCounter(MESH_24.shape, [(x, Spec(None, "model")),
+                                            (z, Spec("model"))])
+    with counter:
+        back = x.reshape(32).reshape(4, 8)
+        other = z.reshape(4, 8)
+    assert counter.layout(back).dims == ((), ("model",))
+    assert counter.layout(other).dims == (("model",), ())
+
+
+def test_smoke_granite_moe_dispatch_and_combine_collectives():
+    """The smoke Granite MoE FFN and its residual add on the (2, 4) mesh,
+    a decode-like batch of T = 8 tokens over ``data`` in one group (C =
+    T, dropless), the E = 8 experts over ``model`` as the weights' (E, D,
+    F) split (experts on ``model``, D on ``data``) and the dispatch's
+    constraint (the experts on the expert axis) lay them out:
+
+    * the dispatch contracts the tokens: its (E, C, D) float32 output,
+      E/4 * C * D * 4 bytes a device, is all-reduced over ``data`` once,
+      where the expert products meet the weights' D split;
+    * the combine gathers its (G, T, E*C) weights' token dim, the smaller
+      operand (T/2 * E*C/4 * 4 bytes over ``data``; the output's hidden
+      dim, split over ``data`` by the down projection, wants it whole),
+      then all-reduces its (T, D) output over ``model``, T * D/2 * 4
+      bytes a device, the experts contracted;
+    * the residual add moves ``data`` from the hidden dim back to the
+      tokens: one all-to-all of those T * D/2 * 4 bytes over ``data``."""
+    cfg = get_config("granite-moe-1b-a400m", smoke=True)
+    D, F, E, T = cfg.d_model, cfg.d_ff, cfg.moe.n_experts, 8
+    C = T
+
+    def layer(x, router, wg, wu, wd):
+        y, _ = moe_lib.moe_ffn(x, {"router": router, "wg": wg, "wu": wu,
+                                   "wd": wd}, cfg.moe, cfg.moe_group_size,
+                               mesh=MESH_24)
+        return x + y
+
+    def m(*shape):
+        return torch.empty(shape, device="meta")
+
+    res = dryrun.trace(layer, (m(T, 1, D), m(D, E), m(E, D, F), m(E, D, F),
+                               m(E, F, D)),
+                       (Spec("data", None, None), Spec(),
+                        Spec("model", "data", None),
+                        Spec("model", "data", None),
+                        Spec("model", None, "data")),
+                       MESH_24.shape, tally=True)
+    rec = [(k, b, g, shp) for k, b, g, _, _, shp in res["counter"].records]
+    assert [r for r in rec if r[0] == "all-to-all"] == [
+        ("all-to-all", T * D // 2 * 4, 2, (T, 1, D))]
+    assert ("all-reduce", E // 4 * C * D * 4, 2, (E, C, D)) in rec
+    assert ("all-gather", T // 2 * E * C // 4 * 4, 2, (1, T, E * C)) in rec
+    assert ("all-reduce", T * D // 2 * 4, 4, (T, 1, D)) in rec
+    assert res["count_all-to-all"] == 1
 
 
 @pytest.mark.parametrize("spec,share", [(Spec(), 1), (Spec("data", "model"),
@@ -561,11 +712,13 @@ def test_run_ercache_cell_plans_the_reference_tier(monkeypatch):
     assert res["hlo_flops_per_dev"] > 0
     # the probe's combine: 4 psums per tier over the 4 cache shards; the
     # tower's vocab-split embedding all-reduces its partial rows once; each
-    # layer all-gathers four weight splits of its products (cheaper than
-    # all-reducing the miss budget's activations), which leaves its output
-    # split over model by rows, and those rows at its closing constraint
+    # layer's heads stay split over model through the attention (the
+    # einsums' merged (rows, heads) dims split back onto the dims they came
+    # from), so its output projection and its FFN's down projection each
+    # leave a partial sum, all-reduced at the residual add (Megatron's two
+    # all-reduces a layer); nothing is gathered
     assert combines == [4, 4]
     n_layers = get_config("tinyllama-1.1b").n_layers
     assert res["collective_counts"] == {
-        "all-reduce": 8 + 1, "all-gather": 5 * n_layers,
+        "all-reduce": 8 + 1 + 2 * n_layers, "all-gather": 0,
         "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}

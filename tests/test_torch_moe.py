@@ -115,6 +115,31 @@ def test_gating_and_dispatch_match_reference(G, T, E, k):
         assert float(td.sum()) < G * T * k          # the capacity drops
 
 
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_slot_by_slot_dispatch_is_bit_exact_with_drops(k):
+    """The port adds one top-k slot's (G, T, E, C) share at a time where
+    the reference sums a (G, T, K, E, C) product over K: a token's experts
+    are distinct, so each element takes one slot's value or none, and the
+    two agree bit for bit (the float32 words compared), capacity drops
+    included (the low experts favoured, so they overflow)."""
+    G, T, E = 2, 96, 16
+    rng = np.random.default_rng(k)
+    favour = np.linspace(4.0, 1.0, E)
+    favour /= favour.sum()
+    ids = np.array([[rng.choice(E, k, replace=False, p=favour)
+                     for _ in range(T)] for _ in range(G)], np.int32)
+    gates = rng.random((G, T, k)).astype(np.float32)
+    gates /= gates.sum(-1, keepdims=True)
+    C = JM.capacity_for(T, JMoE(E, k))
+    jd, jc = _j_dispatch(jnp.asarray(ids), jnp.asarray(gates), E, C)
+    td, tc = TM.dispatch_combine_tensors(torch.as_tensor(ids).long(),
+                                         torch.as_tensor(gates), E, C)
+    for got, want, what in ((td, jd, "dispatch"), (tc, jc, "combine")):
+        assert_exact(got.numpy().view(np.int32),
+                     np.asarray(want).view(np.int32), what)
+    assert float(td.sum()) < G * T * k            # slots were dropped
+
+
 @pytest.mark.parametrize("group_size", [512, 32], ids=["drops", "dropless"])
 @pytest.mark.parametrize("arch", MOE_LMS)
 def test_moe_ffn_matches_jax(arch, group_size, rng):

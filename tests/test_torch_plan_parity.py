@@ -8,15 +8,29 @@ port plans the same cells; both results are computed once for the
 module. The cells: a serve, a retrieval and a train cell of the recsys
 family (Wide&Deep's bulk serving and training and SASRec's retrieval,
 whose dominant terms flipped before the port laid its tensors out),
-Wide&Deep's p99 serving, TinyLlama's ``decode_32k`` and ``prefill_32k``,
-GIN's ``full_graph_sm``, the ``wide-deep x retrieval_cand`` cell that both
-refuse, and one multi-pod cell, Arctic's ``train_4k`` on the (2, 16, 16)
-mesh, whose 16-row microbatch the 32 batch shards cannot split.
+Wide&Deep's p99 serving, TinyLlama's ``decode_32k``, ``prefill_32k`` and
+``long_500k``, Yi's and Llama-3's ``prefill_32k`` (with TinyLlama's and
+Granite's, the four LM prefill cells: GQA's KV chunks gathered),
+Granite-MoE's ``decode_32k``, ``prefill_32k`` and ``long_500k`` (the MoE
+dispatch: the experts over ``model``, the tokens over ``data``), GIN's
+``full_graph_sm`` and ``molecule``, the ``wide-deep x retrieval_cand``
+cell that both refuse, one multi-pod cell, Arctic's ``train_4k`` on the
+(2, 16, 16) mesh, whose 16-row microbatch the 32 batch shards cannot
+split, and the ERCache serve cell (``run_ercache_cell``, TinyLlama at
+B = 4,096 on the production mesh; the reference's layer scan unrolled,
+so that each of its 22 layers is counted).
 
 Bars: ``ok`` equal, the refused cell's reason naming B; argument bytes
-equal; collective bytes a device within 0.5x-2x where the reference reads
-at least 1 MB, both under 1 MB elsewhere; peak and FLOPs a device within
-0.5x-2x. Three differences are the reference's by design and named:
+equal (the ERCache cell's: the port's the reference's plus the unused
+unembedding, which the reference's ``jax.jit`` drops, less the ``now``
+scalar it passes: 32,000 x 2,048 x 2 / 16 - 4 bytes); collective bytes a
+device within 0.5x-2x where the reference reads at least 1 MB, both under
+1 MB elsewhere, and again against the reference's bytes less its float32
+widening of bf16 values on the LM cells (``HOST_F32``, below); peak and
+FLOPs a device within 0.5x-2x; an all-to-all in the port's counts of
+every MoE cell whose reference has one. Seven differences are the
+reference's by design and named (the sets and figures are
+``plan_parity.py``'s, whose 40-cell table applies them too):
 
 * ``SCAN_ONCE``: XLA's cost analysis counts the body of the reference's
   KV-chunk attention scan once, so there only the port's FLOPs being at
@@ -27,13 +41,59 @@ at least 1 MB, both under 1 MB elsewhere; peak and FLOPs a device within
   microbatch of 16 rows does not divide the 32 batch shards), so there the
   port's FLOPs and collective bytes are only held to at least the
   reference's;
-* ``F32_CACHE``: compiled for host devices, the reference computes the
-  bf16 decode in float32 and its temp holds float32 copies of the K and V
+* ``F32_CACHE`` (every LM decode cell, ``decode_32k`` and ``long_500k``):
+  compiled for host devices, the reference computes the bf16 decode in
+  float32 and its temp holds float32 copies of the K and V
   caches, twice the bf16 cache's bytes (``plan_parity.py --temps
   tinyllama-1.1b:decode_32k``: two ``f32[22,8,2048,4,64]`` converts of
   369,098,752 bytes in its 1,178,411,008 temp bytes; the cache, the
   donated and aliased output, is 369,098,784); there the port's peak plus
-  twice its aliased bytes is held to the bar.
+  twice its aliased bytes is held to the bar;
+* ``HOST_CONVERTS`` (every LM decode cell): compiled for host devices,
+  XLA computes the bf16 products and cache updates in float32 and its
+  cost analysis gives each convert it inserts one FLOP an element. They
+  carry no jax op in the
+  HLO (``plan_parity.py --ops tinyllama-1.1b:long_500k --overrides
+  '{"n_layers": 2, "unroll_scans": true}'``: ``convert f32[2,352,2048]``,
+  ``convert f32[2,2048,352]``, 1,441,792 each, the FFN weights of both
+  layers converted in each unrolled layer; ``convert f32[2,1,2048,4,64]``
+  and ``bf16[2,1,2048,4,64]``, 1,048,576 each, the cache there and back),
+  and as every layer of the L = 2 variant converts both layers' weights,
+  the accounting's per-layer term holds them three times over: 6.63e8 of
+  TinyLlama's 1.25e9 at ``long_500k``, 4.50e9 of Granite's 9.48e9 at
+  ``decode_32k``. There the port's FLOPs are held to the reference's
+  less those converts (``host_convert_flops``, summed by
+  ``plan_parity.py``'s reference run through the same accounting);
+* ``HOST_F32`` (every LM cell): compiled for host devices, the reference
+  carries bf16 values through its collectives in float32, made so by a
+  ``convert`` from bf16 (``plan_parity.py --ops tinyllama-1.1b:prefill_32k
+  --overrides '{"n_layers": 1, "unroll_scans": true}'``, ``~`` marking
+  them: ``all-gather~ 4.0000 16 .../while/body/dynamic_slice
+  f32[2,2,1024,4,64] -> f32[32,2,1024,4,64]``, the K and V chunks;
+  ``all-reduce~ 512.0000 16 .../bth,hd->btd/dot_general
+  f32[2,32768,2048]``, the attention's output), twice the bf16 bytes.
+  There the port's collective bytes are also held to the reference's
+  less half of those (``host_f32_collective_bytes``, summed by the
+  reference run through the same accounting), so that a port counting
+  float32 where the model moves bf16 cannot meet the raw bar by it;
+* ``ONE_HOT_EMBED``: the reference embeds tokens by a one-hot matmul
+  (``src/repro/models/transformer.py:186``), the port by a gather, a
+  difference by design; on Granite's 49,155-word vocabulary, which the
+  16-way model axis does not divide, the host compile also converts that
+  bf16 operand to float32 (``plan_parity.py --temps
+  granite-moe-1b-a400m:prefill_32k``: ``12885688320  f32[65536,49155]
+  convert_bitcast_fusion.10`` of its 13,595,796,840 temp bytes; the
+  model's one-hot is ``bf16[2,32768,49155]``, made float32 by a
+  ``convert`` with no jax op): there the port's peak plus the float32
+  half that convert adds (65,536 tokens a device x 49,155 x 2 bytes) is
+  held to the bar;
+* ``F32_WEIGHTS`` (no cell here: Arctic's ``prefill_32k`` in the 40-cell
+  table): compiled for host devices, the reference converts Arctic's
+  stacked bf16 expert weights to float32 once, outside its layer scan
+  (``plan_parity.py --temps arctic-480b:prefill_32k``: ``2440560640
+  f32[35,8,4864,448]  wrapped_convert.7`` and two of
+  ``f32[35,8,448,4864]``, 7,321,681,920 of its 18,805,605,376 temp
+  bytes): there the port's peak plus those bytes is held to the bar.
 
 Bytes accessed are printed beside the dominant term of both, each at the
 H100's constants, and not held: the port counts the rows an index op
@@ -50,17 +110,27 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 import plan_parity  # noqa: E402
-from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 
+ERCACHE = plan_parity.ERCACHE
 CELLS = ["wide-deep:serve_bulk", "wide-deep:train_batch",
          "sasrec:retrieval_cand", "wide-deep:serve_p99",
          "tinyllama-1.1b:decode_32k", "tinyllama-1.1b:prefill_32k",
-         "gin-tu:full_graph_sm", "wide-deep:retrieval_cand",
-         "arctic-480b:train_4k:multipod"]
+         "tinyllama-1.1b:long_500k", "yi-6b:prefill_32k",
+         "llama3-8b:prefill_32k", "granite-moe-1b-a400m:decode_32k",
+         "granite-moe-1b-a400m:prefill_32k",
+         "granite-moe-1b-a400m:long_500k", "gin-tu:full_graph_sm",
+         "gin-tu:molecule", "wide-deep:retrieval_cand",
+         "arctic-480b:train_4k:multipod", ERCACHE]
+MOE = [c for c in CELLS if c.startswith("granite-moe")]
+LM = [c for c in CELLS if c == ERCACHE
+      or get_config(c.split(":")[0]).family == "lm"]
 REFUSED = {"wide-deep:retrieval_cand": "batch 1 "}
-SCAN_ONCE = {"tinyllama-1.1b:prefill_32k"}
+SCAN_ONCE = {"tinyllama-1.1b:prefill_32k", "yi-6b:prefill_32k",
+             "llama3-8b:prefill_32k"}
 EACH_SCAN_ONCE = {"arctic-480b:train_4k:multipod"}
-F32_CACHE = {"tinyllama-1.1b:decode_32k"}
+F32_CACHE = HOST_CONVERTS = {c for c in CELLS if plan_parity.lm_decode(c)}
+ONE_HOT_EMBED = plan_parity.ONE_HOT_EMBED
 MB = 1e6
 
 
@@ -87,8 +157,9 @@ def test_ok_and_argument_bytes_equal(cell, plans):
         assert "shard_map" in a["error"]
         assert REFUSED[cell] in b["error"], b["error"]
         return
+    unused = 32000 * 2048 * 2 // 16 - 4 if cell == ERCACHE else 0
     assert b["memory_stats"]["argument_bytes"] \
-        == a["memory_stats"]["argument_bytes"]
+        == a["memory_stats"]["argument_bytes"] + unused
 
 
 @pytest.mark.parametrize("cell", [c for c in CELLS if c not in REFUSED])
@@ -104,11 +175,29 @@ def test_collective_bytes_within_bar(cell, plans):
         assert got < MB, (got, want)
 
 
+@pytest.mark.parametrize("cell", LM)
+def test_collective_bytes_within_bar_of_the_bf16_bytes(cell, plans):
+    """``HOST_F32`` (module docstring): the reference's bytes less what
+    its float32 widening of bf16 values adds."""
+    ref, port = plans
+    want = ref[cell]["collective_bytes_per_dev"] \
+        - ref[cell]["host_f32_collective_bytes"]
+    got = port[cell]["collective_bytes_per_dev"]
+    if cell in EACH_SCAN_ONCE:
+        assert got >= want, (got, want)
+    elif want >= MB:
+        assert _within(got, want), (got, want)
+    else:
+        assert got < MB, (got, want)
+
+
 @pytest.mark.parametrize("cell", [c for c in CELLS if c not in REFUSED])
 def test_flops_within_bar(cell, plans):
     ref, port = plans
     want = ref[cell]["hlo_flops_per_dev"]
     got = port[cell]["hlo_flops_per_dev"]
+    if cell in HOST_CONVERTS:
+        want -= ref[cell]["host_convert_flops"]
     if cell in SCAN_ONCE | EACH_SCAN_ONCE:
         assert got >= want, (got, want)
     else:
@@ -122,7 +211,18 @@ def test_peak_within_bar(cell, plans):
     got = port[cell]["memory_stats"]["peak_estimate_gb"]
     if cell in F32_CACHE:         # the cache: the donated, aliased output
         got += 2 * port[cell]["memory_stats"]["alias_bytes"] / 2**30
+    got += ONE_HOT_EMBED.get(cell, 0) / 2**30
     assert _within(got, want), (got, want)
+
+
+@pytest.mark.parametrize("cell", MOE)
+def test_moe_cells_all_to_all_where_the_reference_has_one(cell, plans):
+    """Each MoE cell whose reference's HLO holds an all-to-all records
+    one: the combine's output moving ``data`` from its hidden dim back to
+    its tokens for the residual add, and RoPE's halves re-tiled."""
+    ref, port = plans
+    if ref[cell]["collective_counts"]["all-to-all"]:
+        assert port[cell]["collective_counts"]["all-to-all"] > 0
 
 
 def test_print_bytes_and_dominant_terms(plans, capsys):

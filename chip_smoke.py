@@ -2428,7 +2428,8 @@ def compiled_cell(torch, tag, params, calls, init, probe):
           for jit in (False, True)}
     print(f"[compiled {tag}] {len(captured)} graphs captured (chunks of "
           + "/".join(str(g.launches[probe]) for g in captured)
-          + " steps, each whole chunk with its flushes one graph): capture "
+          + " steps, each whole chunk with its flushes one graph): first "
+          "call (eager + capture) "
           + "/".join(f"{g.capture_s:.2f}" for g in captured) + " s, graph "
           "pools " + "/".join(f"{g.pool_bytes / 1e6:.1f}" for g in captured)
           + f" MB; the capturing run {prime['wall_ms'] / steps:.2f} ms a "
@@ -3071,8 +3072,8 @@ def graph_line(server, probe):
                                  f"{probe} and one bag a step")
     return (f"{len(graphs)} graphs (chunks of "
             + "/".join(str(g.launches[probe]) for g in graphs)
-            + " steps): capture " + "/".join(f"{g.capture_s:.2f}"
-                                            for g in graphs)
+            + " steps): first call (eager + capture) "
+            + "/".join(f"{g.capture_s:.2f}" for g in graphs)
             + " s, pools " + "/".join(f"{g.pool_bytes / 1e6:.1f}"
                                       for g in graphs) + " MB")
 
@@ -4300,9 +4301,9 @@ def phase_shards(torch, counts):
               f"every plane of both tiers, both rings, the budget); "
               f"compiled == eager; host ms a step eager "
               f"{run['step_ms'][1]:.3f} (warm), compiled "
-              f"{comp['step_ms'][1]:.3f} (replay; capture "
-              f"{graph.capture_s:.2f} s, pool {graph.pool_bytes / 1e6:.1f} "
-              f"MB); device ms a step "
+              f"{comp['step_ms'][1]:.3f} (replay; first call (eager + "
+              f"capture) {graph.capture_s:.2f} s, pool "
+              f"{graph.pool_bytes / 1e6:.1f} MB); device ms a step "
               + ("not measured" if dms is None else f"{dms:.3f}")
               + f" (profiled compiled chunk); probe launches a step "
               f"{graph.launches['cache_probe_dual'] // chunk}; {smi}")

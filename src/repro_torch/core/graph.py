@@ -29,6 +29,14 @@ so a graph's key holds every slab's address. A state whose tensors lie
 on more than one device (a mesh over distinct cards) raises
 ``NotImplementedError``: one CUDA graph records the work of one card.
 
+With the span recorder on (``core/trace.py``) a call records its host
+spans (``entry``, ``entry.key``, ``entry.load``, ``entry.replay``,
+``entry.clone``, ``entry.capture``), and the recorder's state is part of
+the static key: a traced call replays a graph of its own, whose phase
+events time every replay. ``len(Compiled.graphs)`` counts the captures
+whether or not the recorder is on: a graph more for one shape means a key
+changed (a state tensor moved), and its capture stalled that call.
+
 A capture or replay that fails raises; nothing falls back to running
 ``fn`` eagerly. ``fn`` must leave every in-place tensor's storage where it
 was (:func:`write_back`) and must not sync with the host: an ``.item()``
@@ -38,10 +46,12 @@ from __future__ import annotations
 
 import gc
 import time
-from typing import Callable, Dict, Iterable, Iterator, List, Sequence
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence)
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import ops
 
 
@@ -119,8 +129,9 @@ def _clone(tree):
 class CapturedGraph:
     """One static key's graph: its static input buffers (a host int is
     staged into an int32 0-d tensor) and outputs, the launches per kernel
-    it replays, how long the capture took and the memory its pool
-    holds."""
+    it replays, how long its first call took (``capture_s``: the eager run
+    and the capture), the memory its pool holds, the bytes a replay copies
+    in and clones out, and the phase events it records."""
 
     def __init__(self, leaves: List, dev):
         self.buffers = [
@@ -134,6 +145,7 @@ class CapturedGraph:
         stream (the call's real execution, whose output this returns),
         then capture it. Nothing here keeps ``call``, so the graph holds
         no reference to the tensors it was captured on."""
+        t0 = time.time_ns()
         run = lambda: call(_unflatten(iter(self.buffers), spec))
         self.load(leaves)
         cur = torch.cuda.current_stream(dev)
@@ -158,7 +170,6 @@ class CapturedGraph:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         before = ops.launch_counts()
-        t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         gc_was_on = gc.isenabled()
         gc.disable()
@@ -174,9 +185,15 @@ class CapturedGraph:
             self.launches = {k: after[k] - before[k] for k in after
                              if after[k] != before[k]}
             ops.add_launch_counts({k: -n for k, n in self.launches.items()})
-        self.capture_s = time.perf_counter() - t0
+            self.phases = trace.take_captured()
         torch.cuda.empty_cache()
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.load_bytes = sum(b.nbytes for b in self.buffers if b is not None)
+        self.clone_bytes = sum(t.nbytes for t in tensors_of(self.out))
+        t1 = time.time_ns()
+        self.capture_s = (t1 - t0) / 1e9
+        if trace.on:
+            trace.span("entry.capture", t0, t1)
         return first
 
     def load(self, leaves: Iterable) -> None:
@@ -187,11 +204,21 @@ class CapturedGraph:
             elif x is not None:
                 buf.fill_(x)
 
-    def replay(self, leaves: Iterable):
+    def replay(self, leaves: Iterable, t: Optional[int] = None):
+        """Load, replay, clone. ``t``: a traced call's clock where its
+        ``entry.load`` span starts (None: the recorder is off)."""
         self.load(leaves)
+        if t is not None:
+            t = trace.span("entry.load", t)
         self.graph.replay()
         ops.add_launch_counts(self.launches)
-        return _clone(self.out)
+        if t is not None:
+            trace.replayed(self.phases)
+            t = trace.span("entry.replay", t)
+        out = _clone(self.out)
+        if t is not None:
+            trace.span("entry.clone", t)
+        return out
 
 
 class Compiled:
@@ -213,9 +240,12 @@ class Compiled:
         self.graphs: Dict[tuple, CapturedGraph] = {}
 
     def __call__(self, *args, **kwargs):
+        traced = trace.on
+        if traced:
+            t = trace.begin_call()
         bound, args = args[:self._inplace], args[self._inplace:]
         state = tensors_of(bound[-1])
-        devices = {t.device for t in state}
+        devices = {x.device for x in state}
         if len(devices) > 1:
             raise NotImplementedError(
                 f"a compiled entry point runs one device's work, and this "
@@ -224,7 +254,10 @@ class Compiled:
                 "distinct cards is not captured as a CUDA graph; call the "
                 "eager serve_step / serve_many / flush instead")
         if not state or not state[0].is_cuda:
-            return self._assemble(bound, self._fn(*bound, *args, **kwargs))
+            res = self._assemble(bound, self._fn(*bound, *args, **kwargs))
+            if traced:
+                trace.end_call()
+            return res
         dev = state[0].device
         static = tuple(sorted((k, v) for k, v in kwargs.items()
                               if k in self._static))
@@ -232,9 +265,11 @@ class Compiled:
         leaves, spec = _flatten((tuple(args),
                                  tuple(kwargs[k] for k in names)))
         key = (spec, names, static, tuple(map(_input_sig, leaves)),
-               _address_key(bound))
+               _address_key(bound), traced)
         with torch.cuda.device(dev):
             entry = self.graphs.get(key)
+            if traced:
+                t = trace.span("entry.key", t)
             if entry is None:
                 def call(inputs):
                     pos, kw = inputs
@@ -245,5 +280,8 @@ class Compiled:
                 out = entry.first_call(call, spec, leaves, dev)
                 self.graphs[key] = entry
             else:
-                out = entry.replay(leaves)
-        return self._assemble(bound, out)
+                out = entry.replay(leaves, t if traced else None)
+        res = self._assemble(bound, out)
+        if traced:
+            trace.end_call()
+        return res

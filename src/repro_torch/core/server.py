@@ -34,7 +34,9 @@ graph) and replayed; on a CPU state the plain function runs. Their state
 shares every tensor with the one passed in: the admission budget, which
 ``ratelimit`` returns fresh, is written back into the state's own tensor.
 The step's body makes no host sync and no host-to-device copy, so it can
-be captured.
+be captured. With the span recorder on (``core/trace.py``) both servers
+mark the phases ``step.probe`` (1), ``step.tail`` (2)-(4) around
+``step.tower`` (the tower call) and ``step.flush``.
 
 :class:`MultiModelServer` fronts the whole model registry with one
 stacked tier: a mixed-model batch is ONE ``cache_probe_dual_multi``
@@ -69,6 +71,7 @@ import torch
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import graph as graph_lib
 from repro_torch.core import ratelimit as rl_lib
+from repro_torch.core import trace
 from repro_torch.core import writebuf as wb_lib
 from repro_torch.core.cache import CacheState
 from repro_torch.core.config import CacheConfig
@@ -356,6 +359,8 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
     """
     B = keys.hi.shape[0]
     dev = keys.hi.device
+    if trace.on:
+        trace.begin("step.tail", dev)
     miss = ~direct.hit
     if admit is None:
         admit = miss
@@ -368,7 +373,14 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
     order = torch.sort((~infer).to(torch.int32), stable=True).indices
     sel = order[:miss_budget]
     sel_is_inf = infer[sel]
-    towered = tower_fn(params, take_rows(features, sel))
+    rows = take_rows(features, sel)
+    if trace.on:
+        trace.end("step.tail")
+        trace.begin("step.tower", dev)
+    towered = tower_fn(params, rows)
+    if trace.on:
+        trace.end("step.tower")
+        trace.begin("step.tail", dev)
     towered = towered.to(direct.values.dtype)
     sel_failed = failure_mask[sel]
     sel_ok = sel_is_inf & ~sel_failed
@@ -465,6 +477,8 @@ def _serve_tail(tower_fn: Callable, miss_budget: int, fallback_value: float,
                 pm_stale_sum / pm_fo.clamp(min=1).float(),
             "per_model_failover_stale_sum_ms": pm_stale_sum,
         })
+    if trace.on:
+        trace.end("step.tail")
     return emb, source, age, new_wb, stats
 
 
@@ -595,6 +609,8 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
         B = keys.hi.shape[0]
         cfg = self.cfg
         dev = keys.hi.device
+        if trace.on:
+            trace.begin("step.probe", dev)
         now = torch.as_tensor(now_ms, dtype=torch.int32, device=dev)
         if failure_mask is None:
             failure_mask = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -670,6 +686,8 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
             failure_mask, new_budget, *retried = _chaos_retries(
                 chaos, infer, failure_mask, new_budget,
                 self._budget_table(dev)[2])
+        if trace.on:
+            trace.end("step.probe")
 
         # (2)-(4): shared serve tail
         emb, source, age, new_wb, stats = _serve_tail(
@@ -734,6 +752,8 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
         direct cache. ``enabled`` (0-d bool; None: True) predicates the
         whole flush on the device: False leaves every plane and both rings
         as they were."""
+        if trace.on:
+            trace.begin("step.flush", state.writebuf.count.device)
         tb = state.touchbuf if self.cfg.resolved_touch() else None
         lru = self.cfg.eviction == "lru"
         if self.cfg.failover_write == "off":
@@ -745,6 +765,8 @@ class CachedEmbeddingServer(_CompiledEntryPoints):
                               now_ms, self.cfg.cache_ttl_ms,
                               self.cfg.failover_ttl_ms, evict_lru=lru,
                               touchbuf=tb, enabled=enabled, mesh=self.mesh)
+        if trace.on:
+            trace.end("step.flush")
         return state
 
 
@@ -878,6 +900,8 @@ class MultiModelServer(_CompiledEntryPoints):
         dev = keys.hi.device
         M = self.n_models
         pol = self.policy
+        if trace.on:
+            trace.begin("step.probe", dev)
         now = torch.as_tensor(now_ms, dtype=torch.int32, device=dev)
         slots = torch.as_tensor(slots, dtype=torch.int32, device=dev)
         s = slots.long()
@@ -964,6 +988,8 @@ class MultiModelServer(_CompiledEntryPoints):
             failure_mask, new_budget, *retried = _chaos_retries(
                 chaos, infer, failure_mask, new_budget, pol.budget_limited,
                 slots=slots, n_models=M)
+        if trace.on:
+            trace.end("step.probe")
 
         # (2)-(4): shared serve tail, model-tagged ring records
         emb, source, age, new_wb, stats = _serve_tail(
@@ -1020,10 +1046,14 @@ class MultiModelServer(_CompiledEntryPoints):
         PLACE, with ONE shared insert plan, each record under its model's
         TTL and eviction policy, after the touch ring's recency bumps.
         ``enabled`` as in :meth:`CachedEmbeddingServer.flush`."""
+        if trace.on:
+            trace.begin("step.flush", state.writebuf.count.device)
         wb_lib.flush_dual_multi(
             state.writebuf, state.direct, state.failover, self.policy,
             now_ms, touchbuf=state.touchbuf if self._any_touch else None,
             enabled=enabled, mesh=self.mesh)
+        if trace.on:
+            trace.end("step.flush")
         return state
 
 

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core import trace
 from repro_torch.distributed.sharding import UNCONSTRAINED, constrain
 
 
@@ -106,6 +107,8 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor],
     C = capacity_for(g, cfg)
     xg = x.reshape(G, g, D)
 
+    if trace.on:
+        trace.begin("moe.route", x.device)
     logits = torch.einsum("gtd,de->gte", xg.to(torch.float32),
                           params["router"].to(torch.float32))
     gates, idx, probs = top_k_gating(logits, cfg.top_k)
@@ -115,12 +118,17 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor],
                   for t in (disp, comb))
     disp = disp.to(x.dtype)
     comb = comb.to(x.dtype)
+    if trace.on:
+        trace.end("moe.route")
+        trace.begin("moe.experts", x.device)
 
     xe = torch.einsum("gtec,gtd->gecd", disp, xg)
     gproj = F.silu(torch.einsum("gecd,edf->gecf", xe, params["wg"]))
     uproj = torch.einsum("gecd,edf->gecf", xe, params["wu"])
     ye = torch.einsum("gecf,efd->gecd", gproj * uproj, params["wd"])
     y = torch.einsum("gtec,gecd->gtd", comb, ye)
+    if trace.on:
+        trace.end("moe.experts")
 
     # GShard load-balance loss: E * sum_e f_e * P_e, f_e from slot 0
     me = probs.mean(dim=(0, 1))                            # (E,)

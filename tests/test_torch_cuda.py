@@ -912,6 +912,109 @@ def test_jit_captures_while_a_dead_server_awaits_collection(cuda):
             assert torch.equal(a, b)
 
 
+def test_traced_graph_times_its_phases_and_equals_untraced(cuda):
+    """SASRec at its published widths behind small tiers, one step a
+    ``jit_serve_many`` call (as the benchmark calls it), from fresh states
+    with the span recorder off and then on: every call's outputs and
+    counters and the final tiers are the same bit for bit. On, each
+    replay's graph times its step phases with its own events: every
+    interval is positive and all of them fit in the replay's event-timed
+    wall; the entry's spans lie between the caller's clock reads around
+    the call; phases after an anchor are placed after it; a state at
+    another address captures the traced graph a second time (a graph more
+    in ``Compiled.graphs``, an ``entry.capture`` span); each graph's
+    ``load_bytes`` / ``clone_bytes`` are a call's inputs and outputs."""
+    import time
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core import server as S
+    from repro_torch.core import trace
+    from repro_torch.core.config import CacheConfig
+    from repro_torch.core.hashing import Key64
+    from repro_torch.models import recsys as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_t = get_config("sasrec")
+    model = R.init_params(torch.Generator(device=cuda).manual_seed(0), cfg_t,
+                          cuda)
+    cfg = CacheConfig(model_id=1, model_type="ctr", n_buckets=1024, ways=8,
+                      value_dim=cfg_t.embed_dim, cache_ttl_ms=MIN,
+                      backend="cuda")
+    srv = S.CachedEmbeddingServer(
+        cfg=cfg, miss_budget=384,
+        tower_fn=lambda p, f: R.tower_step(p, f, cfg_t, impl="cuda"))
+    init = lambda: S.init_server_state(cfg, writebuf_capacity=2048,
+                                       device=cuda)
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    chunks = [(Key64.from_int(rng.choice(np.arange(2000) * 7919,
+                                         size=(1, 512)), device=cuda),
+               {"seq": t(rng.integers(0, cfg_t.vocab, (1, 512, 50)).astype(
+                   np.int32))},
+               t(np.array([i * 20_000], np.int32)),
+               t(rng.uniform(size=(1, 512)) < 0.02)) for i in range(6)]
+    trace.disable()
+    trace.drain()
+    runs = {}
+    try:
+        for on in (False, True):
+            if on:
+                trace.enable()
+            state, got, walls = init(), [], []
+            for i, args in enumerate(chunks):
+                if on and i == len(chunks) - 1:
+                    trace.anchor()
+                trace.tag(i)
+                w0 = torch.cuda.Event(enable_timing=True)
+                w1 = torch.cuda.Event(enable_timing=True)
+                t0 = time.time_ns()
+                w0.record()
+                state, acc, ys = srv.jit_serve_many(model, state, *args)
+                w1.record()
+                t1 = time.time_ns()
+                got.append((S.fetch_counters(acc), ys))
+                walls.append((w0.elapsed_time(w1) * 1e6, t0, t1))
+            if on:
+                srv.jit_serve_many(model, init(), *chunks[0])
+            trace.disable()
+            runs[on] = (got, _state_leaves(state), walls, trace.drain())
+    finally:
+        trace.disable()
+        trace.drain()
+    (got_a, st_a, _, off), (got_b, st_b, walls, rec) = runs[False], runs[True]
+    assert off == ([], [])
+    for (acc_a, ys_a), (acc_b, ys_b) in zip(got_a, got_b):
+        assert acc_a == acc_b
+        for a, b in zip(ys_a, ys_b):
+            assert torch.equal(a, b)
+    for a, b in zip(st_a, st_b):
+        assert torch.equal(a, b)
+    graphs = srv.jit_serve_many.graphs.values()
+    assert len(graphs) == 3
+    names = [s.name for s in rec.spans]
+    assert names.count("entry.capture") == 2
+    assert names.count("entry.replay") == len(chunks) - 1
+    nbytes = lambda tree: sum(x.nbytes for x in graph_lib.tensors_of(tree))
+    assert all(g.load_bytes == nbytes(chunks[0]) for g in graphs)
+    assert all(g.clone_bytes == nbytes((acc, ys)) for g in graphs)
+    for i, (wall_ns, t0, t1) in enumerate(walls[1:], 1):
+        phases = [p for p in rec.phases if p.call_id == i]
+        assert sorted(p.name for p in phases) == [
+            "step.flush", "step.flush", "step.probe", "step.tail",
+            "step.tail", "step.tower"]
+        assert all(p.end_ns > p.start_ns for p in phases)
+        assert sum(p.end_ns - p.start_ns for p in phases) <= wall_ns
+        assert all(p.anchored == (i == len(chunks) - 1) for p in phases)
+        if i == len(chunks) - 1:
+            assert min(p.start_ns for p in phases) >= 0
+        spans = {s.name: s for s in rec.spans if s.call_id == i}
+        assert {"entry", "entry.key", "entry.load", "entry.replay",
+                "entry.clone"} <= set(spans)
+        assert all(t0 <= s.start_ns <= s.end_ns <= t1
+                   for s in spans.values())
+
+
 _SYNCING_TOWER = """
 import sys
 import torch

@@ -39,10 +39,14 @@ nodes, so every replay times them anew); elsewhere it is a span.
                    counters, ring append (two intervals a step)
 ``step.tower``     the ``tower_fn`` call
 ``step.flush``     the flush
-``moe.route``      router logits, top-k, dispatch and combine tensors
-                   and their casts (``models/moe.py``), once a layer
-``moe.experts``    the dispatch einsum, the three expert matmuls and the
-                   combine einsum, once a layer
+``moe.route``      router logits, top-k, then without a mesh each
+                   assignment's buffer row and gate (``index_routing``),
+                   with one the dense dispatch and combine tensors and
+                   their casts (``models/moe.py``), once a layer
+``moe.experts``    without a mesh the copy into the capacity buffer, the
+                   three batched expert matmuls and the weighted gather
+                   back; with one the dispatch einsum, the three expert
+                   einsums and the combine einsum; once a layer
 =================  ====================================================
 
 A phase's times are device ns after the event :func:`anchor` recorded
@@ -57,8 +61,9 @@ between its calls to keep that out of them.
 The recorder keeps no counters: what a compiled entry has captured is
 ``len(Compiled.graphs)``, kept whether or not the recorder is on (a
 graph more for one shape means a key changed, e.g. a state tensor
-moved), and the bytes a replay copies in and clones out are
-``CapturedGraph.load_bytes`` / ``clone_bytes``.
+moved), the bytes a replay copies in and clones out are
+``CapturedGraph.load_bytes`` / ``clone_bytes``, and the MoE block's runs
+by formulation are ``models.moe.ROUTES``.
 """
 from __future__ import annotations
 

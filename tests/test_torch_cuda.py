@@ -510,6 +510,56 @@ def test_lm_tower_cuda_backend_matches_torch_backend(cuda, dtype):
         T.user_tower_step(model, tokens.cpu(), cfg, backend="cuda")
 
 
+def test_indexed_moe_dispatch_is_the_dense_einsum_in_a_captured_graph(cuda):
+    """Granite's MoE block at its widths in bfloat16, one 512-token group
+    whose low experts overflow their capacity: the indexed dispatch buffer
+    is the dense einsum's (G, E, C, D) ``xe``, laid out expert-major, bit
+    for bit; ``moe_ffn`` without a mesh runs with host syncs refused and
+    is captured in a CUDA graph, and its replay agrees with the dense path
+    at bfloat16's tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    cfg = get_config("granite-moe-1b-a400m")
+    moe, D, Fw, T = cfg.moe, cfg.d_model, cfg.d_ff, 512
+    E, C = moe.n_experts, M.capacity_for(T, moe)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = M.init_moe_params(gen, D, Fw, moe, torch.bfloat16)
+    params["router"] += torch.linspace(2.0, 0.0, E, device=cuda) / D
+    x = (torch.randn(1, T, D, generator=gen, device=cuda) + 1.0
+         ).to(torch.bfloat16)
+
+    gates, idx, _ = M.top_k_gating(x.float() @ params["router"], moe.top_k)
+    dest, w = M.index_routing(idx, gates, E, C)
+    assert bool((dest == E * C).any())                   # drops
+    disp, comb = M.dispatch_combine_tensors(idx, gates, E, C)
+    xe = torch.einsum("gtec,gtd->gecd", disp.to(x.dtype), x)
+    want = xe.permute(1, 0, 2, 3).reshape(E, C, D)
+    got = M.indexed_dispatch(x, dest, E, C)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    y_dense = M.dense_experts(x, disp.to(x.dtype), comb.to(x.dtype),
+                              params)
+
+    n0 = M.ROUTES["indexed"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            M.moe_ffn(x, params, moe, T)                 # warm-up
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y, _ = M.moe_ffn(x, params, moe, T)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert M.ROUTES["indexed"] == n0 + 2
+    torch.testing.assert_close(y.float(), y_dense.float(), atol=5e-2,
+                               rtol=5e-2)
+
+
 # ------------------------------------------------------ per-query probe
 PERQUERY_EDGES = [  # (D, dtype, element offset of the values view): copy
     # units of 4, 8 and 16 bytes in float32, bfloat16 halves packed in

@@ -140,6 +140,117 @@ def test_slot_by_slot_dispatch_is_bit_exact_with_drops(k):
     assert float(td.sum()) < G * T * k            # slots were dropped
 
 
+def _favoured_routing(G, T, E, k):
+    """Distinct expert ids a token drawn with the low experts favoured (so
+    they overflow their capacity) and renormalised gates, as numpy."""
+    rng = np.random.default_rng(k)
+    favour = np.linspace(4.0, 1.0, E)
+    favour /= favour.sum()
+    ids = np.array([[rng.choice(E, k, replace=False, p=favour)
+                     for _ in range(T)] for _ in range(G)], np.int32)
+    gates = rng.random((G, T, k)).astype(np.float32)
+    return ids, gates / gates.sum(-1, keepdims=True)
+
+
+def _dense_from_index(dest, weights, G, T, E, C):
+    """``index_routing``'s rows and weights scattered into (G, T, E, C)
+    dispatch (1.0) and combine (the weight) tensors; the dump row's
+    assignments are left out."""
+    K = dest.shape[-1]
+    kept = dest < E * G * C
+    e, gc = dest // (G * C), dest % (G * C)
+    gg, tt = torch.meshgrid(torch.arange(G), torch.arange(T), indexing="ij")
+    gg, tt = (a[..., None].expand(G, T, K) for a in (gg, tt))
+    assert torch.equal(gc[kept] // C, gg[kept])      # its own group's rows
+    at = (gg[kept], tt[kept], e[kept], gc[kept] % C)
+    disp = torch.zeros(G, T, E, C).index_put_(at, torch.tensor(1.0))
+    comb = torch.zeros(G, T, E, C).index_put_(at, weights[kept])
+    return disp, comb
+
+
+@pytest.mark.parametrize("case", ["tied-2-80-8-4", "tied-3-100-16-2",
+                                  "tied-1-64-32-8", "favoured-k1",
+                                  "favoured-k2", "favoured-k8"])
+def test_index_routing_is_the_dense_dispatch_bit_for_bit(case):
+    """``index_routing``'s rows and weights, scattered into (G, T, E, C)
+    tensors, are the reference's ``dispatch_combine_tensors`` bit for bit
+    (the float32 words compared), capacity drops included: the tied
+    gating cases of ``test_gating_and_dispatch_match_reference`` and the
+    drop-heavy favoured-expert ones."""
+    kind, *dims = case.split("-")
+    if kind == "tied":
+        G, T, E, k = map(int, dims)
+        lg = _tied_logits(np.random.default_rng(G * 1000 + T), G, T, E)
+        jg, ji, _ = _j_gating(jnp.asarray(lg), k)
+        ids, gates = np.asarray(ji), np.asarray(jg)
+    else:
+        G, T, E, k = 2, 96, 16, int(dims[0][1:])
+        ids, gates = _favoured_routing(G, T, E, k)
+    C = JM.capacity_for(T, JMoE(E, k))
+    jd, jc = _j_dispatch(jnp.asarray(ids), jnp.asarray(gates), E, C)
+    dest, w = TM.index_routing(torch.as_tensor(ids).long(),
+                               torch.as_tensor(gates), E, C)
+    assert dest.shape == ids.shape and w.dtype == torch.float32
+    td, tc = _dense_from_index(dest, w, G, T, E, C)
+    for got, want, what in ((td, jd, "dispatch"), (tc, jc, "combine")):
+        assert_exact(got.numpy().view(np.int32),
+                     np.asarray(want).view(np.int32), what)
+    if T > 64:
+        assert bool((dest == E * G * C).any())        # slots were dropped
+
+
+def test_indexed_moe_ffn_holds_no_dense_tensor_and_matches_dense():
+    """``moe_ffn`` without a mesh (counted ``indexed``) at a shape that
+    drops slots: no op of the forward or the backward outputs G*T*E*C
+    elements or more (the dense path does), and its output, aux loss and
+    the router's and experts' gradients are the dense path's (a one-device
+    mesh) at the tower tolerances."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch.mesh import ModelMesh
+
+    class Sizes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.most = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    self.most = max(self.most, t.numel())
+            return out
+
+    G, T, D, Fw = 2, 96, 32, 48
+    cfg = TMoE(16, 4)
+    E, C = cfg.n_experts, TM.capacity_for(T, cfg)
+    gen = torch.Generator().manual_seed(3)
+    params = TM.init_moe_params(gen, D, Fw, cfg)
+    params["router"][:, :4] += 0.3              # the low experts overflow
+    x = torch.randn(G, T, D, generator=gen)
+    _, idx, _ = TM.top_k_gating(x @ params["router"], cfg.top_k)
+    assert bool((TM.slot_positions(idx, E) >= C).any())
+
+    mesh = ModelMesh((1, 1), ("data", "model"), ("cpu",))
+    runs = {}
+    for name, m in (("indexed", None), ("dense", mesh)):
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        n0 = TM.ROUTES[name]
+        with Sizes() as sizes:
+            y, aux = TM.moe_ffn(x, p, cfg, T, mesh=m)
+            (y.square().sum() + aux).backward()
+        assert TM.ROUTES[name] == n0 + 1
+        runs[name] = (sizes.most, y.detach(), aux.detach(),
+                      {k: v.grad for k, v in p.items()})
+    assert runs["indexed"][0] < G * T * E * C <= runs["dense"][0]
+    (_, y, aux, grads), (_, y_d, aux_d, grads_d) = (runs["indexed"],
+                                                    runs["dense"])
+    assert_float(y, y_d, "moe out")
+    assert_float(aux, aux_d, "aux")
+    for k in grads:
+        assert_float(grads[k], grads_d[k], f"grad {k}")
+
+
 @pytest.mark.parametrize("group_size", [512, 32], ids=["drops", "dropless"])
 @pytest.mark.parametrize("arch", MOE_LMS)
 def test_moe_ffn_matches_jax(arch, group_size, rng):

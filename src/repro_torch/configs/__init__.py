@@ -4,7 +4,9 @@ sets.
 Twin of ``repro/configs/__init__.py``: the dense LMs (TinyLlama-1.1B,
 Yi-6B, Llama-3-8B), the MoE LMs (Arctic-480B, Granite-MoE-1B-A400M), the
 GNN (GIN-TU) and the four recsys towers (Wide&Deep, SASRec, BST, MIND),
-with the 40 (arch, shape) cells of the reference's dry run.
+with the 40 (arch, shape) cells of the reference's dry run. The port's
+own archs (Moonlight-16B-A3B, ``configs/mla.py``) resolve by name but
+are not listed: ``list_archs()`` and ``all_cells()`` are the reference's.
 """
 from __future__ import annotations
 
@@ -27,6 +29,11 @@ _MODULES: Dict[str, str] = {
     "bst": "bst",
     "mind": "mind",
 }
+# archs the port runs and the reference has not: get_config resolves them,
+# list_archs() and all_cells() leave them out
+_PORT_ONLY: Dict[str, str] = {
+    "moonlight-16b-a3b": "moonlight_16b_a3b",
+}
 
 SHAPES_BY_FAMILY = {
     "lm": LM_SHAPES,
@@ -41,9 +48,11 @@ def list_archs() -> List[str]:
 
 def get_config(arch_id: str, smoke: bool = False
                ) -> Union[LMConfig, GNNConfig, RecsysConfig]:
-    if arch_id not in _MODULES:
-        raise ValueError(f"unknown arch {arch_id!r}; archs: {list_archs()}")
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    name = _MODULES.get(arch_id, _PORT_ONLY.get(arch_id))
+    if name is None:
+        raise ValueError(f"unknown arch {arch_id!r}; archs: {list_archs()}"
+                         f" and the port's {list(_PORT_ONLY)}")
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.SMOKE if smoke else mod.CONFIG
 
 

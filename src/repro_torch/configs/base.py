@@ -77,6 +77,19 @@ class MoEConfig:
     dense_residual: bool = False  # arctic: MoE in parallel with a dense FFN
     capacity_factor: float = 1.25
 
+    def gate(self, logits, params):
+        """Router logits (G, T, E) float32 -> (gates (G, T, k), expert ids
+        (G, T, k), probabilities (G, T, E) for the load-balance loss): the
+        softmax top-k (``models.moe.top_k_gating``)."""
+        from repro_torch.models.moe import top_k_gating
+
+        return top_k_gating(logits, self.top_k)
+
+    def shared(self, x, params):
+        """What every token of x (G, T, D) adds beside its routed experts'
+        output: nothing here."""
+        return None
+
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:

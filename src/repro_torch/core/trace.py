@@ -1,5 +1,5 @@
 """The program's span recorder: host spans of the compiled entry and
-phases of the serve step and of the MoE block.
+phases of the serve step, of the MoE block and of latent attention.
 
 Process-wide and off by default: :func:`enable`, :func:`disable`,
 :func:`drain`. Every instrumented point first tests the module's ``on``
@@ -39,7 +39,8 @@ nodes, so every replay times them anew); elsewhere it is a span.
                    counters, ring append (two intervals a step)
 ``step.tower``     the ``tower_fn`` call
 ``step.flush``     the flush
-``moe.route``      router logits, top-k, then without a mesh each
+``moe.route``      router logits, top-k (softmax, or sigmoid with the
+                   selection bias), then without a mesh each
                    assignment's buffer row and gate (``index_routing``),
                    with one the dense dispatch and combine tensors and
                    their casts (``models/moe.py``), once a layer
@@ -47,6 +48,13 @@ nodes, so every replay times them anew); elsewhere it is a span.
                    three batched expert matmuls and the weighted gather
                    back; with one the dispatch einsum, the three expert
                    einsums and the combine einsum; once a layer
+``moe.shared``     the shared experts' SwiGLU over every token (a
+                   ``DeepSeekMoEConfig``'s ``shared``), once an MoE
+                   layer
+``mla.project``    multi-head latent attention's q, kv_a, latent norm,
+                   kv_b, RoPE and the concatenation into q and k
+                   (``models/transformer.py``, an ``MLAConfig``), once a
+                   layer
 =================  ====================================================
 
 A phase's times are device ns after the event :func:`anchor` recorded

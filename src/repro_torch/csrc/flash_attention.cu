@@ -7,8 +7,10 @@
 //
 // Contract (repro_torch/kernels/ref.py:flash_attention_ref and the Pallas
 // kernel): q (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd), float32 or
-// bfloat16; query head h reads KV head h / n_rep; q is scaled by hd^-0.5 in
-// float32 before the QK^T product; masked scores are -1e30; with `causal`
+// bfloat16 (and, the port's own, bfloat16 v of width hd_v = 128 under q and
+// k of hd = 192: MLA); query head h reads KV head h / n_rep; q is scaled by
+// hd^-0.5 (q's width) in float32 before the QK^T product; the output is
+// (B, Sq, Hq, hd_v); masked scores are -1e30; with `causal`
 // the key at position j is visible to the query at position i + q_offset
 // iff j <= i + q_offset, and KV tiles wholly above the diagonal are
 // skipped; the softmax state (m, l, acc) is float32; the output is
@@ -19,7 +21,11 @@
 // bf16, causal) that is 8.25e11 operations against ~0.9 GB of q, k, v and
 // output: about 900 operations per byte, so compute bounds it (0.83 ms at
 // the tensor cores' 989 TFLOP/s bf16 rate; 12 ms at the CUDA cores' 67
-// TFLOP/s float32 rate).
+// TFLOP/s float32 rate). MLA's (192, 128) body at the Moonlight tower's
+// shape (B=6, S=8192, 16 heads, each with its own 192-wide key, causal):
+// 2 * B * Hq * (192 + 128) = 61,440 operations a visible pair, 2.06e12 over
+// 33.6M pairs a head, against 1.0 GB of q, k, v and output: compute bound,
+// 2.09 ms at 989 TFLOP/s.
 //
 // Two bodies, chosen by dtype and head width (a dispatch, not a fallback):
 //
@@ -53,6 +59,12 @@
 // is waited for before its registers are used (no producer warp, no TMA,
 // no overlap of softmax with the next product inside a warpgroup: the
 // FA-3 schedule is later work); CTAs on one SM overlap each other.
+// fa_wgmma_kernel_qv<192, 128> runs the same body at separate widths (MLA):
+// S = Q K^T takes 12 k-steps of m64n64k16 over 192-wide Q and K tiles,
+// acc += P V one m64n128k16 per 16 keys over 128-wide V tiles, the output
+// 128 wide; shared memory holds Q (24 KB), two K stages (48 KB) and two V
+// stages (32 KB), 105 KB with the alignment, so two CTAs share an SM. A v
+// zero-padded to 192 would spend half as many P.V operations again.
 //
 // fa_kernel: float32 (where TF32 would break the 2e-5 bar against the
 // reference) and bfloat16 at hd 8 (below the mma depth of 16), on the CUDA
@@ -259,10 +271,16 @@ struct TC {
   static constexpr int kTile = kBKTC * HD;        // elements of a K/V tile
   static constexpr uint64_t kSwizzle = AW == 64 ? 1 : 3;  // 128 B : 32 B
   static constexpr uint32_t kGroup = 8 * AW * 2;  // bytes of 8 atom rows
-  static constexpr size_t kSmem =  // + 1024 to align the tiles to 1024 B
-      1024 + sizeof(bf16) * ((size_t)kBQTC * HD + 2 * kStages * kTile);
   static_assert(AW == 64 || AW == 16, "bad width");
 };
+
+// Dynamic shared memory of the body at widths (HQK, HV): the Q tile, then
+// kStages K tiles and kStages V tiles; + 1024 to align the tiles to 1024 B.
+template <int HQK, int HV>
+constexpr size_t tc_smem_bytes() {
+  return 1024 + sizeof(bf16) * ((size_t)kBQTC * HQK +
+                                (size_t)kStages * kBKTC * (HQK + HV));
+}
 
 // Element offset of 16-byte chunk c (of HD / 8) of row r in a tile of
 // `rows` rows: the chunk index within its atom row XORed with row bits, as
@@ -436,19 +454,22 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreadsTC)
-    fa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out, int B,
-                    int Sq, int Sk, int Hq, int Hkv, int causal, int q_offset,
-                    float scale_log2) {
-  using C = TC<HD>;
-  constexpr int NT = C::NT, DT = C::DT, AW = C::AW;
+// The tensor-core body at q and k width HQK and v width HV: the kernels
+// below are this body at (HD, HD) and at MLA's (192, 128).
+template <int HQK, int HV>
+__device__ __forceinline__ void fa_wgmma_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ out, int B, int Sq, int Sk,
+    int Hq, int Hkv, int causal, int q_offset, float scale_log2) {
+  using CK = TC<HQK>;
+  using CV = TC<HV>;
+  static_assert(CK::AW == CV::AW, "q, k and v tiles share one atom width");
+  constexpr int NT = CK::NT, DT = CV::DT, AW = CK::AW;
   extern __shared__ uint8_t smem_tc[];
   bf16* Qs = reinterpret_cast<bf16*>(
       (reinterpret_cast<uintptr_t>(smem_tc) + 1023) & ~uintptr_t(1023));
-  bf16* Ks = Qs + kBQTC * HD;  // [kStages] K tiles, then [kStages] V tiles
-  bf16* Vs = Ks + kStages * C::kTile;
+  bf16* Ks = Qs + kBQTC * HQK;  // [kStages] K tiles, then [kStages] V tiles
+  bf16* Vs = Ks + kStages * CK::kTile;
 
   // linear launch order: q tile slowest (longest first), head fastest
   const int nq = (Sq + kBQTC - 1) / kBQTC;
@@ -463,14 +484,15 @@ __global__ void __launch_bounds__(kThreadsTC)
   if (causal) k_end = min(Sk, min(q0 + kBQTC, Sq) + q_offset);
   const int n_tiles = (k_end + kBKTC - 1) / kBKTC;
 
-  const size_t q_stride = (size_t)Hq * HD, kv_stride = (size_t)Hkv * HD;
-  const bf16* qg = q + ((size_t)b * Sq + q0) * q_stride + (size_t)h * HD;
-  const bf16* kg = k + (size_t)b * Sk * kv_stride + (size_t)kvh * HD;
-  const bf16* vg = v + (size_t)b * Sk * kv_stride + (size_t)kvh * HD;
+  const size_t q_stride = (size_t)Hq * HQK, k_stride = (size_t)Hkv * HQK;
+  const size_t v_stride = (size_t)Hkv * HV, o_stride = (size_t)Hq * HV;
+  const bf16* qg = q + ((size_t)b * Sq + q0) * q_stride + (size_t)h * HQK;
+  const bf16* kg = k + (size_t)b * Sk * k_stride + (size_t)kvh * HQK;
+  const bf16* vg = v + (size_t)b * Sk * v_stride + (size_t)kvh * HV;
 
-  load_rows<HD, kBQTC>(Qs, qg, q_stride, Sq - q0);
-  load_rows<HD, kBKTC>(Ks, kg, kv_stride, min(kBKTC, k_end));
-  load_rows<HD, kBKTC>(Vs, vg, kv_stride, min(kBKTC, k_end));
+  load_rows<HQK, kBQTC>(Qs, qg, q_stride, Sq - q0);
+  load_rows<HQK, kBKTC>(Ks, kg, k_stride, min(kBKTC, k_end));
+  load_rows<HV, kBKTC>(Vs, vg, v_stride, min(kBKTC, k_end));
   cp_async_commit();
 
   const int w0 = q0 + warp * 16;  // this warp's first row
@@ -484,10 +506,10 @@ __global__ void __launch_bounds__(kThreadsTC)
     const int k0 = t * kBKTC;
     if (t + 1 < n_tiles) {  // the next tile's copies fly during this one
       const int st = (t + 1) % kStages, k1 = k0 + kBKTC;
-      load_rows<HD, kBKTC>(Ks + st * C::kTile, kg + (size_t)k1 * kv_stride,
-                           kv_stride, min(kBKTC, k_end - k1));
-      load_rows<HD, kBKTC>(Vs + st * C::kTile, vg + (size_t)k1 * kv_stride,
-                           kv_stride, min(kBKTC, k_end - k1));
+      load_rows<HQK, kBKTC>(Ks + st * CK::kTile, kg + (size_t)k1 * k_stride,
+                            k_stride, min(kBKTC, k_end - k1));
+      load_rows<HV, kBKTC>(Vs + st * CV::kTile, vg + (size_t)k1 * v_stride,
+                           v_stride, min(kBKTC, k_end - k1));
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -495,17 +517,17 @@ __global__ void __launch_bounds__(kThreadsTC)
     }
     fence_proxy_async();
     __syncthreads();
-    const bf16* Kt = Ks + (t % kStages) * C::kTile;
-    const bf16* Vt = Vs + (t % kStages) * C::kTile;
+    const bf16* Kt = Ks + (t % kStages) * CK::kTile;
+    const bf16* Vt = Vs + (t % kStages) * CV::kTile;
 
     // S = Q K^T over the head dim, 16 at a time (within an atom row: +32 B)
     float s[NT * 4];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < HQK / 16; ++kk) {
       const int a = kk * 16 / AW, e = kk * 16 % AW;
-      wgmma_ss(s, sdesc<HD>(Qs + a * kBQTC * AW + e, 16, C::kGroup),
-               sdesc<HD>(Kt + a * kBKTC * AW + e, 16, C::kGroup), kk > 0);
+      wgmma_ss(s, sdesc<HQK>(Qs + a * kBQTC * AW + e, 16, CK::kGroup),
+               sdesc<HQK>(Kt + a * kBKTC * AW + e, 16, CK::kGroup), kk > 0);
     }
     wgmma_commit();
     wgmma_wait();
@@ -565,8 +587,8 @@ __global__ void __launch_bounds__(kThreadsTC)
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < NT / 2; ++kc)
-      wgmma_rs(o, pa[kc], sdesc<HD>(Vt + kc * 16 * AW, kBKTC * AW * 2,
-                                    C::kGroup));
+      wgmma_rs(o, pa[kc], sdesc<HV>(Vt + kc * 16 * AW, kBKTC * AW * 2,
+                                    CV::kGroup));
     wgmma_commit();
     wgmma_wait();
     pin(o);
@@ -585,38 +607,67 @@ __global__ void __launch_bounds__(kThreadsTC)
 #pragma unroll
     for (int d = 0; d < DT; ++d)
       *reinterpret_cast<uint32_t*>(
-          Qs + soff<HD>(kBQTC, warp * 16 + g + 8 * r, d) + 2 * t4) =
+          Qs + soff<HV>(kBQTC, warp * 16 + g + 8 * r, d) + 2 * t4) =
           pack_bf16(o[4 * d + 2 * r] / denom, o[4 * d + 2 * r + 1] / denom);
   }
   __syncwarp();
-  bf16* og = out + ((size_t)b * Sq + w0) * q_stride + (size_t)h * HD;
+  bf16* og = out + ((size_t)b * Sq + w0) * o_stride + (size_t)h * HV;
 #pragma unroll
   for (int e = lane; e < 16 * DT; e += 32) {
     const int r = e / DT, c = e % DT;
     if (w0 + r < Sq)
-      *reinterpret_cast<uint4*>(og + r * q_stride + c * 8) =
+      *reinterpret_cast<uint4*>(og + r * o_stride + c * 8) =
           *reinterpret_cast<const uint4*>(
-              Qs + soff<HD>(kBQTC, warp * 16 + r, c));
+              Qs + soff<HV>(kBQTC, warp * 16 + r, c));
   }
 }
 
 template <int HD>
+__global__ void __launch_bounds__(kThreadsTC)
+    fa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out, int B,
+                    int Sq, int Sk, int Hq, int Hkv, int causal, int q_offset,
+                    float scale_log2) {
+  fa_wgmma_body<HD, HD>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, q_offset,
+                        scale_log2);
+}
+
+template <int HQK, int HV>
+__global__ void __launch_bounds__(kThreadsTC)
+    fa_wgmma_kernel_qv(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                       int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                       int q_offset, float scale_log2) {
+  fa_wgmma_body<HQK, HV>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, q_offset,
+                         scale_log2);
+}
+
+// The kernel of widths (HQK, HV): fa_wgmma_kernel<HD> where they are one.
+template <int HQK, int HV>
+auto wgmma_kernel() {
+  if constexpr (HQK == HV)
+    return &fa_wgmma_kernel<HQK>;
+  else
+    return &fa_wgmma_kernel_qv<HQK, HV>;
+}
+
+template <int HQK, int HV = HQK>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
               int Sq, int Sk, int Hq, int Hkv, int causal, int q_offset,
               float scale, cudaStream_t stream) {
-  using C = TC<HD>;
+  constexpr size_t kSmem = tc_smem_bytes<HQK, HV>();
+  const auto kernel = wgmma_kernel<HQK, HV>();
   static bool attr_set = false;  // above 48 KB only as opted-in dynamic smem
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fa_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)C::kSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const long long ctas =
       (long long)((Sq + kBQTC - 1) / kBQTC) * Hq * (long long)B;
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  fa_wgmma_kernel<HD><<<(unsigned)ctas, kThreadsTC, C::kSmem, stream>>>(
+  kernel<<<(unsigned)ctas, kThreadsTC, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), B, Sq, Sk, Hq,
       Hkv, causal, q_offset, scale * kLog2e);
@@ -646,8 +697,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* out,
-                int B, int Sq, int Sk, int Hq, int Hkv, int hd, int causal,
-                int q_offset, float scale, cudaStream_t s) {
+                int B, int Sq, int Sk, int Hq, int Hkv, int hd, int hd_v,
+                int causal, int q_offset, float scale, cudaStream_t s) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (hd == 192 && hd_v == 128)  // MLA: the tensor cores at two widths
+      return launch_tc<192, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                                 q_offset, scale, s);
+  }
+  if (hd_v != hd) return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     switch (hd) {  // the tensor cores; hd 8 is below the mma depth of 16
       case 8:
@@ -689,21 +746,23 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// dtype_code: 0 = float32, 1 = bfloat16. q, k, v and out contiguous.
+// dtype_code: 0 = float32, 1 = bfloat16. q, k, v and out contiguous; hd
+// the width of q and k, hd_v that of v and out.
 int ercache_flash_attention(const void* q, const void* k, const void* v,
                             void* out, int B, int Sq, int Sk, int Hq,
-                            int Hkv, int hd, int causal, int q_offset,
-                            float scale, int dtype_code, void* stream) {
+                            int Hkv, int hd, int hd_v, int causal,
+                            int q_offset, float scale, int dtype_code,
+                            void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
     case 0:
-      return dispatch_hd<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, hd, causal,
-                                q_offset, scale, s);
+      return dispatch_hd<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, hd, hd_v,
+                                causal, q_offset, scale, s);
     case 1:
       return dispatch_hd<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, hd,
-                                        causal, q_offset, scale, s);
+                                        hd_v, causal, q_offset, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -98,9 +98,10 @@ def embedding_bag_ref(table, ids, mode: str = "sum"):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
-    """q (B, Sq, Hq, hd); k, v (B, Sk, Hkv, hd); GQA by head repetition
-    (query head h reads KV head h // n_rep). float32 scores and softmax,
-    masked scores -1e30, output in q's dtype.
+    """q (B, Sq, Hq, hd); k (B, Sk, Hkv, hd), v (B, Sk, Hkv, hd_v) with
+    hd_v <= hd -> (B, Sq, Hq, hd_v); GQA by head repetition (query head h
+    reads KV head h // n_rep). float32 scores scaled by hd ** -0.5 and
+    softmax, masked scores -1e30, output in q's dtype.
 
     Computed one batch row at a time so that no (B, Hq, Sq, Sk) score
     tensor exists at once (25.8 GB at the LM tower's B=48, 32 heads,
@@ -111,7 +112,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
     scale = hd ** -0.5
     keep = (torch.arange(Sk, device=q.device)[None, :]
             <= torch.arange(Sq, device=q.device)[:, None] + q_offset)
-    out = torch.empty_like(q)
+    out = q.new_empty(q.shape[:3] + v.shape[3:])
     for b in range(B):
         kr = k[b].repeat_interleave(n_rep, dim=1).to(torch.float32)
         vr = v[b].repeat_interleave(n_rep, dim=1).to(torch.float32)

@@ -10,6 +10,10 @@ three interchangeable implementations, picked by :func:`attention`:
                      (``kernels/flash_attention.py``) on CUDA tensors, its
                      plain version on CPU tensors.
 
+Each gives the output v's width, which may be narrower than q's and k's
+(MLA's 192-wide scores over 128-wide values); scores are scaled by q's
+width ** -0.5.
+
 As in the reference, every shape with ``Sq * Sk <= 2**20`` takes the naive
 path whatever the implementation asked for.
 """
@@ -66,6 +70,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
 
 
+def deinterleave(x: torch.Tensor) -> torch.Tensor:
+    """(..., d) -> (..., d): the even dims, then the odd ones. DeepSeek's
+    RoPE rotates the interleaved pairs (x[2i], x[2i+1]) by frequency i; after
+    this permutation that is :func:`apply_rope`'s rotation of the halves,
+    and the output stays in the halves' order, as the published code's."""
+    return x.unflatten(-1, (x.shape[-1] // 2, 2)).transpose(-1, -2).flatten(-2)
+
+
 # -------------------------------------------------------------------- init
 def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
@@ -118,7 +130,8 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     q_pos = torch.arange(Sq, device=q.device) + q_offset
     m = torch.full((B, Hq, Sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Hq, Sq, hd), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hq, Sq, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
     for k0 in range(0, Sk, kv_chunk):
         kc = repeat_kv(k[:, k0:k0 + kv_chunk], n_rep).to(torch.float32)
         vc = repeat_kv(v[:, k0:k0 + kv_chunk], n_rep).to(torch.float32)

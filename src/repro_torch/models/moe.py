@@ -28,11 +28,21 @@ Two formulations of one routing, chosen by whether ``moe_ffn`` has a mesh:
 
 The two give the same dispatch bit for bit (the dense einsum adds 1.0 * x
 to zeros); the combine's K-term sum may run in another order.
+
+The config chooses the gate and what every token adds beside its routed
+experts (``MoEConfig.gate`` / ``.shared``): the reference's softmax top-k
+and nothing; the port's DeepSeek-V3 block
+(:class:`~repro_torch.configs.mla.DeepSeekMoEConfig`, no counterpart in the
+reference) routes on sigmoid scores instead (:func:`sigmoid_gating`:
+experts chosen on the scores plus the layer's selection bias, weighted by
+the unbiased scores), over the same dispatch, and adds its shared experts'
+SwiGLU (``params["shared_*"]``); a gate that gives no probabilities keeps
+no load-balance loss (the port serves that block, it does not train it).
 """
 from __future__ import annotations
 
 import collections
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,6 +85,24 @@ def top_k_gating(logits: torch.Tensor, k: int
     vals = probs.gather(-1, idx)
     vals = vals / vals.sum(dim=-1, keepdim=True).clamp(min=1e-9)
     return vals, idx, probs
+
+
+def sigmoid_gating(logits: torch.Tensor, bias: torch.Tensor, cfg: MoEConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's ``noaux_tc`` router with one group: logits (G, T, E)
+    -> (weights (G, T, k), expert ids (G, T, k) int64, scores (G, T, E)),
+    all float32. The experts are the top k of ``sigmoid(logits) + bias``
+    by a stable descending sort (ties to the lower id, slot 0 the highest,
+    as :func:`top_k_gating`); their weights are their scores WITHOUT the
+    bias, divided by their sum (+ 1e-20) when ``norm_topk_prob`` and k >
+    1, times ``routed_scale``."""
+    scores = torch.sigmoid(logits.to(torch.float32))
+    idx = torch.sort((scores + bias.to(torch.float32)).detach(), dim=-1,
+                     descending=True, stable=True).indices[..., :cfg.top_k]
+    w = scores.gather(-1, idx)
+    if cfg.norm_topk_prob and cfg.top_k > 1:
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+    return w * cfg.routed_scale, idx, scores
 
 
 def dispatch_combine_tensors(idx: torch.Tensor, gates: torch.Tensor,
@@ -179,10 +207,13 @@ def dense_experts(xg: torch.Tensor, disp: torch.Tensor, comb: torch.Tensor,
 
 def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor],
             cfg: MoEConfig, group_size: int = 512, mesh=None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (same, float32 aux loss scalar).
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x (B, S, D) -> (same, float32 aux loss scalar; None where the
+    config's gate gives no probabilities).
 
-    params: router (D, E) float32; wg / wu (E, D, F); wd (E, F, D).
+    params: router (D, E) float32; wg / wu (E, D, F); wd (E, F, D); for a
+    ``DeepSeekMoEConfig`` also bias (E,) float32 and shared_wg / shared_wu
+    (D, Fs), shared_wd (Fs, D).
     ``mesh`` None routes by index; a ModelMesh takes the dense path (module
     docstring), its dispatch and combine tensors' experts constrained to
     the expert axis, the layout GSPMD gives them from the expert weights,
@@ -199,7 +230,7 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor],
         trace.begin("moe.route", x.device)
     logits = torch.einsum("gtd,de->gte", xg.to(torch.float32),
                           params["router"].to(torch.float32))
-    gates, idx, probs = top_k_gating(logits, cfg.top_k)
+    gates, idx, probs = cfg.gate(logits, params)
     if mesh is None:
         ROUTES["indexed"] += 1
         dest, weights = index_routing(idx, gates, cfg.n_experts, C)
@@ -221,6 +252,11 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor],
         y = dense_experts(xg, disp, comb, params)
     if trace.on:
         trace.end("moe.experts")
+    shared = cfg.shared(xg, params)
+    if shared is not None:
+        y = y + shared
+    if probs is None:
+        return y.reshape(B, S, D), None
 
     # GShard load-balance loss: E * sum_e f_e * P_e, f_e from slot 0
     me = probs.mean(dim=(0, 1))                            # (E,)

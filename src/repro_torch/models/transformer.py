@@ -28,6 +28,17 @@ step attends through the hand-written ``decode_attention`` kernel
 runs the plain versions (``backend="torch"``): the hand kernels have no
 backward.
 
+A :class:`~repro_torch.configs.mla.MLAConfig` (the port's DeepSeek-V3
+block, no counterpart in the reference; Moonlight-16B-A3B) is an
+:class:`MLATower` whose leading dense layers and MoE layers are two stacks
+with their own leaves: each layer attends with multi-head latent attention
+(:func:`_mla_attention`: the two-stage kv projection, the latent norm,
+interleaved RoPE on a 64-wide part of q and one shared key, 192-wide
+scores over 128-wide values through ``layers.attention``), then a dense
+SwiGLU or ``moe.moe_ffn``'s sigmoid-routed experts with shared ones. It
+runs as a user tower only (:func:`user_tower_step`, no mesh):
+:func:`prefill_step`, :func:`decode_step` and :func:`lm_loss` refuse it.
+
 Each entry point takes the reference's ``mesh=`` (a
 ``launch.mesh.ModelMesh``): the logical-axis constraints are checked at
 the reference's points (``sharding.constrain``, which changes no value),
@@ -48,6 +59,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.configs.mla import MLAConfig
+from repro_torch.core import trace
 from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import constrain
@@ -162,6 +175,97 @@ class LMTower(nn.Module):
     @property
     def layers(self) -> List[LayerView]:
         return [LayerView(self.stack, i) for i in range(self.n_layers)]
+
+
+# ---------------------------------------------------- MLA tower (port's)
+MLA_TOP_KEYS = ("embed", "final_norm", "user_head")
+
+
+def mla_layer_shapes(cfg: MLAConfig, moe: bool
+                     ) -> Dict[str, Tuple[tuple, bool]]:
+    """name -> (shape without the layer axis, held in float32) of a dense
+    (``moe=False``) or an MoE layer of an :class:`MLAConfig`; every other
+    leaf is in ``cfg.dtype``."""
+    D, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    shapes = {
+        "attn_norm": ((D,), False),
+        "wq": ((D, H * cfg.qk_head_dim), False),
+        "wkv_a": ((D, r + cfg.qk_rope_head_dim), False),
+        "kv_norm": ((r,), False),
+        "wkv_b": ((r, H * (cfg.qk_nope_head_dim + cfg.v_head_dim)), False),
+        "wo": ((H * cfg.v_head_dim, D), False),
+        "ffn_norm": ((D,), False),
+    }
+    if not moe:
+        F = cfg.d_ff
+        shapes.update({"wg": ((D, F), False), "wu": ((D, F), False),
+                       "wd": ((F, D), False)})
+        return shapes
+    m = cfg.moe
+    E, Fe, Fs = m.n_experts, m.d_expert, m.d_shared
+    shapes.update({"router": ((D, E), True),
+                   "router_bias": ((E,), True),
+                   "moe_wg": ((E, D, Fe), False),
+                   "moe_wu": ((E, D, Fe), False),
+                   "moe_wd": ((E, Fe, D), False),
+                   "shared_wg": ((D, Fs), False),
+                   "shared_wu": ((D, Fs), False),
+                   "shared_wd": ((Fs, D), False)})
+    return shapes
+
+
+class MLATower(nn.Module):
+    """Embedding, the leading dense layers (``dense_stack``,
+    ``first_k_dense`` of them), the MoE layers (``moe_stack``), final norm
+    and user head of an :class:`MLAConfig`: a user tower, with no
+    unembedding. Frozen."""
+
+    def __init__(self, cfg: MLAConfig, device=None):
+        super().__init__()
+        dt = _dtype(cfg)
+        self.n_dense, self.n_moe = cfg.first_k_dense, cfg.n_moe_layers
+        self.embed = _param((cfg.vocab, cfg.d_model), dt, device)
+
+        def stack(n, moe):
+            return nn.ParameterDict({
+                name: _param((n,) + shape, torch.float32 if f32 else dt,
+                             device)
+                for name, (shape, f32) in mla_layer_shapes(cfg,
+                                                           moe).items()})
+
+        self.dense_stack = stack(self.n_dense, False)
+        self.moe_stack = stack(self.n_moe, True)
+        self.final_norm = _param((cfg.d_model,), dt, device)
+        self.user_head = _param((cfg.d_model, cfg.user_embed_dim), dt, device)
+
+
+def mla_tower_from(cfg: MLAConfig, tree: Dict) -> MLATower:
+    """The tower over the tensors of ``tree`` (``MLA_TOP_KEYS`` and
+    ``"dense"`` / ``"moe"``: stacked layer leaves), bound as frozen
+    Parameters with no copy; each must have the leaf's shape and dtype."""
+    model = MLATower(cfg, device="meta")
+
+    def bind(owner, name, t):
+        want = owner[name] if isinstance(owner, nn.ParameterDict) \
+            else getattr(owner, name)
+        if t.shape != want.shape or t.dtype != want.dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, the tower "
+                             f"holds {tuple(want.shape)} {want.dtype}")
+        p = nn.Parameter(t, requires_grad=False)
+        if isinstance(owner, nn.ParameterDict):
+            owner[name] = p
+        else:
+            setattr(owner, name, p)
+
+    for name in MLA_TOP_KEYS:
+        bind(model, name, tree[name])
+    for key, stack in (("dense", model.dense_stack), ("moe", model.moe_stack)):
+        if set(tree[key]) != set(stack):
+            raise ValueError(f"{key} leaves {sorted(tree[key])}, the tower "
+                             f"holds {sorted(stack)}")
+        for name, t in tree[key].items():
+            bind(stack, name, t)
+    return model
 
 
 def param_tree(model: LMTower) -> Dict:
@@ -306,12 +410,83 @@ def _layer_apply(lp, x, cos, sin, cfg: LMConfig, backend: str,
     return constrain(x + f, ("batch", "seq", "embed"), "lm", mesh), aux
 
 
-def _layer_views(params) -> List[Dict[str, torch.Tensor]]:
+def _stack_views(stack, n: int) -> List[Dict[str, torch.Tensor]]:
     """Per layer, ``{name: stacked[name][i]}`` from one ``unbind`` a
     leaf (its backward stacks the L grads in one go)."""
-    views = {n: torch.unbind(p) for n, p in params.stack.items()}
-    return [{n: v[i] for n, v in views.items()}
-            for i in range(params.n_layers)]
+    views = {name: torch.unbind(p) for name, p in stack.items()}
+    return [{name: v[i] for name, v in views.items()} for i in range(n)]
+
+
+def _layer_views(params) -> List[Dict[str, torch.Tensor]]:
+    return _stack_views(params.stack, params.n_layers)
+
+
+def _mla_attention(lp, x, cos, sin, cfg: MLAConfig, backend: str):
+    """x + MLA(norm(x)) over x (B, T, D) (module docstring; the
+    ``mla.project`` phase brackets the projections, the latent norm, RoPE
+    and the concatenation). q = [q_nope, RoPE(q_pe)] and k = [k_nope,
+    RoPE(k_pe) broadcast over the heads] are ``qk_head_dim`` wide, v
+    ``v_head_dim``; RoPE rotates DeepSeek's interleaved pairs."""
+    B, T, _ = x.shape
+    H, dn, dr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dv, r = cfg.v_head_dim, cfg.kv_lora_rank
+    if trace.on:
+        trace.begin("mla.project", x.device)
+    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = (h @ lp["wq"]).view(B, T, H, dn + dr)
+    c, k_pe = (h @ lp["wkv_a"]).split([r, dr], dim=-1)
+    kv = (L.rms_norm(c, lp["kv_norm"], cfg.norm_eps) @ lp["wkv_b"]).view(
+        B, T, H, dn + dv)
+    k_nope, v = kv.split([dn, dv], dim=-1)
+    q_pe = L.apply_rope(L.deinterleave(q[..., dn:]), cos, sin)
+    k_pe = L.apply_rope(L.deinterleave(k_pe.view(B, T, 1, dr)), cos, sin)
+    q = torch.cat([q[..., :dn], q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe.expand(B, T, H, dr)], dim=-1)
+    v = v.contiguous()
+    if trace.on:
+        trace.end("mla.project")
+    o = L.attention(q, k, v, causal=True, impl=cfg.attn_impl,
+                    kv_chunk=cfg.kv_chunk, backend=backend)
+    return x + o.reshape(B, T, H * dv) @ lp["wo"]
+
+
+def _mla_ffn(lp, x, cfg: MLAConfig, moe: bool):
+    """x + FFN(norm(x)): the dense SwiGLU, or the sigmoid-routed experts
+    with the shared ones (``moe.moe_ffn``)."""
+    h = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    if not moe:
+        return x + L.swiglu(h, lp["wg"], lp["wu"], lp["wd"])
+    f, _ = moe_lib.moe_ffn(
+        h, {"router": lp["router"], "bias": lp["router_bias"],
+            "wg": lp["moe_wg"], "wu": lp["moe_wu"], "wd": lp["moe_wd"],
+            "shared_wg": lp["shared_wg"], "shared_wu": lp["shared_wu"],
+            "shared_wd": lp["shared_wd"]},
+        cfg.moe, group_size=cfg.moe_group_size)
+    return x + f
+
+
+def _forward_mla(params: MLATower, tokens: torch.Tensor, cfg: MLAConfig,
+                 backend: str) -> torch.Tensor:
+    """The dense layers, then the MoE layers, over tokens (B, S) -> the
+    final hidden (B, S, D)."""
+    x = _embed_tokens(params, tokens)
+    cos, sin = L.rope_tables(torch.arange(tokens.shape[1],
+                                          device=tokens.device),
+                             cfg.qk_rope_head_dim, cfg.rope_theta)
+    for stack, n, moe in ((params.dense_stack, params.n_dense, False),
+                          (params.moe_stack, params.n_moe, True)):
+        for lp in _stack_views(stack, n):
+            x = _mla_attention(lp, x, cos, sin, cfg, backend)
+            x = _mla_ffn(lp, x, cfg, moe)
+    return L.rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+def _refuse_mla(cfg: LMConfig, what: str) -> None:
+    if isinstance(cfg, MLAConfig):
+        raise ValueError(
+            f"{what}: {cfg.arch_id} attends with multi-head latent attention "
+            "(MLA), which the port runs as a user tower only "
+            "(user_tower_step): it has no latent KV cache and no logits")
 
 
 def _embed_tokens(params: LMTower, tokens: torch.Tensor) -> torch.Tensor:
@@ -357,6 +532,11 @@ def forward_hidden(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
     ``(x, (k, v))``, k and v the stacked (L, B, S, Hkv, hd) post-RoPE keys
     and values (the reference returns them beside its MoE aux loss, which
     :func:`lm_loss` reads)."""
+    if isinstance(cfg, MLAConfig):
+        if collect_kv or mesh is not None:
+            raise ValueError(f"{cfg.arch_id}: an MLA tower runs without a "
+                             "mesh and collects no KV")
+        return _forward_mla(params, tokens, cfg, backend)
     if not collect_kv:
         return _forward(params, tokens, cfg, backend, mesh=mesh)[0]
     kv = _kv_buffers(cfg, tokens.shape[0], tokens.shape[1], tokens.device,
@@ -404,6 +584,7 @@ def lm_loss(params: LMTower, tokens: torch.Tensor, labels: torch.Tensor,
     labels -1 are masked. Returns (loss, {"ce", "aux"}). The default
     ``backend="torch"`` runs the plain attention, which autograd
     differentiates."""
+    _refuse_mla(cfg, "lm_loss")
     x, aux = _forward(params, tokens, cfg, backend, mesh=mesh)
     logits = logits_from_hidden(params, x).to(torch.float32)
     mask = (labels >= 0).to(torch.float32)
@@ -524,6 +705,7 @@ def prefill_step(params: LMTower, tokens: torch.Tensor, cfg: LMConfig,
     KVCache of length S). The cache holds ``max_seq`` positions (default
     S; the rest zeros, as the reference's padded cache), written layer by
     layer during the forward."""
+    _refuse_mla(cfg, "prefill_step")
     _check_backend(backend, tokens, params.embed)
     B, S = tokens.shape
     max_seq = S if max_seq is None else max_seq
@@ -561,6 +743,7 @@ def decode_step(params: LMTower, cache: KVCache, tokens: torch.Tensor,
     ``decode_attention_partials`` launch a shard on the cuda backend)."""
     from repro_torch.kernels.decode_attention import decode_attention
 
+    _refuse_mla(cfg, "decode_step")
     _check_backend(backend, tokens, params.embed, cache.k, cache.v,
                    cache.length)
     B = tokens.shape[0]

@@ -481,6 +481,107 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     assert fa.LAUNCHES["flash_attention"] == n0
 
 
+MLA_FLASH = [  # (B, Sq, Sk, Hq, Hkv, causal, q_offset) at q/k 192, v 128
+    (6, 8192, 8192, 16, 16, True, 0),     # a moonlight.b8 tower call
+    (2, 100, 100, 4, 4, True, 0),
+    (2, 128, 384, 8, 2, True, 256),
+    (1, 256, 256, 4, 4, False, 0),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,causal,q_offset", MLA_FLASH)
+def test_flash_attention_at_mla_widths_matches_plain(cuda, b, sq, sk, hq,
+                                                     hkv, causal, q_offset):
+    """``fa_wgmma_kernel_qv<192, 128>`` against the plain version in
+    bfloat16, by :func:`assert_attention_close`'s rule: one launch, the
+    output v's 128 wide; float32 and other width pairs refused. At the
+    cell's shape it prints its device time a launch (CUDA events over 5
+    launches after one), the bound (operations over 989 TFLOP/s) and
+    SDPA's time on the same inputs."""
+    g = torch.Generator(device=cuda).manual_seed(sq + hq)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((b, sq, hq, 192), (b, sk, hkv, 192),
+                         (b, sk, hkv, 128)))
+    n0 = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == n0 + 1
+    assert got.shape == (b, sq, hq, 128) and got.dtype == torch.bfloat16
+    want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    assert_attention_close(got, want, 2e-5)
+    del want
+    for args in ((q.float(), k.float(), v.float()),
+                 (q, k, v[..., :64].contiguous())):
+        with pytest.raises(ValueError):
+            fa.flash_attention(*args, causal=causal, q_offset=q_offset)
+    if sq != 8192:
+        return
+
+    def ms(fn, n=5):
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    kernel = ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    ops = 2 * b * hq * (192 + 128) * (sq * (sq + 1) // 2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=192 ** -0.5))
+    print(f"[flash 192/128] B={b} S={sq} H={hq}: {kernel * 1e3:.1f} us a "
+          f"launch, bound {ops / 989e12 * 1e6:.1f} us "
+          f"({100 * ops / 989e12 / (kernel / 1e3):.1f}%), SDPA "
+          f"{sdpa * 1e3:.1f} us; {torch.cuda.get_device_name()}")
+
+
+def test_mla_layers_of_moonlight_match_the_reference(cuda, monkeypatch):
+    """Moonlight's configuration (``bench/configs/moonlight-16b-a3b.json``)
+    cut to its dense layer and one MoE layer, at its published widths in
+    bfloat16, 6 rows of 8,192 tokens (a moonlight.b8 tower call: groups of
+    512, capacity 60) through ``user_tower_step``, the (192, 128) kernel
+    once a layer, against ``bench/reference/lm_mla.py`` in float32 on the
+    same weights: relative L2 of each embedding within 0.03 (bf16 against
+    float32 over two layers, where a few hundred tokens' expert choices
+    differ; the 27-layer tower's limit and readings are in PERF.md), and
+    the reference at float8, the cell's control, past it in every row."""
+    import json
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from bench.reference import lm_mla as ref_mla
+    from bench.reference.precision import matmul_at
+    from bench.towers import lm_mla as fam_mla
+
+    cfg = json.loads((root / "bench" / "configs"
+                      / "moonlight-16b-a3b.json").read_text())
+    cfg["num_hidden_layers"] = 2
+    fam = fam_mla.Family(cfg, cuda, "cuda")
+    w = fam.make_weights(torch.Generator(device=cuda).manual_seed(11))
+    params = fam.program_params(w)
+    tokens = torch.randint(0, cfg["vocab_size"], (6, 8192), device=cuda,
+                           dtype=torch.int32,
+                           generator=torch.Generator(device=cuda).manual_seed(12))
+    n0 = fa.LAUNCHES["flash_attention"]
+    got = fam.tower_fn()(params, tokens)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == n0 + 2
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    want = ref_mla.user_embedding(w, tokens, cfg, 6, matmul_at("float32"))
+    rel = lambda a: ((a.double() - want.double()).norm(dim=-1)
+                     / want.double().norm(dim=-1))
+    ctrl = rel(ref_mla.user_embedding(w, tokens, cfg, 6, matmul_at("fp8")))
+    print(f"[mla layers] relative L2 per row {rel(got).tolist()}, float8 "
+          f"control {ctrl.tolist()}")
+    assert float(rel(got).max()) < 0.03 < float(ctrl.min())
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_lm_tower_cuda_backend_matches_torch_backend(cuda, dtype):
     """The SMOKE TinyLlama tower at S=1152 (the flash path): the cuda
